@@ -2,15 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA day kernel from ``parasitoids_tpu_torch/csrc``, holds it
-against its plain torch twin on real Kalbar days at the headline shapes
-(D = 801, T = 1440, K = 44), reproduces the checked-in goldens through the
-kernel, then drives the main path — the CLI population run at the Kalbar
-default and ``forward_fields`` at the prior-coverage windows — and checks
-that every simulation went through the kernel once per day.  Any failed
-phase exits non-zero.  The last line is a JSON object with ``"ok": true``
-and the device; the line before it lists the kernels with their launches,
-errors and times.  Needs one CUDA device; imports no JAX.
+Builds the CUDA day kernels from ``parasitoids_tpu_torch/csrc``, holds the
+forward (K1/K2) against its plain torch twin on real Kalbar days at the
+headline shapes (D = 801, T = 1440, K = 44), reproduces the checked-in
+goldens through the kernel, then drives the forward main path — the CLI
+population run at the Kalbar default and ``forward_fields`` at the
+prior-coverage windows — and checks that every simulation went through the
+kernel once per day.  Then the gradient path: the backward kernel (K3/K4)
+against its plain twin at the headline shapes, the gradient of the log
+posterior at the Bayes default (801²) through the kernels and through the
+plain path, and the MAP CLI at its default (401²) with its value and
+gradient held against a JAX golden.  Any failed phase exits non-zero.  The
+last line is a JSON object with ``"ok": true`` and the device; the line
+before it lists the kernels with their launches, errors and times.  Needs
+one CUDA device; imports no JAX.
 """
 
 import json
@@ -31,6 +36,33 @@ BUF_TOL, HI_TOL = 2e-6, 3e-6      # atol of test_pallas_kernel.py: upper bounds
 # A weight or scale error of 1e-4 relative breaks both limits.
 ABS_LIMIT = 1e-8                  # max |kernel - plain|, buffer and loss
 REL_LIMIT = 3e-5                  # max |kernel - plain| / buffer peak
+
+
+# K3/K4 vs the plain backward on the card: each output within its own
+# atol + BWD_RTOL * scale, scale its largest magnitude (ct_loss·h for
+# dclip).  Sound readings at the headline shapes on an H100 (days 0/9/17,
+# seven rho): dh within 2.3e-5 of its scale (its error is relative, so no
+# atol); the largest absolute errors of the others are dmu 4.1e-11, dclip
+# 3.5e-9, dsig 4.4e-10, drho 2.8e-8 where |drho| is small (up to 8.3e-7 at
+# |drho| 0.29, inside the rtol) and dcell 3.9e-9.  The four shared sums
+# cancel over 1,440 minutes, so their error is absolute: f32
+# summation-order noise.  Each atol is about ten times its reading.
+BWD_RTOL = 2e-4
+BWD_ATOL = {'dh': 0.0, 'dmu': 5e-10, 'dclip': 4e-8, 'dsig_x': 5e-9,
+            'dsig_y': 5e-9, 'drho': 3e-7, 'dcell': 4e-8}
+# log-posterior gradient, kernels vs the plain path at 801² (sound
+# readings on an H100: value equal, gradient relative L2 7.4e-7 at most,
+# each component within 6.3e-5 of its magnitude), and the MAP value and
+# gradient at 401² against the JAX golden (readings 4.7e-7, 2.3e-6, each
+# component within 1.9e-6 of the largest), each limit about ten times its
+# reading; a component that is 0 (n_periods is pinned) must stay 0 to
+# 1e-8 of the largest
+GRAD_VALUE_RTOL, GRAD_L2_LIMIT = 1e-6, 1e-5
+GRAD_COMP_RTOL, GRAD_COMP_ATOL = 1e-3, 1e-8
+GOLDEN_VALUE_RTOL, GOLDEN_L2_LIMIT = 5e-6, 3e-5
+GOLDEN_COMP_LIMIT = 2e-5          # max |dg_i| / max |g|
+GRAD_GOLDEN = os.path.join(ROOT, 'tests', 'torch_golden',
+                           'map_grad_401.npz')
 
 
 class SmokeError(RuntimeError):
@@ -247,6 +279,236 @@ def phase_main_path(dev, card):
     return day_kernel.LAUNCHES, sec
 
 
+def phase_backward_vs_plain(dev, card):
+    """K3/K4 against the plain backward on days 0, 9, 17 of Kalbar at the
+    headline shapes, seeded random cotangents; two launches bitwise
+    equal; returns (worst error over scale, abs error, timings)."""
+    from parasitoids_tpu_torch.models.forward import (prior_coverage_windows,
+                                                      setup_forward)
+    from parasitoids_tpu_torch.ops.daily_kernel import day_scatter_inputs
+    from parasitoids_tpu_torch.ops.day_kernel import (accumulate_day_bwd,
+                                                      accumulate_day_bwd_plain)
+    print('[6] backward kernel vs plain on the card (D = 801, T = 1440, '
+          'K = 44)')
+    p = kalbar_params()
+    cell = p.domain_info[0] / p.domain_info[1]
+    p.kernel_rad, p.kernel_rad_local = prior_coverage_windows(cell)
+    s = setup_forward(p, device=dev)
+    K = s.kcfg.K
+    buf_len = s.scfg.dom_len + 4 * K
+    hp = (p.lam, *p.g_params, *p.f_params)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ct_buf = torch.randn((buf_len, buf_len), generator=gen, device=dev)
+    ct_loss = torch.randn((), generator=gen, device=dev)
+    names = ('dh', 'dmu', 'dclip', 'dsig_x', 'dsig_y', 'drho', 'dcell')
+    worst = {'K3': 0.0, 'K4': 0.0}
+    worst_abs = {'K3': 0.0, 'K4': 0.0}
+    timing = {}
+    for day in (0, 9, 17):
+        h, mu, idx, clip, _ = day_scatter_inputs(
+            s.wind_flat, s.wind_cumsum, day, hp, p.mu_r, p.n_periods, 0,
+            s.kcfg, s.rad_dist)
+        for rho in (0.253, 0.5, 0.8, 0.93, -0.93, 0.99, -0.99):
+            Dp = (p.Dparams[0], p.Dparams[1], rho)
+            args = (ct_buf, ct_loss, h, mu, idx, clip, Dp, cell, K, buf_len)
+            got = accumulate_day_bwd(*args)
+            again = accumulate_day_bwd(*args)
+            want = accumulate_day_bwd_plain(*args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  'day {:2d} rho {:+.3f}: two launches bitwise equal'.format(
+                      day, rho))
+            got = [got[0], got[1], got[2], *got[3], got[4]]
+            want = [want[0], want[1], want[2], *want[3], want[4]]
+            scales = [float(w.abs().max()) for w in want]
+            scales[2] = float((ct_loss * h).abs().max())
+            branch = 'K4' if abs(rho) >= 0.925 else 'K3'
+            errs = []
+            for name, g, w, sc in zip(names, got, want, scales):
+                e = float((g - w).abs().max())
+                errs.append((name, e, e / max(sc, 1e-30),
+                             e <= BWD_ATOL[name] + BWD_RTOL * sc))
+            rel = max(r for _, _, r, _ in errs)
+            ok = all(np.isfinite(e) and inside for _, e, _, inside in errs)
+            check(ok, 'day {:2d} rho {:+.3f} ({}): every output within its '
+                  'atol + {:.0e} * scale; |kernel - plain| (/ scale): {}'
+                  .format(day, rho, branch, BWD_RTOL,
+                          ', '.join('{} {:.2e} ({:.2e})'.format(n, e, r)
+                                    for n, e, r, _ in errs)))
+            worst[branch] = max(worst[branch], rel)
+            worst_abs[branch] = max(worst_abs[branch],
+                                    max(e for _, e, _, _ in errs))
+            if day == 9 and rho in (0.253, 0.99):
+                timing[branch] = (
+                    median_ms(lambda: accumulate_day_bwd(*args), 20),
+                    median_ms(lambda: accumulate_day_bwd_plain(*args), 5))
+                print('  day 9 {}: kernel {:.4f} ms, plain {:.4f} ms '
+                      '(median, {})'.format(branch, *timing[branch], card))
+    return worst, worst_abs, timing
+
+
+def value_and_grad(neg_logpost, z0):
+    z = z0.clone().requires_grad_()
+    v = neg_logpost(z)
+    v.backward()
+    return float(v.detach()), z.grad.detach().double().cpu().numpy()
+
+
+def timed(fn, reps=3):
+    """Median host seconds of ``fn`` (ending in a synchronize) after one
+    warm-up run."""
+    fn()
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - tic)
+    return float(np.median(secs))
+
+
+def phase_posterior_gradient(dev, card):
+    """Value and gradient of the log posterior at the Bayes default (801²,
+    25 m, K = 44, Kl = 20, 18 days, pre-spread day) through K1-K4 and on
+    the plain path; returns (seconds per value, per value+gradient, peak
+    bytes)."""
+    from parasitoids_tpu_torch.bayes import map_fit
+    from parasitoids_tpu_torch.bayes.model import (BayesSetup,
+                                                   _kalbar_default_params)
+    from parasitoids_tpu_torch.ops import day_kernel
+    print('[7] log-posterior gradient at the Bayes default (801^2, '
+          '18 days, K = 44, Kl = 20, pre-spread day)')
+    runs = {}
+    for path, use_pallas in (('kernels', None), ('plain', False)):
+        p = _kalbar_default_params()
+        p.use_pallas = use_pallas
+        setup = BayesSetup(p, device=dev)
+        check(setup.setup.kcfg.pallas == (use_pallas is None),
+              '{}: accumulate path {}'.format(path, 'CUDA kernels'
+                                              if setup.setup.kcfg.pallas
+                                              else 'plain torch'))
+        check((setup.setup.kcfg.K, setup.setup.kcfg.K_local,
+               setup.ndays) == (44, 20, 18), path + ': K = 44, Kl = 20, '
+              '18 days')
+        neg, _, _ = map_fit._make_objective(setup, True)
+        z0 = map_fit.initial_z(setup, True)
+        before = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+        runs[path] = value_and_grad(neg, z0)
+        torch.cuda.synchronize()
+        n_fwd = day_kernel.LAUNCHES - before[0]
+        n_bwd = day_kernel.LAUNCHES_BWD - before[1]
+        want = (18, 18) if path == 'kernels' else (0, 0)
+        check((n_fwd, n_bwd) == want, '{}: {} forward and {} backward '
+              'kernel launches for one value+gradient'.format(path, n_fwd,
+                                                              n_bwd))
+        if path == 'kernels':
+            torch.cuda.reset_peak_memory_stats(dev)
+            runs[path] = value_and_grad(neg, z0)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev)
+            with torch.no_grad():
+                sec_v = timed(lambda: neg(z0))
+            sec_vg = timed(lambda: value_and_grad(neg, z0))
+            print('  {}: {:.4f} s per value, {:.4f} s per value+gradient '
+                  '(median of 3), peak {:.1f} MiB allocated for one '
+                  'value+gradient ({})'.format(path, sec_v, sec_vg,
+                                               peak / 2 ** 20, card))
+        else:
+            sec_plain = timed(lambda: value_and_grad(neg, z0), reps=1)
+            print('  plain: {:.4f} s per value+gradient ({})'.format(
+                sec_plain, card))
+    (vk, gk), (vp, gp) = runs['kernels'], runs['plain']
+    dv = abs(vk - vp) / abs(vp)
+    l2 = float(np.linalg.norm(gk - gp) / np.linalg.norm(gp))
+    dg, gmax = np.abs(gk - gp), np.abs(gp).max()
+    comp = dg / np.maximum(np.abs(gp), 1e-30)
+    print('  value kernels {!r} plain {!r}; gradient (plain): {}; '
+          'per-component |dg|/|g|: {}'.format(
+              vk, vp, np.array2string(gp, precision=3),
+              np.array2string(comp, precision=2)))
+    check(np.isfinite(vk) and np.all(np.isfinite(gk)) and
+          dv <= GRAD_VALUE_RTOL and l2 <= GRAD_L2_LIMIT,
+          'kernels vs plain: value rel diff {:.3e} <= {:.0e}, gradient '
+          'relative L2 {:.3e} <= {:.0e}'.format(dv, GRAD_VALUE_RTOL, l2,
+                                                GRAD_L2_LIMIT))
+    inside = dg <= GRAD_COMP_RTOL * np.abs(gp) + GRAD_COMP_ATOL * gmax
+    check(bool(np.all(inside)), 'kernels vs plain: every gradient component '
+          'within {:.0e} of its magnitude + {:.0e} of the largest (worst '
+          '{:.3e} of its magnitude, component {})'.format(
+              GRAD_COMP_RTOL, GRAD_COMP_ATOL, float(comp.max()),
+              int(comp.argmax())))
+    return sec_v, sec_vg, peak, sec_plain, dv, l2
+
+
+def phase_map_cli(dev, card):
+    """The MAP CLI at its default (401², 50 m, K = 22, Kl = 10, 18 days,
+    sprd_factor fitted) for 5 Adam steps, with both kernel counts zeroed
+    just before and read just after, then its value and gradient at the
+    initial z against the JAX golden."""
+    import tempfile
+    from parasitoids_tpu_torch.bayes import map_fit
+    from parasitoids_tpu_torch.bayes.model import BayesSetup
+    from parasitoids_tpu_torch.ops import day_kernel
+    print('[8] MAP CLI at its default (401^2, 18 days, K = 22, Kl = 10)')
+    steps = 5
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, 'map_fit.txt')
+        day_kernel.LAUNCHES = day_kernel.LAUNCHES_BWD = 0
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fit = map_fit.main(['--MAP', '--steps', str(steps), '-o', out],
+                           device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - tic
+        launches = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+        check(os.path.getsize(out) > 0 and
+              open(out).readline().startswith('MAP fit: logp ='),
+              'report written ({} bytes)'.format(os.path.getsize(out)))
+    losses = fit['losses']
+    check(losses.shape == (steps,) and bool(np.all(np.isfinite(losses))),
+          'loss finite at every step: ' + np.array2string(losses))
+    check(losses[-1] < losses[0], 'loss falls: {:.4f} -> {:.4f}'.format(
+        losses[0], losses[-1]))
+    # each step is one value+gradient; the final log posterior one value
+    check(launches == ((steps + 1) * 18, steps * 18),
+          '{} forward and {} backward launches for {} steps of 18 days'
+          .format(*launches, steps))
+    print('  {:.4f} s per MAP step including setup ({} steps in {:.2f} s; '
+          '{})'.format(sec / steps, steps, sec, card))
+
+    golden = np.load(GRAD_GOLDEN)
+    setup = BayesSetup(map_fit.map_cli_params(), device=dev)
+    check((setup.setup.kcfg.K, setup.setup.kcfg.K_local, setup.ndays,
+           tuple(golden['domain_info'])) == (int(golden['K']),
+                                              int(golden['K_local']),
+                                              int(golden['ndays']),
+                                              (10000.0, 200.0)),
+          'golden configuration: 401^2, K = 22, Kl = 10, 18 days')
+    neg, _, _ = map_fit._make_objective(setup, True)
+    z0 = torch.as_tensor(golden['z0'], device=dev)
+    dz = float((map_fit.initial_z(setup, True) - z0).abs().max())
+    check(dz <= 1e-6, 'the port\'s initial z is the golden z0 to {:.1e} '
+          '(f32 rounding of the bijections)'.format(dz))
+    v, g = value_and_grad(neg, z0)
+    sec_vg = timed(lambda: value_and_grad(neg, z0))
+    want_v, want_g = float(golden['value']), golden['grad']
+    dv = abs(v - want_v) / abs(want_v)
+    l2 = float(np.linalg.norm(g - want_g) / np.linalg.norm(want_g))
+    comp = np.abs(g - want_g) / np.abs(want_g).max()
+    print('  value {!r} (JAX {!r}); per-component |dg| / max|g|: {}'.format(
+        v, want_v, np.array2string(comp, precision=2)))
+    print('  {:.4f} s per value+gradient at 401^2 (median of 3; {})'.format(
+        sec_vg, card))
+    check(dv <= GOLDEN_VALUE_RTOL and l2 <= GOLDEN_L2_LIMIT and
+          float(comp.max()) <= GOLDEN_COMP_LIMIT,
+          'JAX golden: value rel diff {:.3e} <= {:.0e}, gradient relative '
+          'L2 {:.3e} <= {:.0e}, worst component {:.3e} <= {:.0e} of the '
+          'largest'.format(dv, GOLDEN_VALUE_RTOL, l2, GOLDEN_L2_LIMIT,
+                           float(comp.max()), GOLDEN_COMP_LIMIT))
+    return launches, sec / steps, sec_vg, dv, l2
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible to torch', file=sys.stderr)
@@ -275,6 +537,13 @@ def main():
     err, timing = phase_kernel_vs_plain(dev, card)
     phase_goldens(dev)
     launches, sec = phase_main_path(dev, card)
+    bwd_err, bwd_abs, bwd_timing = phase_backward_vs_plain(dev, card)
+    sec_v, sec_vg, peak, sec_plain, grad_dv, grad_l2 = \
+        phase_posterior_gradient(dev, card)
+    map_launches, sec_step, sec_vg_401, gold_dv, gold_l2 = \
+        phase_map_cli(dev, card)
+    check(launches > 0 and min(map_launches) > 0,
+          'both kernels launched on their main paths')
     check('jax' not in sys.modules, 'no JAX module was imported')
 
     kernels = [{
@@ -289,6 +558,29 @@ def main():
         'ms': timing['K1'][0], 'plain_ms': timing['K1'][1],
         'ms_k2': timing['K2'][0], 'plain_ms_k2': timing['K2'][1],
         'sec_per_simulation': sec,
+        'sec_per_value_and_grad_801': sec_vg,
+        'launches_map_cli': map_launches[0],
+    }, {
+        'name': 'day_accumulate_bwd (K3 low-|rho| + K4 high-|rho|)',
+        'route': 'cuda',
+        'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
+        'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:326',
+        'launches': map_launches[1],
+        'max_abs_err': max(bwd_abs.values()),
+        'max_err_over_scale_k3': bwd_err['K3'],
+        'max_err_over_scale_k4': bwd_err['K4'],
+        'ms': bwd_timing['K3'][0], 'plain_ms': bwd_timing['K3'][1],
+        'ms_k4': bwd_timing['K4'][0], 'plain_ms_k4': bwd_timing['K4'][1],
+        'sec_per_value_801': sec_v,
+        'sec_per_value_and_grad_801': sec_vg,
+        'sec_per_value_and_grad_801_plain': sec_plain,
+        'peak_bytes_value_and_grad_801': peak,
+        'grad_vs_plain_801_rel_l2': grad_l2,
+        'value_vs_plain_801_rel': grad_dv,
+        'sec_per_value_and_grad_401': sec_vg_401,
+        'sec_per_map_step_401': sec_step,
+        'golden_value_rel_401': gold_dv,
+        'golden_grad_rel_l2_401': gold_l2,
     }]
     print(smi)
     print(json.dumps({'kernels': kernels}))

@@ -154,20 +154,21 @@ def setup_forward(params: Params, device=None, dtype=None) -> ForwardSetup:
 
 def build_all_kernels(wind_flat, wind_cumsum, hparams, Dparams, Dlparams,
                       mu_r, n_periods, rad_dist, start_idx,
-                      kcfg: KernelConfig, ndays: int):
+                      kcfg: KernelConfig, ndays: int, branches=(None, None)):
     """Every day's dispersal kernel (the reference's pool fan-out, the JAX
     package's scan over days); returns ``((ndays, D, D), (ndays,) losses)``
-    on ``wind_flat``'s device."""
-    D = 2 * kcfg.rad_res + 1
-    kernels = torch.empty((ndays, D, D), dtype=wind_flat.dtype,
-                          device=wind_flat.device)
-    losses = torch.empty(ndays, dtype=wind_flat.dtype,
-                         device=wind_flat.device)
-    for d in range(ndays):
-        kernels[d], losses[d] = build_daily_kernel(
-            wind_flat, wind_cumsum, d, hparams, Dparams, Dlparams, mu_r,
-            n_periods, rad_dist, start_idx if d == 0 else 0, kcfg)
-    return kernels, losses
+    on ``wind_flat``'s device.  The parameters may be tensors that require
+    grad; ``branches`` (see ``build_daily_kernel``) spares a host read of
+    each tensor ρ per day."""
+    days = [build_daily_kernel(wind_flat, wind_cumsum, d, hparams, Dparams,
+                               Dlparams, mu_r, n_periods, rad_dist,
+                               start_idx if d == 0 else 0, kcfg, branches)
+            for d in range(ndays)]
+    # stacked out of place, so the result is differentiable in every
+    # parameter (the day kernel's backward keeps only per-minute inputs, so
+    # no per-day checkpoint is needed)
+    return (torch.stack([pmf for pmf, _ in days]),
+            torch.stack([loss for _, loss in days]))
 
 
 def forward_fields(wind_flat, wind_cumsum, hparams, Dparams, Dlparams, mu_r,

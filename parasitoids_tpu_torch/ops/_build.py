@@ -31,6 +31,9 @@ _SIGNATURES = {
         'parasitoids_day_smem_bytes': [_INT],
         'parasitoids_day_accumulate': [_VP, _VP, _VP, _VP, _INT, _INT, _INT,
                                        _VP, _VP, _VP, _VP],
+        'parasitoids_day_bwd_smem_bytes': [_INT],
+        'parasitoids_day_accumulate_bwd': [_VP] * 6 + [_INT] * 3 +
+                                          [_VP] * 6 + [_VP],
     },
 }
 

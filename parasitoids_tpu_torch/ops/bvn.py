@@ -1,5 +1,5 @@
-"""Bivariate-normal cell masses, PyTorch port of the forward of
-``parasitoids_tpu/ops/bvn.py::bvn_cell_masses`` (:66-200, :283-309).
+"""Bivariate-normal cell masses, PyTorch port of
+``parasitoids_tpu/ops/bvn.py::bvn_cell_masses`` (:66-309).
 
 The upper-orthant probability ``L(h, k) = P(X > h, Y > k)`` is evaluated
 on the ``(2K+2)²`` lattice of cell corners with the Drezner–Wesolowsky /
@@ -7,11 +7,16 @@ Genz algorithm, and cell masses are the four-corner differences, clamped
 at 0.  The node count follows Genz's |ρ| thresholds (6/12/20 nodes below
 0.3/0.75/0.925, the asymptotic series beyond) as the JAX
 ``bvn_upper_grid`` does.  The JAX op takes the branch with a
-``lax.switch`` on the traced ρ; here the branch is taken on the host from
-|ρ|, which is free for a Python number and costs one wait for a CUDA
-tensor.  The CUDA main path passes Python numbers (the local kernel) or
-does not come here at all (the flight kernel, whose CUDA day kernel takes
-the branch on the device).
+``lax.switch`` on the traced ρ; here it is picked on the host: from a
+Python number for free, from a ``branch`` the caller read once (the log
+posterior reads every ρ once per evaluation), or else by reading ρ, which
+for a ρ on a CUDA device waits on the card.
+
+The gradient is the JAX op's closed-form rule, not autograd through the
+quadrature: :class:`_CellMasses` saves the inputs and the clamped output,
+and its backward (:func:`cell_masses_vjp`) contracts the cotangent with
+the closed-form CDF derivative lattices.  The plain day-accumulate
+backward (``ops/day_kernel.py``) shares that rule.
 
 Everything is batched over leading dimensions of ``mu``: ``(2,)`` gives
 one ``(n, n)`` block, ``(C, 2)`` gives ``(C, n, n)``.
@@ -23,10 +28,13 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..device import scalar
 
-__all__ = ['bvn_cell_masses', 'bvn_upper_grid', 'gauss_legendre', 'gl_nodes']
+__all__ = ['bvn_cell_masses', 'bvn_upper_grid', 'cell_masses_vjp',
+           'corner_rect', 'gauss_legendre', 'genz_branch', 'gl_nodes']
 
 _TWO_PI = 2.0 * np.pi
 _SQRT_2PI = float(np.sqrt(2.0 * np.pi))
@@ -102,18 +110,131 @@ def _upper_highcorr(h, k, rho, G=20):
     return torch.where(sgn > 0, pos, neg)
 
 
-def bvn_upper_grid(h, k, rho, phi_prod, abs_rho: float):
-    """Upper-orthant probabilities on a grid (``rho`` a 0-d tensor); the
-    node count follows Genz's thresholds on ``abs_rho``, |ρ| on the
-    host."""
-    ar = abs_rho
-    if ar >= 0.925:
+def genz_branch(abs_rho: float) -> int:
+    """Genz's rule for a host |ρ|: 0, 1, 2 for the 6-, 12- and 20-node
+    quadrature (|ρ| below 0.3, 0.75, 0.925), 3 for the high-|ρ| series."""
+    return (abs_rho >= 0.3) + (abs_rho >= 0.75) + (abs_rho >= 0.925)
+
+
+def bvn_upper_grid(h, k, rho, phi_prod, branch=None):
+    """Upper-orthant probabilities on a grid (``rho`` a sanitized 0-d
+    tensor).  The node count follows Genz's thresholds on |ρ|: ``branch``
+    (from :func:`genz_branch`) when the caller knows |ρ| on the host, else
+    read from ρ here (a host read, which waits for a ρ on the card)."""
+    if branch is None:
+        branch = genz_branch(abs(float(rho.detach())))
+    if branch == 3:
         return _upper_highcorr(h, k, rho)
-    G = 20 if ar >= 0.75 else 12 if ar >= 0.3 else 6
-    return _upper_lowcorr(h, k, rho, G, phi_prod)
+    return _upper_lowcorr(h, k, rho, (6, 12, 20)[branch], phi_prod)
 
 
-def bvn_cell_masses(mu, sig_x, sig_y, rho, cell, K):
+def _corner_edges(mu, sig_x, sig_y, cell, K):
+    """Standardized corner coordinates ``(xe, ye)``, each ``(..., 2K+2)``:
+    x ascends with the column, y descends with the row."""
+    n = 2 * K + 1
+    ar = torch.arange(n + 1, dtype=mu.dtype, device=mu.device)
+    xe = ((ar - K - 0.5) * cell - mu[..., 0:1]) / sig_x
+    ye = ((K + 0.5 - ar) * cell - mu[..., 1:2]) / sig_y
+    return xe, ye
+
+
+def corner_rect(mu, sig_x, sig_y, rho, cell, K, branch=None):
+    """Unclamped four-corner differences ``(..., 2K+1, 2K+1)`` of the
+    upper-orthant lattice on sanitized parameters: the cell masses before
+    the clamp at 0 (whose mask the backward needs).  ``branch``: see
+    :func:`bvn_upper_grid`."""
+    xe, ye = _corner_edges(mu, sig_x, sig_y, cell, K)
+    h = xe[..., None, :]                                      # [row, col]
+    k = ye[..., :, None]
+    ndtr = torch.special.ndtr
+    phi_prod = ndtr(-xe)[..., None, :] * ndtr(-ye)[..., :, None]
+    U = bvn_upper_grid(h, k, rho, phi_prod, branch)    # [y_edge, x_edge]
+    # cell (row r, col c): x in [xe[c], xe[c+1]], y in [ye[r+1], ye[r]]
+    return ((U[..., 1:, :-1] - U[..., 1:, 1:]) -
+            (U[..., :-1, :-1] - U[..., :-1, 1:]))
+
+
+def cell_masses_vjp(ctb, mu, sig_x, sig_y, rho, cell, K):
+    """Reverse-mode rule of the cell masses, from the closed-form BVN CDF
+    derivatives (the transpose of ``_cell_masses_tangent``,
+    ``parasitoids_tpu/ops/bvn.py:224-266``).  With L(h, k; ρ) =
+    P(X > h, Y > k):
+
+        ∂L/∂h = −φ(h) Φ(−(k − ρh)/√(1−ρ²))
+        ∂L/∂k = −φ(k) Φ(−(h − ρk)/√(1−ρ²))
+        ∂L/∂ρ = φ₂(h, k; ρ)
+
+    Args:
+        ctb: ``(..., n, n)`` cotangent on the cell masses, already zero
+            where the primal was clamped.
+        mu, sig_x, sig_y, rho, cell: the sanitized primal inputs.
+
+    Returns:
+        ``(dmu (..., 2), dsig_x, dsig_y, drho, dcell)``; the four scalars
+        are summed over the leading dimensions.
+    """
+    n = 2 * K + 1
+    dtype, device = mu.dtype, mu.device
+    xe, ye = _corner_edges(mu, sig_x, sig_y, cell, K)
+    # adjoint of the four-corner difference, [y_edge, x_edge]:
+    # ctU[i, j] = ctb[i-1, j] - ctb[i-1, j-1] - ctb[i, j] + ctb[i, j-1]
+    t1 = F.pad(ctb, (0, 1, 1, 0))
+    t2 = F.pad(ctb, (1, 0, 1, 0))
+    t3 = F.pad(ctb, (0, 1, 0, 1))
+    t4 = F.pad(ctb, (1, 0, 0, 1))
+    ctU = ((t1 - t2) - t3) + t4
+    s2 = torch.clamp(1.0 - rho * rho, min=1e-12)
+    s = torch.sqrt(s2)
+    H = xe[..., None, :]
+    Kg = ye[..., :, None]
+    ndtr = torch.special.ndtr
+    pdf_x = torch.exp(-0.5 * xe * xe) / _SQRT_2PI            # φ(h)
+    pdf_y = torch.exp(-0.5 * ye * ye) / _SQRT_2PI            # φ(k)
+    Lh = -pdf_x[..., None, :] * ndtr(-(Kg - rho * H) / s)    # ∂L/∂h
+    Lk = -pdf_y[..., :, None] * ndtr(-(H - rho * Kg) / s)    # ∂L/∂k
+    # the exponent is <= 0 (a positive-definite form): exp only underflows
+    Q = (H * H - 2.0 * rho * H * Kg + Kg * Kg) / s2
+    Lrho = torch.exp(-0.5 * Q) / (_TWO_PI * s)
+    dxe = (ctU * Lh).sum(dim=-2)                              # (..., n+1)
+    dye = (ctU * Lk).sum(dim=-1)                              # (..., n+1)
+    ar = torch.arange(n + 1, dtype=dtype, device=device)
+    jcol = ar - K - 0.5                                       # x multipliers
+    irow = K + 0.5 - ar                                       # y multipliers
+    dmu = torch.stack([-dxe.sum(dim=-1) / sig_x,
+                       -dye.sum(dim=-1) / sig_y], dim=-1)
+    dsig_x = -(dxe * xe).sum() / sig_x
+    dsig_y = -(dye * ye).sum() / sig_y
+    drho = (ctU * Lrho).sum()
+    dcell = (dxe * jcol).sum() / sig_x + (dye * irow).sum() / sig_y
+    return dmu, dsig_x, dsig_y, drho, dcell
+
+
+class _CellMasses(torch.autograd.Function):
+    """Corner-CDF cell masses on sanitized inputs, with the closed-form
+    backward (the JAX op's ``custom_jvp``): the quadrature evaluates only
+    the value, and the graph keeps the inputs and the clamped output, not
+    the per-node lattices."""
+
+    @staticmethod
+    def forward(ctx, mu, sig_x, sig_y, rho, cell, K, branch):
+        out = torch.clamp(corner_rect(mu, sig_x, sig_y, rho, cell, K,
+                                      branch), min=0.0)
+        ctx.K = K
+        ctx.save_for_backward(mu, sig_x, sig_y, rho, cell, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        mu, sig_x, sig_y, rho, cell, out = ctx.saved_tensors
+        # the primal clamps tail differencing noise at 0: no cotangent there
+        ctb = torch.where(out > 0, grad, torch.zeros_like(grad))
+        dmu, dsx, dsy, drho, dcell = cell_masses_vjp(ctb, mu, sig_x, sig_y,
+                                                     rho, cell, ctx.K)
+        return dmu, dsx, dsy, drho, dcell, None, None
+
+
+def bvn_cell_masses(mu, sig_x, sig_y, rho, cell, K, branch=None):
     """Integrate N(mu, S) over every cell of a (2K+1)×(2K+1) window.
 
     Args:
@@ -121,31 +242,20 @@ def bvn_cell_masses(mu, sig_x, sig_y, rho, cell, K):
             center cell's center; its dtype and device set the output's.
         sig_x, sig_y, rho, cell: Python numbers or 0-d tensors.
         K: window half-width in cells.  The node count follows |ρ|.
+        branch: ``genz_branch(|ρ|)`` when the caller has read ρ; else it
+            is taken from a Python ρ, or read from a tensor ρ.
 
     Returns:
         (..., 2K+1, 2K+1) cell probabilities, row 0 at +y, column 0 at −x,
-        the center cell at [K, K].
+        the center cell at [K, K].  Differentiable in every tensor input
+        through the closed-form backward; the clamps of σ and ρ below pass
+        no gradient outside their active range, as in the JAX op.
     """
     dtype, device = mu.dtype, mu.device
-    abs_rho = abs(float(rho))   # free for a Python number
+    if branch is None and not torch.is_tensor(rho):
+        branch = genz_branch(abs(rho))
     sig_x = torch.clamp(scalar(sig_x, dtype, device), min=1e-8)
     sig_y = torch.clamp(scalar(sig_y, dtype, device), min=1e-8)
     rho = torch.clamp(scalar(rho, dtype, device), -1 + 1e-6, 1 - 1e-6)
     cell = scalar(cell, dtype, device)
-    n = 2 * K + 1
-    ar = torch.arange(n + 1, dtype=dtype, device=device)
-    # standardized corner coordinates: x ascends with column, y descends
-    # with row
-    xe = ((ar - K - 0.5) * cell - mu[..., 0:1]) / sig_x       # (..., n+1)
-    ye = ((K + 0.5 - ar) * cell - mu[..., 1:2]) / sig_y       # (..., n+1)
-    h = xe[..., None, :]                                      # [row, col]
-    k = ye[..., :, None]
-    ndtr = torch.special.ndtr
-    phi_prod = ndtr(-xe)[..., None, :] * ndtr(-ye)[..., :, None]
-    U = bvn_upper_grid(h, k, rho, phi_prod, abs_rho)   # [y_edge, x_edge]
-    # cell (row r, col c): x in [xe[c], xe[c+1]], y in [ye[r+1], ye[r]]
-    rect = ((U[..., 1:, :-1] - U[..., 1:, 1:]) -
-            (U[..., :-1, :-1] - U[..., :-1, 1:]))
-    # clamp f32 differencing noise in the far tails
-    return torch.clamp(rect, min=0.0)
-
+    return _CellMasses.apply(mu, sig_x, sig_y, rho, cell, K, branch)

@@ -8,7 +8,8 @@ a K-cell padded buffer (:mod:`.day_kernel`), then :func:`finish_day` —
 crop, loss accounting, the "didn't fly" local-diffusion remainder and the
 sparsify-and-renormalize of ``CalcSol.r_small_vals``.  The result is a
 dense ``(2*rad_res+1)²`` pmf.  Nothing here reads a device value on the
-host, so a day loop on CUDA never waits on the card.
+host when the caller passes the Genz branches of its tensor ρ, so such a
+day loop on CUDA never waits on the card.
 """
 
 from __future__ import annotations
@@ -126,10 +127,12 @@ def day_scatter_inputs(wind_flat, wind_cumsum, day_idx, hparams, mu_r,
 
 
 def finish_day(buf, outside_loss, clip_loss, Dlparams, config: KernelConfig,
-               rad_dist):
+               rad_dist, branch=None):
     """Crop the padded buffer, total the loss, add the "didn't fly"
     local-diffusion remainder in place into the centre window, sparsify
-    and renormalize.  Returns ``(pmf, loss)``."""
+    and renormalize.  ``branch``: the Genz branch of the local |ρ| when the
+    caller has read it (see ``ops.bvn.genz_branch``).  Returns ``(pmf,
+    loss)``."""
     _check_ported(config)
     K, Kl = config.K, config.K_local
     rad_res = config.rad_res
@@ -145,7 +148,7 @@ def finish_day(buf, outside_loss, clip_loss, Dlparams, config: KernelConfig,
     total_flight_prob = pmf.sum() + loss
     sl_x, sl_y, sl_rho = Dlparams
     local = bvn_cell_masses(torch.zeros(2, dtype=buf.dtype, device=buf.device),
-                            sl_x, sl_y, sl_rho, cell, Kl)
+                            sl_x, sl_y, sl_rho, cell, Kl, branch)
     stay = torch.where(total_flight_prob < 0.99999, 1.0 - total_flight_prob,
                        torch.zeros_like(total_flight_prob))
     pmf[rad_res - Kl:rad_res + Kl + 1,
@@ -155,7 +158,7 @@ def finish_day(buf, outside_loss, clip_loss, Dlparams, config: KernelConfig,
 
 def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
                        Dlparams, mu_r, n_periods, rad_dist, start_idx,
-                       config: KernelConfig):
+                       config: KernelConfig, branches=(None, None)):
     """One day's dispersal pmf, ``(2*rad_res+1)²``, and its loss.
 
     Args:
@@ -170,6 +173,10 @@ def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
         mu_r: wind-to-flight advection scaling.  n_periods: flight duration
             in wind samples.  rad_dist: meters from release point to side.
         start_idx: first active minute.  config: shapes and path.
+        branches: the Genz branches of the flight and local |ρ| when the
+            caller has read them (``ops.bvn.genz_branch``); a ``None`` is
+            read from its ρ where a BVN needs it (the CUDA day kernel reads
+            ρ on the device and needs no branch).
 
     ``config.pallas`` selects the CUDA day kernel (CUDA tensors only);
     otherwise the plain accumulate runs.
@@ -191,6 +198,6 @@ def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
     else:
         buf, clip_loss = accumulate_day_plain(
             h_scat, cdf_mu, idx, clip_f, Dparams, cell, K, D + 4 * K,
-            chunk=min(config.chunk, T))
+            chunk=min(config.chunk, T), branch=branches[0])
     return finish_day(buf, outside_loss, clip_loss, Dlparams, config,
-                      rad_dist)
+                      rad_dist, branches[1])

@@ -1,25 +1,32 @@
 """One day's accumulate: every flight minute's BVN block, scaled by its
 take-off probability, summed into the ``(buf_len, buf_len)`` padded day
 buffer, plus the clipped-block truncation loss
-``Σ_t clip_t · h_t · (1 − Σ block_t)``.
+``Σ_t clip_t · h_t · (1 − Σ block_t)`` — and its backward.
 
-Two implementations of one contract:
+Two implementations of one contract, forward and backward:
 
-* :func:`accumulate_day` — the wrapper.  On a CUDA tensor it launches the
-  hand-written Hopper kernel ``csrc/day_kernel.cu``, which replaces
-  ``parasitoids_tpu/ops/pallas_kernel.py::_day_kernel`` (K1 low-|ρ| and K2
-  high-|ρ|; the branch and Genz's 6/12/20 node count are read from ρ on
-  the device).  The kernel is bound by exp (MUFU) throughput, (2K+2)²·G
-  exps per minute; it builds blocks
-  into a ``(T, n, n)`` scratch and gathers them tile by tile, in a fixed
-  order, so its output is bitwise reproducible.  A fused variant that
-  drops the scratch round-trip is later work.  On a CPU tensor the
-  wrapper calls the plain version.  It never falls back from CUDA to the
-  plain version.
-* :func:`accumulate_day_plain` — the plain PyTorch twin of
-  ``parasitoids_tpu/ops/daily_kernel.py::xla_accumulate_day``: chunked
-  block build with :func:`..ops.bvn.bvn_cell_masses` (6/12/20 nodes by
-  |ρ|) and an ``index_add_`` into the buffer.
+* :func:`accumulate_day` — the wrapper, a ``torch.autograd.Function`` (the
+  JAX ``custom_vjp`` ``pallas_accumulate_day``).  On CUDA tensors its
+  forward launches the hand-written Hopper kernel ``csrc/day_kernel.cu``,
+  which replaces ``parasitoids_tpu/ops/pallas_kernel.py::_day_kernel`` (K1
+  low-|ρ| and K2 high-|ρ|; the branch and Genz's 6/12/20 node count are
+  read from ρ on the device), and its backward launches the kernel's
+  backward in the same source, which replaces ``_day_bwd_kernel`` (K3 and
+  K4).  The forward is bound by exp (MUFU) throughput, (2K+2)²·G exps per
+  minute; it builds blocks into a ``(T, n, n)`` scratch and gathers them
+  tile by tile, in a fixed order, so its output is bitwise reproducible.
+  The backward rebuilds each minute's block, so it costs the forward's
+  exps plus three closed-form lattices (two Φ and one exp per corner);
+  its per-minute partial sums are reduced in minute order, so it is
+  bitwise reproducible too.  On CPU tensors the wrapper calls the plain
+  versions.  It never falls back from CUDA to a plain version.
+* :func:`accumulate_day_plain` and :func:`accumulate_day_bwd_plain` — the
+  plain PyTorch twins: chunked block builds with
+  :func:`..ops.bvn.corner_rect` (6/12/20 nodes by |ρ|), an ``index_add_``
+  into the buffer, and the closed-form backward of
+  :func:`..ops.bvn.cell_masses_vjp`.  The forward is the twin of
+  ``parasitoids_tpu/ops/daily_kernel.py::xla_accumulate_day``; autograd
+  through it (the ``pallas=False`` path) is that XLA path's gradient.
 
 Every scatter start ``idx`` must lie in ``[0, buf_len − (2K+1)]`` (true
 by construction in ``day_scatter_inputs``), so no block is ever clamped.
@@ -28,24 +35,49 @@ by construction in ``day_scatter_inputs``), so no block is ever clamped.
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..device import scalar
-from .bvn import bvn_cell_masses, gl_nodes
+from .bvn import (bvn_cell_masses, cell_masses_vjp, corner_rect, genz_branch,
+                  gl_nodes)
 
-__all__ = ['LAUNCHES', 'accumulate_day', 'accumulate_day_plain']
+__all__ = ['LAUNCHES', 'LAUNCHES_BWD', 'accumulate_day',
+           'accumulate_day_bwd', 'accumulate_day_bwd_plain',
+           'accumulate_day_plain']
 
-# kernel launches so far (one per day accumulated on the card); a run reads
-# it to show that its main path went through the kernel
+# kernel launches so far (one per day accumulated on the card, and one per
+# day's backward); a run reads them to show that its main path went
+# through the kernels
 LAUNCHES = 0
+LAUNCHES_BWD = 0
 
 _G_NODES = 20
 _N_SCALARS = 16                      # csrc/day_kernel.cu kScalars
 _SMEM_LIMIT = 232448                 # dynamic shared memory per CTA, H100
+_RHO_MAX = 1 - 1e-6                  # the |ρ| clamp of the BVN op
+
+
+def _block_offsets(idx, K, buf_len):
+    """Flat buffer index of every cell of every minute's block, (T, n²)."""
+    n = 2 * K + 1
+    ar = torch.arange(n, device=idx.device)
+    offs = (ar[:, None] * buf_len + ar[None, :]).reshape(-1)
+    start = idx[:, 0].long() * buf_len + idx[:, 1].long()
+    return start[:, None] + offs[None, :]
+
+
+def _read_branch(rho):
+    """Genz branch of a number or tensor ρ, read on the host once."""
+    if torch.is_tensor(rho):
+        rho = float(rho.detach())
+    return genz_branch(abs(rho))
 
 
 def accumulate_day_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
-                         buf_len, chunk=240):
+                         buf_len, chunk=240, branch=None):
     """Plain PyTorch accumulate (the kernel's reference and the CPU path).
+    Differentiable: autograd through it uses the BVN op's closed-form
+    backward.
 
     Args:
         h_scat: (T,) take-off probability per minute (0 for blocks wholly
@@ -53,47 +85,114 @@ def accumulate_day_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
         cdf_mu: (T, 2) sub-cell mean offsets (m).
         idx: (T, 2) int32 scatter start (row, col) in the padded buffer.
         clipped: (T,) 1.0 where the block straddles the domain boundary.
-        Dparams: (sig_x, sig_y, rho) flight diffusion, numbers or 0-d
-            tensors.
+        Dparams: (sig_x, sig_y, rho) flight diffusion: numbers, 0-d
+            tensors or a (3,) tensor.
         cell: cell side (m).  K: window half-width.  buf_len: buffer side.
         chunk: minutes per block build; bounds the corner lattice's memory.
+        branch: ``genz_branch(|ρ|)`` when the caller has read ρ, else ρ is
+            read here once.
 
     Returns:
         (buf, loss): the (buf_len, buf_len) buffer and the scalar loss.
     """
     T = h_scat.shape[0]
-    n = 2 * K + 1
     sig_x, sig_y, rho = Dparams
+    if branch is None:
+        branch = _read_branch(rho)
     dev, dtype = h_scat.device, h_scat.dtype
-    flat = torch.zeros(buf_len * buf_len, dtype=dtype, device=dev)
-    # flat offsets of a block's cells relative to its start cell
-    ar = torch.arange(n, device=dev)
-    offs = (ar[:, None] * buf_len + ar[None, :]).reshape(-1)
-    start = idx[:, 0].long() * buf_len + idx[:, 1].long()
+    buf = torch.zeros((buf_len, buf_len), dtype=dtype, device=dev)
+    flat_idx = _block_offsets(idx, K, buf_len)
     loss = torch.zeros((), dtype=dtype, device=dev)
     C = min(chunk, T)
     for s in range(0, T, C):
         e = min(s + C, T)
-        blocks = bvn_cell_masses(cdf_mu[s:e], sig_x, sig_y, rho, cell, K)
+        blocks = bvn_cell_masses(cdf_mu[s:e], sig_x, sig_y, rho, cell, K,
+                                 branch)
         b_total = blocks.sum(dim=(1, 2))
         h_c = h_scat[s:e]
-        flat.index_add_(0, (start[s:e, None] + offs[None, :]).reshape(-1),
-                        (blocks * h_c[:, None, None]).reshape(-1))
+        buf.view(-1).index_add_(0, flat_idx[s:e].reshape(-1),
+                                (blocks * h_c[:, None, None]).reshape(-1))
         loss = loss + torch.sum(clipped[s:e] * h_c * (1.0 - b_total))
-    return flat.view(buf_len, buf_len), loss
+    return buf, loss
 
 
-def _pack_constants(Dparams, cell, device):
+def _sanitize(Dparams, dtype, device):
+    """Raw (3,) diffusion tensor and the BVN op's clamped σx, σy, ρ."""
+    raw = torch.stack([scalar(v, dtype, device) for v in Dparams])
+    return (raw, torch.clamp(raw[0], min=1e-8),
+            torch.clamp(raw[1], min=1e-8),
+            torch.clamp(raw[2], -_RHO_MAX, _RHO_MAX))
+
+
+def accumulate_day_bwd_plain(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
+                             Dparams, cell, K, buf_len, chunk=240):
+    """Plain backward of :func:`accumulate_day_plain` (the kernel's
+    reference and the CPU backward): per minute, gather the cotangent
+    window, rebuild the block and contract against the closed-form BVN
+    derivative lattices (``parasitoids_tpu/ops/pallas_kernel.py``
+    ``_day_bwd_kernel``, with the node count of the forward by |ρ|).
+
+    Args:
+        ct_buf: (buf_len, buf_len) cotangent on the buffer.
+        ct_loss: cotangent on the loss (number or 0-d tensor).
+        The rest: the forward's inputs.
+
+    Returns:
+        ``(dh (T,), dmu (T, 2), dclip (T,), dDparams (3,), dcell ())``;
+        the σ and ρ components pass through the clamps' VJPs (zero where
+        the raw value lies outside the clamp's active range).
+    """
+    T = h_scat.shape[0]
+    n = 2 * K + 1
+    dev, dtype = h_scat.device, h_scat.dtype
+    branch = _read_branch(Dparams[2])
+    raw, sig_x, sig_y, rho = _sanitize(Dparams, dtype, dev)
+    cell = scalar(cell, dtype, dev)
+    ct_loss = scalar(ct_loss, dtype, dev)
+    ct_flat = ct_buf.reshape(-1)
+    flat_idx = _block_offsets(idx, K, buf_len)
+    dh = torch.empty(T, dtype=dtype, device=dev)
+    dclip = torch.empty(T, dtype=dtype, device=dev)
+    dmu = torch.empty((T, 2), dtype=dtype, device=dev)
+    dscal = torch.zeros(4, dtype=dtype, device=dev)
+    C = min(chunk, T)
+    for s in range(0, T, C):
+        e = min(s + C, T)
+        rect = corner_rect(cdf_mu[s:e], sig_x, sig_y, rho, cell, K, branch)
+        block = torch.clamp(rect, min=0.0)
+        bsum = block.sum(dim=(1, 2))
+        ct_win = ct_flat[flat_idx[s:e]].view(e - s, n, n)
+        h_c, cl_c = h_scat[s:e], clipped[s:e]
+        dh[s:e] = ((ct_win * block).sum(dim=(1, 2)) +
+                   ct_loss * cl_c * (1.0 - bsum))
+        dclip[s:e] = ct_loss * h_c * (1.0 - bsum)
+        # cotangent on the block: the buffer's h·block plus the loss's
+        # −ct_loss·clip·h·bsum, masked by the clamp at 0
+        ctb = torch.where(rect > 0,
+                          h_c[:, None, None] * ct_win -
+                          (ct_loss * cl_c * h_c)[:, None, None],
+                          torch.zeros_like(rect))
+        dmu_c, dsx, dsy, drho, dcell = cell_masses_vjp(
+            ctb, cdf_mu[s:e], sig_x, sig_y, rho, cell, K)
+        dmu[s:e] = dmu_c
+        dscal = dscal + torch.stack([dsx, dsy, drho, dcell])
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    dD = torch.stack([torch.where(raw[0] > 1e-8, dscal[0], zero),
+                      torch.where(raw[1] > 1e-8, dscal[1], zero),
+                      torch.where(raw[2].abs() < _RHO_MAX, dscal[2], zero)])
+    return dh, dmu, dclip, dD, dscal[3]
+
+
+def _pack_constants(Dparams, cell, device, ct_loss=None):
     """Kernel constants (csrc/day_kernel.cu kConst layout), computed on the
-    device from the sanitized diffusion parameters with the plain twin's
-    expressions (ops/bvn.py): the scalars, the ρ-only rows of the 6-, 12-
-    and 20-node low-|ρ| rules, and those of the high-|ρ| series.  Every
-    branch is packed, so no host read of ρ is needed."""
+    device from the diffusion parameters with the plain twin's expressions
+    (ops/bvn.py): the scalars, the ρ-only rows of the 6-, 12- and 20-node
+    low-|ρ| rules, and those of the high-|ρ| series.  Every branch is
+    packed, so no host read of ρ is needed.  The backward also reads the
+    raw parameters (for the clamps' VJPs), 1/s and 1/s² with
+    s² = max(1 − ρ², 1e-12), and the loss cotangent ``ct_loss``."""
     f32 = torch.float32
-    dp = torch.stack([scalar(v, f32, device) for v in Dparams])
-    sig_x = torch.clamp(dp[0], min=1e-8)
-    sig_y = torch.clamp(dp[1], min=1e-8)
-    rho = torch.clamp(dp[2], -1 + 1e-6, 1 - 1e-6)
+    raw, sig_x, sig_y, rho = _sanitize(Dparams, f32, device)
     asr = torch.asin(rho)
     sn, w, den = [], [], []
     for G in (6, 12, 20):
@@ -108,21 +207,37 @@ def _pack_constants(Dparams, cell, device):
     x, wg = gl_nodes(_G_NODES, f32, device)
     xs = (a_half * (1.0 + x)) ** 2
     rs = torch.sqrt(1.0 - xs)
+    s2 = torch.clamp(1.0 - rho * rho, min=1e-12)
+    ctl = (torch.zeros((), dtype=f32, device=device) if ct_loss is None
+           else scalar(ct_loss, f32, device))
     scal = torch.stack([sig_x, sig_y, scalar(cell, f32, device), rho,
-                        torch.sign(rho), a, a_sq, a_half, asr])
+                        torch.sign(rho), a, a_sq, a_half, asr, raw[0],
+                        raw[1], raw[2], 1.0 / torch.sqrt(s2), 1.0 / s2,
+                        ctl])
     pad = torch.zeros(_N_SCALARS - scal.shape[0], dtype=f32, device=device)
     return torch.cat([scal, pad, *sn, *w, *den, xs, rs, wg]).contiguous()
+
+
+def _cuda_call(lib, fn, smem_fn, K, dev, *args):
+    """Launch ``fn`` of the kernel library on ``dev``'s current stream.
+    The C entry point launches in the current CUDA context, so the call
+    runs under ``torch.cuda.device(dev)`` (the autograd engine runs a
+    backward on a thread of its own)."""
+    smem = getattr(lib, smem_fn)(K)
+    if smem > _SMEM_LIMIT:
+        raise ValueError('K = {} needs {} B of shared memory per CTA; a CTA '
+                         'has {} B'.format(K, smem, _SMEM_LIMIT))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError('{} failed: cudaError {}'.format(fn, err))
 
 
 def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
     global LAUNCHES
     from ._build import load
     lib = load('day_kernel')
-    smem = lib.parasitoids_day_smem_bytes(K)
-    if smem > _SMEM_LIMIT:
-        raise ValueError('K = {} needs {} B of shared memory for its corner '
-                         'lattice; a CTA has {} B'.format(K, smem,
-                                                          _SMEM_LIMIT))
     dev = h_scat.device
     T = h_scat.shape[0]
     n = 2 * K + 1
@@ -132,20 +247,40 @@ def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
     scratch = torch.empty((T, n, n), dtype=torch.float32, device=dev)
     bsum = torch.empty(T, dtype=torch.float32, device=dev)
     buf = torch.empty((buf_len, buf_len), dtype=torch.float32, device=dev)
-    # the C entry point launches in the current CUDA context: make it the
-    # tensors' device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.parasitoids_day_accumulate(
-            consts.data_ptr(), h_scat.data_ptr(), cdf_mu.data_ptr(),
-            idx.data_ptr(), T, K, buf_len, scratch.data_ptr(),
-            bsum.data_ptr(), buf.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError('day_kernel launch failed: cudaError {}'.format(
-            err))
+    _cuda_call(lib, 'parasitoids_day_accumulate', 'parasitoids_day_smem_bytes',
+               K, dev, consts.data_ptr(), h_scat.data_ptr(),
+               cdf_mu.data_ptr(), idx.data_ptr(), T, K, buf_len,
+               scratch.data_ptr(), bsum.data_ptr(), buf.data_ptr())
     LAUNCHES += 1
     loss = torch.sum(clipped * h_scat * (1.0 - bsum))
     return buf, loss
+
+
+def _launch_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
+                cell, K, buf_len):
+    global LAUNCHES_BWD
+    from ._build import load
+    lib = load('day_kernel')
+    dev = h_scat.device
+    T = h_scat.shape[0]
+    if ct_buf.shape != (buf_len, buf_len) or ct_buf.dtype != torch.float32 \
+            or ct_buf.device != dev or not ct_buf.is_contiguous():
+        raise ValueError('ct_buf must be a contiguous f32 ({0}, {0}) tensor '
+                         'on {1}'.format(buf_len, dev))
+    consts = _pack_constants(Dparams, cell, dev, ct_loss)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh, dclip = torch.empty(T, **f32), torch.empty(T, **f32)
+    dmu = torch.empty((T, 2), **f32)
+    part = torch.empty((T, 4), **f32)     # per-minute dσx, dσy, dρ, dcell
+    dD, dcell = torch.empty(3, **f32), torch.empty((), **f32)
+    _cuda_call(lib, 'parasitoids_day_accumulate_bwd',
+               'parasitoids_day_bwd_smem_bytes', K, dev, consts.data_ptr(),
+               h_scat.data_ptr(), cdf_mu.data_ptr(), idx.data_ptr(),
+               clipped.data_ptr(), ct_buf.data_ptr(), T, K, buf_len,
+               dh.data_ptr(), dmu.data_ptr(), dclip.data_ptr(),
+               part.data_ptr(), dD.data_ptr(), dcell.data_ptr())
+    LAUNCHES_BWD += 1
+    return dh, dmu, dclip, dD, dcell
 
 
 def _check(h_scat, cdf_mu, idx, clipped, K, buf_len):
@@ -159,6 +294,9 @@ def _check(h_scat, cdf_mu, idx, clipped, K, buf_len):
                 name, t.device, dev))
         if not t.is_contiguous():
             raise ValueError('{} must be contiguous'.format(name))
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError('accumulate_day runs on CPU or CUDA tensors, not '
+                         '{}'.format(dev))
     if h_scat.dtype != torch.float32 or cdf_mu.dtype != torch.float32 or \
             clipped.dtype != torch.float32:
         raise TypeError('the day kernel is f32-only (f64 takes the plain '
@@ -179,28 +317,60 @@ def _check(h_scat, cdf_mu, idx, clipped, K, buf_len):
 
 
 class _AccumulateDay(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
-                buf_len):
-        if h_scat.device.type == 'cpu':
-            return accumulate_day_plain(h_scat, cdf_mu, idx, clipped,
-                                        Dparams, cell, K, buf_len)
-        if h_scat.device.type != 'cuda':
-            raise ValueError('accumulate_day runs on CPU or CUDA tensors, '
-                             'not {}'.format(h_scat.device))
-        return _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
-                       buf_len)
+    """The JAX ``custom_vjp`` ``pallas_accumulate_day``: the CUDA kernels
+    (K1/K2 forward, K3/K4 backward) for CUDA tensors, the plain twins for
+    CPU tensors.  Differentiable in h, μ, clip, the (3,) diffusion tensor
+    and the cell side; ``idx`` is an integer input and gets no gradient.
+    The graph keeps only the per-minute inputs (6 floats a minute)."""
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError('K3/K4: ROADMAP Queue 2')
+    def forward(ctx, h_scat, cdf_mu, idx, clipped, dp, cell, K, buf_len):
+        ctx.save_for_backward(h_scat, cdf_mu, idx, clipped, dp, cell)
+        ctx.K, ctx.buf_len = K, buf_len
+        if h_scat.device.type == 'cpu':
+            return accumulate_day_plain(h_scat, cdf_mu, idx, clipped, dp,
+                                        cell, K, buf_len)
+        return _launch(h_scat, cdf_mu, idx, clipped, dp, cell, K, buf_len)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_buf, ct_loss):
+        h_scat, cdf_mu, idx, clipped, dp, cell = ctx.saved_tensors
+        dh, dmu, dclip, dD, dcell = _backward(
+            ct_buf.contiguous(), ct_loss, h_scat, cdf_mu, idx, clipped, dp,
+            cell, ctx.K, ctx.buf_len)
+        return dh, dmu, None, dclip, dD, dcell, None, None
+
+
+def accumulate_day_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
+                       Dparams, cell, K, buf_len):
+    """The backward of :func:`accumulate_day` (the contract of
+    :func:`accumulate_day_bwd_plain`), called directly: the inputs are
+    checked as the forward checks them, then the CUDA kernel K3/K4 runs
+    for CUDA tensors and the plain version for CPU tensors."""
+    _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
+    return _backward(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
+                     cell, K, buf_len)
+
+
+def _backward(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams, cell,
+              K, buf_len):
+    if h_scat.device.type == 'cpu':
+        return accumulate_day_bwd_plain(ct_buf, ct_loss, h_scat, cdf_mu, idx,
+                                        clipped, Dparams, cell, K, buf_len)
+    return _launch_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
+                       Dparams, cell, K, buf_len)
 
 
 def accumulate_day(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
     """Accumulate one day's minutes (the contract of
-    :func:`accumulate_day_plain`): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  f32 only.  Its backward (the TPU
-    kernels K3/K4) is not ported yet and raises."""
+    :func:`accumulate_day_plain`): the CUDA kernels for CUDA tensors, the
+    plain versions for CPU tensors.  f32 only.  ``Dparams`` (numbers, 0-d
+    tensors or a (3,) tensor) is stacked into one (3,) tensor and ``cell``
+    made a 0-d tensor, so gradients reach σx, σy, ρ and the cell side."""
     _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
-    return _AccumulateDay.apply(h_scat, cdf_mu, idx, clipped, Dparams, cell,
-                                K, buf_len)
+    dev = h_scat.device
+    dp = torch.stack([scalar(v, torch.float32, dev) for v in Dparams])
+    return _AccumulateDay.apply(h_scat, cdf_mu, idx, clipped, dp,
+                                scalar(cell, torch.float32, dev), K,
+                                buf_len)

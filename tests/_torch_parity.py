@@ -45,3 +45,32 @@ def cuda_device():
         pytest.skip('needs an NVIDIA GPU (run on the card: '
                     'pytest -m cuda tests/test_torch_cuda.py)')
     return torch.device('cuda', 0)
+
+
+# the small MAP configuration of test_bayes_units.py:150-161
+MAP_SMALL = ('ndays=3', 'domain_info=(10000.0,50)', 'interp_num=2',
+             'kernel_rad=6', 'kernel_rad_local=3')
+
+
+def exact_support_mask(setup64, z, use_sprd):
+    """Observations to score in a parity test at the point ``z``: a zero
+    count, or an expected count that is positive in f64 (with and without
+    the pre-spread day); flat in ``pointwise_loglik`` order.  At the small
+    MAP configuration many projections are exactly 0 in f64 but f32 FFT
+    roundoff of ~1e-5 in both packages (different roundoff in each); a
+    positive count over such a rate makes its log-pmf, and its gradient,
+    roundoff.  The parity tests hold those observations out
+    (``with_held_out``)."""
+    from parasitoids_tpu_torch.bayes import map_fit
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    _, constrain, _ = map_fit._make_objective(setup64, use_sprd)
+    m_vec, _, sprd = constrain(torch.as_tensor(np.asarray(z),
+                                               dtype=torch.float64))
+    data = (*setup64.obs_release, *setup64.obs_sentinel, setup64.obs_grid)
+    positive = None
+    for s in ((None, sprd) if use_sprd else (None,)):
+        rel, sent, grid = setup64.forward_projections(_as_model(m_vec), s)
+        pos = torch.cat([p.reshape(-1) for p in (*rel, *sent, grid)]) > 0
+        positive = pos if positive is None else positive & pos
+    zero = torch.cat([d.reshape(-1) for d in data]) == 0
+    return (zero | positive).numpy()

@@ -99,3 +99,72 @@ def test_pallas_flag_on_cpu_raises():
         tdk.build_daily_kernel(t32(flat), t32(cs), 0, HPARAMS,
                                (21.1, 10.6, 0.3), DLP, 1.1, 10, 1500.0, 0,
                                cfg)
+
+
+def _theta(rho):
+    # sig_x, sig_y, rho, local sig_x, sig_y, rho, mu_r, lam (day 2 at
+    # mu_r = 0.3 keeps most blocks on the domain, so every entry matters)
+    return np.array([21.1, 10.6, rho, *DLP, 0.3, 1.0], np.float32)
+
+
+def _weights():
+    D = 2 * BASE['rad_res'] + 1
+    return np.random.default_rng(9).normal(size=(D, D)).astype(np.float32)
+
+
+def _port_day(th, path, day_idx=2):
+    """w·pmf + 3·loss of one day through the plain path or through the
+    day-accumulate Function (the CUDA path's glue, whose CPU forward and
+    backward are the plain twins) followed by ``finish_day``."""
+    flat, cs, T = wind()
+    cfg = tdk.KernelConfig(periods=T, **BASE)
+    hp = (th[7], *HPARAMS[1:])
+    if path == 'plain':
+        pmf, loss = tdk.build_daily_kernel(
+            t32(flat), t32(cs), day_idx, hp, th[0:3], th[3:6], th[6], 10,
+            1500.0, 0, cfg)
+    else:
+        from parasitoids_tpu_torch.ops.day_kernel import accumulate_day
+        h, mu, idx, clip, out = tdk.day_scatter_inputs(
+            t32(flat), t32(cs), day_idx, hp, th[6], 10, 0, cfg, 1500.0)
+        D = 2 * cfg.rad_res + 1
+        buf, clip_loss = accumulate_day(h, mu, idx, clip, th[0:3],
+                                        1500.0 / cfg.rad_res, cfg.K,
+                                        D + 4 * cfg.K)
+        pmf, loss = tdk.finish_day(buf, out, clip_loss, th[3:6], cfg, 1500.0)
+    return (t32(_weights()) * pmf).sum() + 3.0 * loss
+
+
+@pytest.mark.parametrize('rho', [0.3, 0.93, -0.99])
+def test_day_gradient_matches_jax(rho):
+    # the gradient of one day's pmf and loss in the flight and local
+    # diffusion, mu_r and lam: the port's plain path (closed-form BVN
+    # backward) and its Function path (whose finish_day adds the local
+    # remainder in place into a view of the Function's output) against
+    # jax.grad through the JAX XLA path
+    import jax
+    flat, cs, T = wind()
+
+    def jax_obj(t):
+        hp = (t[7], *(np.float32(v) for v in HPARAMS[1:]))
+        pmf, loss = jdk.build_daily_kernel(
+            jnp.asarray(flat), jnp.asarray(cs), jnp.int32(2), hp,
+            (t[0], t[1], t[2]), (t[3], t[4], t[5]), t[6], jnp.int32(10),
+            jnp.float32(1500.0), jnp.int32(0),
+            jdk.KernelConfig(periods=T, **BASE))
+        return (jnp.asarray(_weights()) * pmf).sum() + 3.0 * loss
+
+    want = np.asarray(jax.grad(jax_obj)(jnp.asarray(_theta(rho))))
+    assert np.all(want != 0)
+    # mu_r's entry sums per-minute mean derivatives over the day: in f32 it
+    # lies up to 6e-5 of max|g| from an f64 evaluation of the port, so it
+    # gets a wider atol than the rest
+    atol = np.full(want.shape, 1e-6 * np.abs(want).max())
+    atol[6] = 3e-4 * np.abs(want).max()
+    got = {}
+    for path in ('plain', 'function'):
+        th = torch.tensor(_theta(rho), requires_grad=True)
+        _port_day(th, path).backward()
+        got[path] = th.grad.numpy()
+        assert np.all(np.abs(got[path] - want) <= atol + 2e-4 * np.abs(want))
+    np.testing.assert_array_equal(got['function'], got['plain'])

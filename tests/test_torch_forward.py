@@ -138,7 +138,8 @@ def test_cli_end_to_end(tmp_path, capsys):
 
 def test_port_does_not_import_jax():
     code = ('import sys, parasitoids_tpu_torch, parasitoids_tpu_torch.cli, '
-            'parasitoids_tpu_torch.ops.day_kernel; '
+            'parasitoids_tpu_torch.ops.day_kernel, '
+            'parasitoids_tpu_torch.bayes.map_fit; '
             "assert 'jax' not in sys.modules, 'jax was imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, '-c', code], check=True, cwd=root)
