@@ -14,8 +14,11 @@ posterior at the Bayes default (801²) through the kernels and through the
 plain path, and the MAP CLI at its default (401²) with its value and
 gradient held against a JAX golden.  Any failed phase exits non-zero.  The
 last line is a JSON object with ``"ok": true`` and the device; the line
-before it lists the kernels with their launches, errors and times.  Needs
-one CUDA device; imports no JAX.
+before it lists the kernels with their launches, errors, times (the
+forward's three passes also timed alone, with CUDA events around the
+kernels) and bounds, the least time the card could take for the same
+work from this run's inputs.  Needs one CUDA device; imports nothing of
+JAX or of the JAX package, and checks that.
 """
 
 import json
@@ -91,6 +94,100 @@ def median_ms(fn, reps):
     return float(np.median(times))
 
 
+# The card's peak rates for the bounds: HBM3 at 3.35 TB/s and 67 TFLOP/s of
+# f32 outside the tensor cores (NVIDIA's H100 SXM data sheet), and 16 exps
+# (MUFU.EX2) per clock per SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0), at the card's maximum
+# SM clock and SM count read in this run.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+SFU_PER_CLOCK_PER_SM = 16
+
+
+def sfu_rate():
+    """Exps per second: SFU_PER_CLOCK_PER_SM x SMs x the maximum SM clock
+    that nvidia-smi reports for this card."""
+    mhz = float(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm', '--format=csv,noheader,'
+         'nounits'], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def lattice_exps(mu, Dp, cell, K):
+    """The exps (an erfc counted as one) that the forward's corner lattices
+    of these minutes need, counted from this run's data: every corner's
+    G-node quadrature on the low-|rho| branch; on the high branch the
+    series terms and tail nodes that pass their -80 cut-offs.  Plus Phi of
+    each minute's 2 (2K + 2) edge coordinates.  Returns (exps, corners,
+    whether the high branch ran)."""
+    from parasitoids_tpu_torch.ops.bvn import genz_branch
+    from parasitoids_tpu_torch.ops.day_kernel import _pack_constants
+    dev = mu.device
+    q = _pack_constants(Dp, cell, dev)
+    m, T = 2 * K + 2, mu.shape[0]
+    corners = T * m * m
+    branch = genz_branch(abs(float(q[3])))
+    if branch < 3:
+        return corners * (6, 12, 20)[branch] + 2 * m * T, corners, False
+    sig_x, sig_y, sgn, a_sq = (float(q[i]) for i in (0, 1, 4, 6))
+    xs = q[16 + 3 * 38:16 + 3 * 38 + 20]
+    ar = torch.arange(m, dtype=torch.float32, device=dev) - (K + 0.5)
+    total = 2 * m * T
+    for s in range(0, T, 120):
+        mc = mu[s:s + 120]
+        h = ((ar * cell)[None, :] - mc[:, :1]) / sig_x            # (t, m)
+        k = sgn * ((-ar * cell)[None, :] - mc[:, 1:]) / sig_y
+        h, k = h[:, None, :], k[:, :, None]                      # (t, m, m)
+        hk, bs = h * k, (h - k) ** 2
+        n = (-(bs / a_sq + hk) / 2 > -80).sum() + 2 * (-hk < 80).sum()
+        n += 2 * (-(bs[..., None] / xs + hk[..., None]) / 2 > -80).sum()
+        n += hk.numel() if sgn > 0 else 2 * (k > h).sum()
+        total += int(n)
+    return total, corners, True
+
+
+def bound(exps, flops, nbytes, rate):
+    """(bound_ms, bound_by, what): the larger of the operations' time (exps
+    at the SFU rate or f32 operations at the f32 peak, whichever is longer)
+    and the bytes' time at the HBM rate; `what` names the three counts."""
+    ops_s = max(exps / rate, flops / F32_FLOPS_PER_S)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    what = '{:.4g} exps ({:.4f} ms), {:.4g} f32 ops ({:.4f} ms), {:.4g} B ' \
+        '({:.4f} ms)'.format(exps, 1e3 * exps / rate, flops,
+                             1e3 * flops / F32_FLOPS_PER_S, nbytes,
+                             1e3 * bytes_s)
+    return (1e3 * max(ops_s, bytes_s),
+            'operations' if ops_s >= bytes_s else 'bytes', what)
+
+
+def forward_bound(h, mu, Dp, cell, K, buf_len, rate):
+    """Least time of one day's forward accumulate: its exps, about 10 f32
+    operations per exp (and on the high branch 4 per tail node of every
+    corner for its cut-off test), the four-corner differences and the
+    scaled add (5 per cell), each input read once and the buffer written
+    once."""
+    exps, corners, hi = lattice_exps(mu, Dp, cell, K)
+    T, n = h.shape[0], 2 * K + 1
+    flops = 10 * exps + 5 * T * n * n + (80 * corners if hi else 0)
+    nbytes = T * (4 + 8 + 8 + 4) + 4 * buf_len * buf_len
+    return bound(exps, flops, nbytes, rate)
+
+
+def backward_bound(h, mu, Dp, cell, K, buf_len, rate):
+    """Least time of one day's backward: the forward's lattice exps plus
+    two Phi and one exp a corner and phi, Phi of the edges; about 10 f32
+    operations per exp and 20 per corner for the adjoint; the inputs and
+    the cotangent buffer read once, the per-minute outputs written once."""
+    exps, corners, hi = lattice_exps(mu, Dp, cell, K)
+    T, m = h.shape[0], 2 * K + 2
+    exps += 3 * corners + 2 * m * T
+    flops = 10 * exps + 20 * corners + (80 * corners if hi else 0)
+    nbytes = T * (4 + 8 + 8 + 4) + 4 * buf_len * buf_len + T * 16
+    return bound(exps, flops, nbytes, rate)
+
+
 def kalbar_params(pop=True):
     from parasitoids_tpu_torch.config import Params
     p = Params()
@@ -99,14 +196,17 @@ def kalbar_params(pop=True):
     return p
 
 
-def phase_kernel_vs_plain(dev, card):
+def phase_kernel_vs_plain(dev, card, rate):
     """K1/K2 against the plain accumulate on days 0, 9, 17 of Kalbar at
-    the headline shapes; returns (max errors, timings)."""
+    the headline shapes, two launches bitwise equal; at day 9, the
+    kernels' passes timed alone beside the wrapper, the plain version and
+    the bound.  Returns (max errors, timings)."""
     from parasitoids_tpu_torch.models.forward import (prior_coverage_windows,
                                                       setup_forward)
     from parasitoids_tpu_torch.ops.daily_kernel import day_scatter_inputs
     from parasitoids_tpu_torch.ops.day_kernel import (accumulate_day,
-                                                      accumulate_day_plain)
+                                                      accumulate_day_plain,
+                                                      pass_ms)
     print('[3] kernel vs plain on the card (D = 801, T = 1440, K = 44)')
     p = kalbar_params()
     cell = p.domain_info[0] / p.domain_info[1]
@@ -127,13 +227,17 @@ def phase_kernel_vs_plain(dev, card):
             Dp = (p.Dparams[0], p.Dparams[1], rho)
             args = (h, mu, idx, clip, Dp, cell, K, buf_len)
             buf, loss = accumulate_day(*args)
+            again, loss_again = accumulate_day(*args)
             want_buf, want_loss = accumulate_day_plain(*args)
             torch.cuda.synchronize()
+            branch = 'K2' if abs(rho) >= 0.925 else 'K1'
+            check(torch.equal(buf, again) and torch.equal(loss, loss_again),
+                  'day {:2d} rho {:+.3f} ({}): two launches bitwise equal'
+                  .format(day, rho, branch))
             be = float((buf - want_buf).abs().max())
             le = abs(float(loss) - float(want_loss))
             peak = float(want_buf.max())
             e, rel = max(be, le), be / peak
-            branch = 'K2' if abs(rho) >= 0.925 else 'K1'
             tol = min(ABS_LIMIT, HI_TOL if branch == 'K2' else BUF_TOL)
             check(np.isfinite(e) and e <= tol and peak > 0 and
                   rel <= REL_LIMIT,
@@ -144,11 +248,23 @@ def phase_kernel_vs_plain(dev, card):
             err[branch] = max(err[branch], e)
             err['rel'] = max(err['rel'], rel)
             if day == 9 and rho in (0.253, 0.99):
-                timing[branch] = (
-                    median_ms(lambda: accumulate_day(*args), 20),
-                    median_ms(lambda: accumulate_day_plain(*args), 5))
-                print('  day 9 {}: kernel {:.4f} ms, plain {:.4f} ms '
-                      '(median, {})'.format(branch, *timing[branch], card))
+                passes = pass_ms(*args, reps=20)
+                t = dict(ms=median_ms(lambda: accumulate_day(*args), 20),
+                         plain_ms=median_ms(
+                             lambda: accumulate_day_plain(*args), 5),
+                         passes=np.median(passes, axis=0).tolist(),
+                         kernel_ms=float(np.median(passes.sum(axis=1))))
+                t['bound_ms'], t['bound_by'], what = forward_bound(
+                    h, mu, Dp, cell, K, buf_len, rate)
+                timing[branch] = t
+                print('  day 9 {}: kernels {:.4f} ms (block_build {:.4f}, '
+                      'gather {:.4f}, reduce {:.4f}; CUDA events around the '
+                      'kernels alone, median of 20); wrapper {:.4f} ms; '
+                      'plain {:.4f} ms; bound {:.4f} ms by {} ({}), '
+                      'bound / kernels {:.3f} ({})'.format(
+                          branch, t['kernel_ms'], *t['passes'], t['ms'],
+                          t['plain_ms'], t['bound_ms'], t['bound_by'], what,
+                          t['bound_ms'] / t['kernel_ms'], card))
     return err, timing
 
 
@@ -252,11 +368,12 @@ def phase_main_path(dev, card):
         tic = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
+        per_sim = day_kernel.LAUNCHES - before
         if i:
             secs.append(time.perf_counter() - tic)
-            check(day_kernel.LAUNCHES - before == s.ndays,
-              'forward_fields run {}: {} launches for {} days'.format(
-                  i, day_kernel.LAUNCHES - before, s.ndays))
+            check(per_sim == s.ndays,
+                  'forward_fields run {}: {} launches for {} days'.format(
+                      i, per_sim, s.ndays))
     check_pop_sums(out.sum(dim=(1, 2)).double().cpu().numpy(), p.r_number,
                    'forward_fields K = 44')
     sec = float(np.median(secs))
@@ -276,10 +393,10 @@ def phase_main_path(dev, card):
           bool(np.all(np.abs(sums - 1.0) <= 1e-4)),
           'prob model: every day sums to 1 +- 1e-4 (worst {:.2e})'.format(
               float(np.abs(sums - 1.0).max())))
-    return day_kernel.LAUNCHES, sec
+    return day_kernel.LAUNCHES, sec, per_sim
 
 
-def phase_backward_vs_plain(dev, card):
+def phase_backward_vs_plain(dev, card, rate):
     """K3/K4 against the plain backward on days 0, 9, 17 of Kalbar at the
     headline shapes, seeded random cotangents; two launches bitwise
     equal; returns (worst error over scale, abs error, timings)."""
@@ -339,11 +456,16 @@ def phase_backward_vs_plain(dev, card):
             worst_abs[branch] = max(worst_abs[branch],
                                     max(e for _, e, _, _ in errs))
             if day == 9 and rho in (0.253, 0.99):
-                timing[branch] = (
-                    median_ms(lambda: accumulate_day_bwd(*args), 20),
-                    median_ms(lambda: accumulate_day_bwd_plain(*args), 5))
-                print('  day 9 {}: kernel {:.4f} ms, plain {:.4f} ms '
-                      '(median, {})'.format(branch, *timing[branch], card))
+                t = dict(ms=median_ms(lambda: accumulate_day_bwd(*args), 20),
+                         plain_ms=median_ms(
+                             lambda: accumulate_day_bwd_plain(*args), 5))
+                t['bound_ms'], t['bound_by'], what = backward_bound(
+                    h, mu, Dp, cell, K, buf_len, rate)
+                timing[branch] = t
+                print('  day 9 {}: wrapper {:.4f} ms, plain {:.4f} ms '
+                      '(median); bound {:.4f} ms by {} ({}) ({})'.format(
+                          branch, t['ms'], t['plain_ms'], t['bound_ms'],
+                          t['bound_by'], what, card))
     return worst, worst_abs, timing
 
 
@@ -533,11 +655,14 @@ def main():
     _build.load('day_kernel')
     print('  day_kernel built and loaded in {:.2f} s'.format(
         time.perf_counter() - tic))
+    rate = sfu_rate()
+    print('  bounds: {:.4g} exps/s (SFU), {:.3g} f32 FLOP/s, {:.3g} B/s'
+          .format(rate, F32_FLOPS_PER_S, HBM_BYTES_PER_S))
 
-    err, timing = phase_kernel_vs_plain(dev, card)
+    err, timing = phase_kernel_vs_plain(dev, card, rate)
     phase_goldens(dev)
-    launches, sec = phase_main_path(dev, card)
-    bwd_err, bwd_abs, bwd_timing = phase_backward_vs_plain(dev, card)
+    launches, sec, per_sim = phase_main_path(dev, card)
+    bwd_err, bwd_abs, bwd_timing = phase_backward_vs_plain(dev, card, rate)
     sec_v, sec_vg, peak, sec_plain, grad_dv, grad_l2 = \
         phase_posterior_gradient(dev, card)
     map_launches, sec_step, sec_vg_401, gold_dv, gold_l2 = \
@@ -545,18 +670,34 @@ def main():
     check(launches > 0 and min(map_launches) > 0,
           'both kernels launched on their main paths')
     check('jax' not in sys.modules, 'no JAX module was imported')
+    jax_pkg = sorted(k for k in sys.modules if k == 'parasitoids_tpu' or
+                     k.startswith('parasitoids_tpu.'))
+    check(not jax_pkg, 'no module of the JAX package was imported {}'.format(
+        jax_pkg or ''))
 
+    k1, k2 = timing['K1'], timing['K2']
+    k3, k4 = bwd_timing['K3'], bwd_timing['K4']
     kernels = [{
         'name': 'day_accumulate (K1 low-|rho| + K2 high-|rho|)',
         'route': 'cuda',
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:157',
         'launches': launches,
+        'launches_per_simulation': per_sim,
         'max_abs_err': max(err['K1'], err['K2']),
         'max_abs_err_k1': err['K1'], 'max_abs_err_k2': err['K2'],
         'max_err_over_peak': err['rel'],
-        'ms': timing['K1'][0], 'plain_ms': timing['K1'][1],
-        'ms_k2': timing['K2'][0], 'plain_ms_k2': timing['K2'][1],
+        'ms': k1['ms'], 'plain_ms': k1['plain_ms'],
+        'kernel_ms': k1['kernel_ms'],
+        'block_build_ms': k1['passes'][0], 'gather_ms': k1['passes'][1],
+        'reduce_ms': k1['passes'][2],
+        'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
+        'library_ms': None,
+        'ms_k2': k2['ms'], 'plain_ms_k2': k2['plain_ms'],
+        'kernel_ms_k2': k2['kernel_ms'],
+        'block_build_ms_k2': k2['passes'][0],
+        'gather_ms_k2': k2['passes'][1], 'reduce_ms_k2': k2['passes'][2],
+        'bound_ms_k2': k2['bound_ms'], 'bound_by_k2': k2['bound_by'],
         'sec_per_simulation': sec,
         'sec_per_value_and_grad_801': sec_vg,
         'launches_map_cli': map_launches[0],
@@ -569,8 +710,11 @@ def main():
         'max_abs_err': max(bwd_abs.values()),
         'max_err_over_scale_k3': bwd_err['K3'],
         'max_err_over_scale_k4': bwd_err['K4'],
-        'ms': bwd_timing['K3'][0], 'plain_ms': bwd_timing['K3'][1],
-        'ms_k4': bwd_timing['K4'][0], 'plain_ms_k4': bwd_timing['K4'][1],
+        'ms': k3['ms'], 'plain_ms': k3['plain_ms'],
+        'bound_ms': k3['bound_ms'], 'bound_by': k3['bound_by'],
+        'library_ms': None,
+        'ms_k4': k4['ms'], 'plain_ms_k4': k4['plain_ms'],
+        'bound_ms_k4': k4['bound_ms'], 'bound_by_k4': k4['bound_by'],
         'sec_per_value_801': sec_v,
         'sec_per_value_and_grad_801': sec_vg,
         'sec_per_value_and_grad_801_plain': sec_plain,

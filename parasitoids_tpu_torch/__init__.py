@@ -4,15 +4,23 @@ The JAX package ``parasitoids_tpu`` is the reference; this package runs the
 same forward simulation (wind -> per-day dispersal kernels -> FFT
 propagation over days) with PyTorch, and replaces the JAX package's fused
 Pallas day-accumulate with a CUDA kernel written for Hopper
-(``csrc/day_kernel.cu``).  It imports ``torch`` and never ``jax``; the
-JAX package's host-only modules (``config``, ``io``, ``io.save``,
-``utils.checks``, ``utils.bvn_host``) are reused as they are.
+(``csrc/day_kernel.cu``).  It imports ``torch`` and never ``jax``, and
+nothing of the JAX package: it keeps its own copies of the host-only
+modules it needs (``config``, ``io/``, ``utils/checks``,
+``viz/plot_result``).  Its entry points run on the card unless the caller
+asks for the CPU (``device='cpu'``, ``--device cpu``).
 
 Layout mirrors the JAX package:
+  config.py        run parameters (``Params``)
   device.py        device and dtype policy
+  io/              wind, field data (``LocInfo``), site specs, saved runs
   ops/             flight probabilities, BVN cell masses, daily kernel,
                    the CUDA day-accumulate and its build
-  models/          FFT propagation and the end-to-end forward model
+  models/          FFT propagation, the end-to-end forward model, the
+                   observation projections
+  bayes/           priors, transforms, the log posterior, the MAP fit
+  utils/checks.py  numerical sanitizers of a run's fields
+  viz/             per-day plots of a run (``--plot``)
   cli.py           ``python -m parasitoids_tpu_torch [flags] [key=value ...]``
 """
 

@@ -190,7 +190,8 @@ def map_cli_params(overrides=()):
 def main(argv=None, device=None):
     """CLI like the reference ``python Bayes_MAP.py --MAP``
     (Bayes_MAP.py:572-651): coarser domain, n_periods fixed, Kalbar
-    pre-spread factor fit.  Returns the fit."""
+    pre-spread factor fit.  ``device`` given here wins over ``--device``.
+    Returns the fit."""
     parser = argparse.ArgumentParser(
         prog='parasitoids_tpu_torch.bayes.map_fit')
     g = parser.add_mutually_exclusive_group(required=True)
@@ -199,6 +200,8 @@ def main(argv=None, device=None):
     g.add_argument('--norm', action='store_true',
                    help='MAP + Laplace normal approximation (' + _NOT_PORTED
                    + ')')
+    parser.add_argument('--device', choices=('cpu', 'cuda'), default='cuda',
+                        help='where to run (default cuda; no CPU fallback)')
     parser.add_argument('-o', '--outname', default='map_fit.txt')
     parser.add_argument('--steps', type=int, default=300)
     parser.add_argument('--starts', type=int, default=1,
@@ -223,7 +226,8 @@ def main(argv=None, device=None):
         parser.error('--shard-forward is not ported (ROADMAP Queue 1 item '
                      '16)')
 
-    setup = BayesSetup(map_cli_params(args.overrides), device=device)
+    setup = BayesSetup(map_cli_params(args.overrides),
+                       device=args.device if device is None else device)
     dev = setup.setup.wind_flat.device
     print('device {}, accumulate {}'.format(
         dev, 'CUDA day kernel' if setup.setup.kcfg.pallas

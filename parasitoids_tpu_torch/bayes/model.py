@@ -31,10 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch.special import gammaln, xlogy
 
-from parasitoids_tpu.io.locinfo import LocInfo
-
 from ..config import Params
 from ..device import scalar
+from ..io.locinfo import LocInfo
 from ..models.forward import (ForwardSetup, build_all_kernels,
                               prior_coverage_windows, setup_forward)
 from ..models.observe import ObservationOps
@@ -118,7 +117,8 @@ class BayesSetup:
             widths.
         sprd_factor: None, or a fixed or initial pre-spread factor.
         dtype, device: of the forward setup (defaults: f32, or f64 under
-            ``params.use_f64``; CUDA when present).
+            ``params.use_f64``; CUDA unless ``device='cpu'`` is given, and
+            no CPU fallback).
         forward_setup: a ready :class:`ForwardSetup`, for example from
             ``setup_from_numpy`` of another package's setup arrays, used
             instead of loading the wind again.

@@ -4,26 +4,29 @@
 of ``python -m parasitoids_tpu`` (``--pop``, ``--kalbar``, ``--carnarvon``,
 ``key=value`` overrides, ...), prints the same phase timings, checks the
 fields with ``validate_fields`` and saves reference-format npz/json through
-``parasitoids_tpu.io.save.save_run``.
+``io.save.save_run``.  ``--device cpu|cuda`` (default ``cuda``) picks the
+device; it is read before the ``Params`` flags and overrides, and there is
+no CPU fallback when no card is visible.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
 import torch
 
-from parasitoids_tpu.utils.checks import validate_fields
-
 from .config import Params
 from .io import save_run
 from .models.forward import setup_forward, simulate
+from .utils.checks import validate_fields
 
 _USAGE = """\
 usage: python -m parasitoids_tpu_torch [flags] [key=value ...]
 
 flags:
+  --device cpu|cuda       where to run (default cuda; no CPU fallback)
   --pop / --prob          population vs single-wasp probability model
   --kalbar / --carnarvon  dataset preset (release schedule, wind files)
   --plot / --no_plot      write per-day figures after the run
@@ -33,9 +36,17 @@ key=value overrides set any Params field, e.g.:
   ndays=5 'domain_info=(8000.0,320)' n_periods=20 outfile=output/run
   use_f64=True            float64 validation mode (plain accumulate)
   use_pallas=False        plain torch accumulate instead of the CUDA kernel
-
-Runs on CUDA when a card is present, else on the CPU.
 """
+
+
+def split_device(argv):
+    """``(device, rest)``: the ``--device cpu|cuda`` flag (default
+    ``cuda``) taken out of a command line, and the arguments left for
+    ``Params.cmd_line_chg``."""
+    parser = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    parser.add_argument('--device', choices=('cpu', 'cuda'), default='cuda')
+    ns, rest = parser.parse_known_args(list(argv))
+    return ns.device, rest
 
 
 def _route(setup):
@@ -47,15 +58,16 @@ def _route(setup):
 
 
 def main(params: Params | None = None, argv=None, device=None):
-    if params is None and \
-            any(a in ('-h', '--help')
-                for a in (sys.argv[1:] if argv is None else argv)):
+    """Run the CLI; ``device`` given here wins over ``--device``."""
+    if argv is None:
+        argv = sys.argv[1:] if params is None else []
+    if params is None and any(a in ('-h', '--help') for a in argv):
         print(_USAGE)
         return None, None
+    flag, argv = split_device(argv)
+    device = flag if device is None else device
     if params is None:
         params = Params()
-        if argv is None:
-            argv = sys.argv[1:]
         if argv:
             params.cmd_line_chg(argv)
 
@@ -83,7 +95,7 @@ def main(params: Params | None = None, argv=None, device=None):
         save_run(params.outfile, host, days, params)
 
     if params.PLOT:
-        from parasitoids_tpu.viz.plot_result import plot_all
+        from .viz.plot_result import plot_all
         plot_all(host, days, params)
 
     return fields, days

@@ -18,23 +18,45 @@
 // the 1e-8 sparsity threshold then agree to f32 roundoff instead of
 // flipping across it (a 20-node tail differs from a 6-node one by ~10%).
 //
-// Design (two passes, deterministic, no atomics):
+// Design (three launches, deterministic, no atomics):
 //   1. block_build: one CTA per minute.  The upper-orthant probabilities on
 //      the (2K+2)^2 corner lattice live in shared memory; the CTA differences
 //      them into the (2K+1)^2 block, clamps at 0, writes h_t * block into a
 //      (T, n, n) scratch and the block's sum into bsum[t].  The sum is a
 //      fixed-order tree, so bsum is bitwise reproducible.
-//   2. gather: output-tile-stationary.  Each CTA owns a 32x32 tile of the
-//      (buf_len, buf_len) buffer, walks the minutes in order, skips those whose
-//      block misses the tile and adds the overlap.  Each cell's sum runs over
-//      t ascending in one thread, so the buffer is bitwise reproducible.
+//   2. gather_chunk: split-minute.  The day's minutes are cut into chunks
+//      of C consecutive minutes; the grid, sized from T, K and C alone, is
+//      (chunk, span^2) with span^2 the most 32x32 buffer tiles one block
+//      can meet (16 at K = 44).  The CTAs of a chunk find the box of tiles
+//      its blocks can meet and share its tiles out; for each, a CTA lists
+//      the chunk's minutes whose block meets the tile and sums those
+//      blocks, in minute order, into one partial tile, flagged as written,
+//      with kBatch minutes' loads in flight at a time.
+//   3. reduce_tiles: one CTA per tile sums its flagged partials in chunk
+//      order and writes the tile (zeros where no minute meets it).
+//   Every cell's sum has a fixed order (minutes ascending within a chunk,
+//   chunks ascending), so the buffer is bitwise the same every launch.
 //
 // What bounds it: block_build issues (2K+2)^2 * G exps per minute (MUFU
 // throughput; G = 6 at prior-typical rho, 70 M exps a day at K = 44,
-// T = 1440; about 2 exps per node on the high branch); the gather reads the
-// scratch, about n^2 * T * 4 bytes (46 MB a day at K = 44) plus its partial
-// tiles.  A fused variant that keeps blocks on chip and drops the scratch
-// round-trip is later work.
+// T = 1440, about 17 us on an H100; about 2 exps per node on the high
+// branch).  The gather was latency-bound: the wind keeps a day's blocks
+// within about a hundred of the 961 tiles, and the busiest tile meets
+// ~1,000 of the 1,440 minutes.  A tile-stationary gather walks those
+// minutes in one CTA, one dependent read per minute (~0.45 ms a day on
+// an H100, about one SM per busy tile).  Splitting the minutes spreads
+// the busiest tile over ~23 CTAs on as many SMs; sharing a chunk's box
+// among span^2 CTAs keeps the grid to a few hundred CTAs, nearly all busy
+// (one CTA per (tile, chunk) was 22,000 CTAs, most of which found nothing
+// and still cost a launch and an idx read).  What is left is the scratch
+// round trip: 46 MB written by block_build and read back, ~15 us at
+// 3.35 TB/s, plus about 5 us a launch.  Register batches of kBatch
+// minutes measured faster than a cp.async ring of 2 to 8 stages on an
+// H100 (see PERF.md).  The
+// partials are allocated densely, tiles x ceil(T / C) x 4 KB (90 MB at
+// C = 64), but only those of the tiles a chunk's blocks meet are written
+// and read.  A fused build-and-gather that keeps blocks on chip is later
+// work.
 //
 // The backward replaces pallas_kernel.py::_day_bwd_kernel, K3 (|rho| <
 // 0.925) and K4 (the high-|rho| rebuild), with the same node rule as the
@@ -62,6 +84,7 @@
 // (_pack_constants) into one float vector; the layout is kConst* below.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -83,9 +106,14 @@ constexpr int kLoSn = kScalars, kLoW = kLoSn + kLoNodes,
 constexpr int kConsts = kHiW + kHiNodes;   // 190 floats
 
 constexpr int kBuildThreads = 256;
-constexpr int kTile = 32;
-constexpr int kGatherRows = 8;            // threads per tile column
-constexpr int kIdxChunk = 512;
+constexpr int kTile = 32;                 // buffer tile side
+constexpr int kTileCells = kTile * kTile;
+constexpr int kGatherRows = 8;            // thread rows of a gather CTA
+constexpr int kGatherThreads = kTile * kGatherRows;
+constexpr int kPer = kTile / kGatherRows; // cells per gather thread
+constexpr int kBatch = 8;                 // gather loads in flight, minutes
+constexpr int kUnroll = 4;                // partials in flight in the reduce
+constexpr int kMaxChunks = 1024;          // chunks per tile the reduce takes
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kFourPi = 12.566370614359172f;
@@ -276,51 +304,196 @@ block_build_kernel(const float* __restrict__ consts,
   if (tid == 0) bsum[t] = part[0];
 }
 
-__global__ void __launch_bounds__(kTile * kGatherRows)
-gather_kernel(const float* __restrict__ scratch,   // (T, n, n)
-              const int32_t* __restrict__ idx,     // (T, 2): row, col
-              int T, int n, int buf_len, float* __restrict__ buf) {
-  __shared__ int s_r[kIdxChunk];
-  __shared__ int s_c[kIdxChunk];
-  constexpr int kPer = kTile / kGatherRows;
-  const int R = blockIdx.y * kTile;
-  const int C = blockIdx.x * kTile;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTile + tx;
-  const int col = C + tx;
-  float acc[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+// Appends, in index order, the `item` of every thread whose `pred` holds
+// to list[cnt...] and returns the new count, the same in every thread.
+// Every thread of the CTA calls it; `warp_cnt` holds one int per warp.
+__device__ __forceinline__ int compact_append(bool pred, int item, int* list,
+                                              int cnt, int* warp_cnt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, pred);
+  if (lane == 0) warp_cnt[warp] = __popc(ballot);
+  __syncthreads();
+  int off = cnt, total = cnt;
+  for (int w = 0; w < nw; ++w) {
+    off += w < warp ? warp_cnt[w] : 0;
+    total += warp_cnt[w];
+  }
+  if (pred) list[off + __popc(ballot & ((1u << lane) - 1u))] = item;
+  __syncthreads();               // list complete; warp_cnt free again
+  return total;
+}
 
-  for (int t0 = 0; t0 < T; t0 += kIdxChunk) {
-    const int cnt = min(kIdxChunk, T - t0);
-    __syncthreads();
-    for (int i = tid; i < cnt; i += kTile * kGatherRows) {
-      s_r[i] = idx[2 * (t0 + i)];
-      s_c[i] = idx[2 * (t0 + i) + 1];
-    }
-    __syncthreads();
-    for (int i = 0; i < cnt; ++i) {
-      const int r0 = s_r[i], c0 = s_c[i];
-      if (r0 >= R + kTile || r0 + n <= R || c0 >= C + kTile || c0 + n <= C)
-        continue;   // uniform across the CTA
-      const int bc = col - c0;
-      if (bc < 0 || bc >= n) continue;
-      const float* blk = scratch + (size_t)(t0 + i) * n * n + bc;
+// The tile box of a chunk's blocks: rows box.x..box.y and columns
+// box.z..box.w of 32x32 tiles, from the block start (r0, c0) of every
+// thread where `valid` holds; empty (y < x) when it holds nowhere.
+// Synchronizes the CTA once.
+__device__ __forceinline__ int4 chunk_box(int r0, int c0, bool valid, int n,
+                                          int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int v[4] = {valid ? r0 : INT_MAX, valid ? -r0 : INT_MAX,
+              valid ? c0 : INT_MAX, valid ? -c0 : INT_MAX};
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const int br = R + ty + k * kGatherRows - r0;
-        if (br >= 0 && br < n) acc[k] += blk[(size_t)br * n];
+  for (int k = 0; k < 4; ++k) {
+    v[k] = __reduce_min_sync(0xffffffffu, v[k]);
+    if (lane == 0) red[warp * 4 + k] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = INT_MAX;
+    for (int w = 0; w < nw; ++w) v[k] = min(v[k], red[w * 4 + k]);
+  }
+  if (v[0] == INT_MAX) return make_int4(0, -1, 0, -1);   // no valid start
+  return make_int4(v[0] / kTile, (n - 1 - v[1]) / kTile, v[2] / kTile,
+                   (n - 1 - v[3]) / kTile);
+}
+
+// Split-minute gather, pass 1: the span^2 CTAs of a chunk of consecutive
+// minutes share out the tiles of the chunk's box (the tiles its blocks can
+// meet), and for each sum, in minute order, the chunk's blocks that meet
+// the tile into one partial tile; a flag says whether there was one.  CTA
+// 0 of the chunk writes the box, which tells the reduce which flags were
+// written.  Each thread owns the four cells (ty + 8k, tx) of the tile and
+// loads its cells of kBatch hit minutes (0 off the block) into registers
+// before it adds them, so kBatch minutes' reads are in flight at once.
+__global__ void __launch_bounds__(kGatherThreads)
+gather_chunk_kernel(const float* __restrict__ scratch,   // (T, n, n)
+                    const float* __restrict__ h,         // (T,)
+                    const int32_t* __restrict__ idx,     // (T, 2): row, col
+                    int T, int n, int buf_len, int chunk,
+                    float* __restrict__ partial,    // (tiles, nchunks, 32^2)
+                    int32_t* __restrict__ flags,    // (tiles, nchunks)
+                    int4* __restrict__ boxes) {     // (nchunks,)
+  __shared__ int s_r[kGatherThreads], s_c[kGatherThreads];
+  __shared__ int s_hit[kGatherThreads];
+  __shared__ int red[4 * (kGatherThreads / 32)];
+  __shared__ int warp_cnt[kGatherThreads / 32];
+  const int tiles_x = (buf_len + kTile - 1) / kTile;
+  const int ch = blockIdx.x, nchunks = gridDim.x;
+  const int t0 = ch * chunk, cnt_t = min(chunk, T - t0);
+  const int tid = threadIdx.x, tx = tid & (kTile - 1), ty = tid / kTile;
+
+  // a minute with h = 0 (no take-off yet, or a block wholly off the
+  // domain, parked at the buffer's centre) adds only zeros: it joins
+  // neither the box nor a tile's list
+  int r0 = 0, c0 = 0;
+  const bool live = tid < cnt_t && h[t0 + tid] != 0.f;
+  if (live) {
+    r0 = idx[2 * (t0 + tid)];
+    c0 = idx[2 * (t0 + tid) + 1];
+    s_r[tid] = r0;
+    s_c[tid] = c0;
+  }
+  const int4 box = chunk_box(r0, c0, live, n, red);  // syncs s_r, s_c
+  if (blockIdx.y == 0 && tid == 0) boxes[ch] = box;
+  const int box_w = box.w - box.z + 1;
+  const int box_tiles = (box.y - box.x + 1) * box_w;
+
+  for (int j = blockIdx.y; j < box_tiles; j += gridDim.y) {
+    const int R = (box.x + j / box_w) * kTile, C = (box.z + j % box_w) * kTile;
+    const size_t slot = (size_t)(R / kTile * tiles_x + C / kTile) * nchunks +
+                        ch;
+    const bool hit = live && r0 < R + kTile && r0 + n > R &&
+                     c0 < C + kTile && c0 + n > C;
+    const int cnt = compact_append(hit, tid, s_hit, 0, warp_cnt);
+    if (cnt == 0) {              // the box's corner tiles often meet none
+      if (tid == 0) flags[slot] = 0;
+      continue;
+    }
+    // kBatch hit minutes' loads are issued before any of them is added
+    float acc[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+    for (int i0 = 0; i0 < cnt; i0 += kBatch) {
+      float v[kBatch][kPer];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u;
+        const int m = s_hit[i < cnt ? i : i0];
+        const int bc = C + tx - s_c[m];
+        const float* blk = scratch + (size_t)(t0 + m) * n * n;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          const int br = R + ty + k * kGatherRows - s_r[m];
+          const bool in = i < cnt && (unsigned)br < (unsigned)n &&
+                          (unsigned)bc < (unsigned)n;
+          v[u][k] = in ? __ldg(blk + br * n + bc) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) acc[k] += v[u][k];
       }
     }
-  }
+    float* out = partial + slot * kTileCells + tid;
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int row = R + ty + k * kGatherRows;
-    if (row < buf_len && col < buf_len) buf[(size_t)row * buf_len + col] = acc[k];
+    for (int k = 0; k < kPer; ++k) out[k * kGatherThreads] = acc[k];
+    if (tid == 0) flags[slot] = 1;
   }
 }
 
+// Split-minute gather, pass 2: one CTA per tile sums its partials in
+// chunk order (a chunk has one when the tile lies in its box and the flag
+// is set; kUnroll chunks' loads in flight at a time) and writes the tile,
+// zeros where no minute meets it.  Every buffer cell is written once,
+// with no atomics, so the buffer is bitwise the same every launch.
+__global__ void __launch_bounds__(kGatherThreads)
+reduce_tiles_kernel(const float* __restrict__ partial,
+                    const int32_t* __restrict__ flags,
+                    const int4* __restrict__ boxes, int nchunks,
+                    int buf_len, float* __restrict__ buf) {
+  __shared__ int s_list[kMaxChunks];
+  __shared__ int warp_cnt[kGatherThreads / 32];
+  const int tiles_x = (buf_len + kTile - 1) / kTile;
+  const int tile = blockIdx.x, tr = tile / tiles_x, tc = tile % tiles_x;
+  const int R = tr * kTile, C = tc * kTile;
+  const int tid = threadIdx.x, tx = tid & (kTile - 1), ty = tid / kTile;
+  const int32_t* f = flags + (size_t)tile * nchunks;
+  int cnt = 0;
+  for (int base = 0; base < nchunks; base += kGatherThreads) {
+    const int c = base + tid;
+    bool has = false;
+    if (c < nchunks) {
+      const int4 b = boxes[c];
+      has = b.x <= tr && tr <= b.y && b.z <= tc && tc <= b.w && f[c] != 0;
+    }
+    cnt = compact_append(has, c, s_list, cnt, warp_cnt);
+  }
+  const float* p = partial + (size_t)tile * nchunks * kTileCells + tid;
+  float acc[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+  int i = 0;
+  for (; i + kUnroll <= cnt; i += kUnroll) {
+    float v[kUnroll][kPer];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const float* q = p + (size_t)s_list[i + u] * kTileCells;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) v[u][k] = q[k * kGatherThreads];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) acc[k] += v[u][k];
+    }
+  }
+  for (; i < cnt; ++i) {
+    const float* q = p + (size_t)s_list[i] * kTileCells;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) acc[k] += q[k * kGatherThreads];
+  }
+  const int col = C + tx;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int row = R + ty + k * kGatherRows;
+    if (row < buf_len && col < buf_len)
+      buf[(size_t)row * buf_len + col] = acc[k];
+  }
+}
 
 __host__ __device__ constexpr size_t bwd_smem_floats(int K) {
   // lattice (then ctU dL/dh) + ctU dL/dk + ctb + 6 edge vectors + constants
@@ -483,6 +656,41 @@ bwd_reduce_kernel(const float* __restrict__ consts,
   }
 }
 
+// The three launches of one day's accumulate on `s`; when `ev` is not
+// null, ev[0..3] are recorded before block_build, between the passes and
+// after the reduce.
+cudaError_t launch_day(const float* consts, const float* h, const float* mu,
+                       const int32_t* idx, int T, int K, int buf_len,
+                       int chunk, float* scratch, float* bsum, float* partial,
+                       int32_t* flags, int4* boxes, float* buf,
+                       cudaStream_t s, cudaEvent_t* ev) {
+  const size_t smem = build_smem_floats(K) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n = 2 * K + 1;
+  const int tiles_x = (buf_len + kTile - 1) / kTile;
+  const int nchunks = (T + chunk - 1) / chunk;
+  if (ev) cudaEventRecord(ev[0], s);
+  block_build_kernel<<<T, kBuildThreads, smem, s>>>(consts, h, mu, K,
+                                                    scratch, bsum);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (ev) cudaEventRecord(ev[1], s);
+  // a block meets at most span^2 tiles, so a chunk whose blocks barely
+  // move has about one tile per CTA
+  const int span = (n - 1 + kTile - 1) / kTile + 1;
+  gather_chunk_kernel<<<dim3(nchunks, span * span), kGatherThreads, 0, s>>>(
+      scratch, h, idx, T, n, buf_len, chunk, partial, flags, boxes);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (ev) cudaEventRecord(ev[2], s);
+  reduce_tiles_kernel<<<tiles_x * tiles_x, kGatherThreads, 0, s>>>(
+      partial, flags, boxes, nchunks, buf_len, buf);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (ev) cudaEventRecord(ev[3], s);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -492,28 +700,55 @@ int parasitoids_day_smem_bytes(int K) {
   return (int)(build_smem_floats(K) * sizeof(float));
 }
 
-// One day's accumulate on `stream`: block_build over T minutes, then the
-// tile gather into buf (buf_len x buf_len, fully overwritten).  Every
-// pointer is device memory; idx rows must lie in [0, buf_len - (2K+1)].
+// One day's accumulate on `stream`: block_build over T minutes, the
+// split-minute gather over (tile, chunk of `chunk` minutes), and the
+// chunk-order reduce into buf (buf_len x buf_len, fully overwritten).
+// Every pointer is device memory: scratch (T, n, n), bsum (T,), partial
+// (tiles, nchunks, 32, 32), flags (tiles, nchunks) and boxes (nchunks, 4),
+// 16-byte aligned, with tiles = ceil(buf_len / 32)^2 and nchunks =
+// ceil(T / chunk), 1 <= chunk <= 256 (one minute per gather thread) and
+// nchunks <= kMaxChunks.  idx rows must lie in [0, buf_len - (2K+1)].
 // Returns the cudaError_t of the launches (0 on success).
 int parasitoids_day_accumulate(const float* consts, const float* h,
                                const float* mu, const int32_t* idx, int T,
-                               int K, int buf_len, float* scratch,
-                               float* bsum, float* buf, void* stream) {
+                               int K, int buf_len, int chunk, float* scratch,
+                               float* bsum, float* partial, int32_t* flags,
+                               int32_t* boxes, float* buf, void* stream) {
+  return (int)launch_day(consts, h, mu, idx, T, K, buf_len, chunk, scratch,
+                         bsum, partial, flags, (int4*)boxes, buf,
+                         (cudaStream_t)stream, nullptr);
+}
+
+// The same accumulate `reps` times back to back, with CUDA events around
+// each pass (all reps are queued before the first is waited on, so no pass
+// waits on the host); then waits for the card and writes the device
+// milliseconds of block_build, gather and reduce of rep r to
+// ms[3 r .. 3 r + 2] (host memory).
+int parasitoids_day_accumulate_timed(const float* consts, const float* h,
+                                     const float* mu, const int32_t* idx,
+                                     int T, int K, int buf_len, int chunk,
+                                     float* scratch, float* bsum,
+                                     float* partial, int32_t* flags,
+                                     int32_t* boxes, float* buf, int reps,
+                                     float* ms,
+                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = build_smem_floats(K) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  block_build_kernel<<<T, kBuildThreads, smem, s>>>(consts, h, mu, K,
-                                                    scratch, bsum);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (buf_len + kTile - 1) / kTile;
-  gather_kernel<<<dim3(tiles, tiles), dim3(kTile, kGatherRows), 0, s>>>(
-      scratch, idx, T, 2 * K + 1, buf_len, buf);
-  return (int)cudaGetLastError();
+  cudaEvent_t* ev = new cudaEvent_t[4 * reps];
+  int made = 0;
+  cudaError_t err = cudaSuccess;
+  while (made < 4 * reps && (err = cudaEventCreate(&ev[made])) == cudaSuccess)
+    ++made;
+  for (int r = 0; r < reps && err == cudaSuccess; ++r)
+    err = launch_day(consts, h, mu, idx, T, K, buf_len, chunk, scratch, bsum,
+                     partial, flags, (int4*)boxes, buf, s, ev + 4 * r);
+  if (err == cudaSuccess) err = cudaEventSynchronize(ev[4 * reps - 1]);
+  for (int r = 0; r < reps && err == cudaSuccess; ++r)
+    for (int p = 0; p < 3 && err == cudaSuccess; ++p)
+      err = cudaEventElapsedTime(&ms[3 * r + p], ev[4 * r + p],
+                                 ev[4 * r + p + 1]);
+  for (int i = 0; i < made; ++i) cudaEventDestroy(ev[i]);
+  delete[] ev;
+  return (int)err;
 }
 
 // Dynamic shared memory that block_bwd needs at half-width K (bytes).

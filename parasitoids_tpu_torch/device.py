@@ -1,6 +1,8 @@
 """Device and dtype policy of the port.
 
-CUDA when present, else the CPU; f32 by default and f64 when
+The card (CUDA) by default, with no CPU fallback: the CPU runs only
+when a caller passes ``device='cpu'`` (the tests do; the CLIs take
+``--device cpu``).  f32 by default and f64 when
 ``Params.use_f64`` asks for the validation mode.  Nothing here changes
 torch's default dtype: every entry point takes an explicit ``device`` and
 ``dtype`` and creates its tensors with them.
@@ -14,10 +16,15 @@ __all__ = ['pick_device', 'pick_dtype', 'pin_full_f32', 'scalar']
 
 
 def pick_device(device=None) -> torch.device:
-    """``device`` if given, else CUDA when available, else the CPU."""
-    if device is not None:
-        return torch.device(device)
-    return torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+    """``device`` if given, else CUDA.  Raises when CUDA is asked for,
+    or no device is given, and torch sees no card: the port never falls
+    back to the CPU unasked."""
+    dev = torch.device('cuda' if device is None else device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible to torch; pass "
+                           "device='cpu' (--device cpu on the command line) "
+                           "to run on the CPU")
+    return dev
 
 
 def pick_dtype(params=None, dtype=None) -> torch.dtype:

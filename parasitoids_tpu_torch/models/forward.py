@@ -21,6 +21,7 @@ from ..config import Params
 from ..device import pick_device, pick_dtype, pin_full_f32
 from ..io import get_wind_data, pack_wind
 from ..ops.daily_kernel import KernelConfig, build_daily_kernel
+from ..utils.checks import warn_on_loss
 from .solver import SolverConfig, propagate_pop, propagate_prob
 
 __all__ = ['ForwardSetup', 'setup_forward', 'setup_from_numpy',
@@ -108,7 +109,7 @@ def _auto_half_width(Dparams, cell, z=4.0, lo=6):
 
 def setup_forward(params: Params, device=None, dtype=None) -> ForwardSetup:
     """Load wind and freeze the static configuration of a Params object on
-    ``device`` (default: CUDA if present) in ``dtype`` (default: f32, f64
+    ``device`` (default: CUDA; the CPU only when asked for) in ``dtype`` (default: f32, f64
     when ``params.use_f64``)."""
     device = pick_device(device)
     dtype = pick_dtype(params, dtype)
@@ -199,7 +200,6 @@ def simulate(params: Params, setup: ForwardSetup | None = None,
     the day labels.  ``timing`` receives ``kernel_phase`` and
     ``conv_phase`` seconds, each ending in a device synchronize.
     """
-    from parasitoids_tpu.utils.checks import warn_on_loss
     if setup is None:
         setup = setup_forward(params, device=device)
     dev = setup.wind_flat.device

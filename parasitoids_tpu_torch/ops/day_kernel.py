@@ -13,8 +13,9 @@ Two implementations of one contract, forward and backward:
   read from ρ on the device), and its backward launches the kernel's
   backward in the same source, which replaces ``_day_bwd_kernel`` (K3 and
   K4).  The forward is bound by exp (MUFU) throughput, (2K+2)²·G exps per
-  minute; it builds blocks into a ``(T, n, n)`` scratch and gathers them
-  tile by tile, in a fixed order, so its output is bitwise reproducible.
+  minute; it builds blocks into a ``(T, n, n)`` scratch, gathers them per
+  (buffer tile, chunk of ``_CHUNK`` minutes) into partial tiles and sums a
+  tile's partials in chunk order, so its output is bitwise reproducible.
   The backward rebuilds each minute's block, so it costs the forward's
   exps plus three closed-form lattices (two Φ and one exp per corner);
   its per-minute partial sums are reduced in minute order, so it is
@@ -34,6 +35,9 @@ by construction in ``day_scatter_inputs``), so no block is ever clamped.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -43,7 +47,7 @@ from .bvn import (bvn_cell_masses, cell_masses_vjp, corner_rect, genz_branch,
 
 __all__ = ['LAUNCHES', 'LAUNCHES_BWD', 'accumulate_day',
            'accumulate_day_bwd', 'accumulate_day_bwd_plain',
-           'accumulate_day_plain']
+           'accumulate_day_plain', 'pass_ms']
 
 # kernel launches so far (one per day accumulated on the card, and one per
 # day's backward); a run reads them to show that its main path went
@@ -52,6 +56,10 @@ LAUNCHES = 0
 LAUNCHES_BWD = 0
 
 _G_NODES = 20
+_CHUNK = 64                          # minutes per gather chunk (C)
+_TILE = 32                           # csrc/day_kernel.cu kTile
+_MAX_CHUNK = 256                     # kGatherThreads: one minute a thread
+_MAX_CHUNKS = 1024                   # kMaxChunks: a tile's chunks
 _N_SCALARS = 16                      # csrc/day_kernel.cu kScalars
 _SMEM_LIMIT = 232448                 # dynamic shared memory per CTA, H100
 _RHO_MAX = 1 - 1e-6                  # the |ρ| clamp of the BVN op
@@ -234,26 +242,75 @@ def _cuda_call(lib, fn, smem_fn, K, dev, *args):
         raise RuntimeError('{} failed: cudaError {}'.format(fn, err))
 
 
+def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk):
+    """Packed constants, scratch and outputs of one forward launch, and the
+    C arguments up to the stream (see ``parasitoids_day_accumulate``).  All
+    come from the caching allocator, so a day loop reuses the same memory
+    every day; the partials are sized from the shapes alone (tiles ×
+    ⌈T / chunk⌉ × 32², about 90 MB at the headline shapes), of which the
+    kernel writes and reads only those of the tiles in each chunk's box
+    that its blocks meet."""
+    dev = h_scat.device
+    T = h_scat.shape[0]
+    n = 2 * K + 1
+    nchunks = -(-T // chunk)
+    tiles = (-(-buf_len // _TILE)) ** 2
+    if not 1 <= chunk <= _MAX_CHUNK or nchunks > _MAX_CHUNKS:
+        raise ValueError('chunk {} out of range for T = {}'.format(chunk, T))
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(
+        consts=_pack_constants(Dparams, cell, dev),
+        scratch=torch.empty((T, n, n), **f32),
+        bsum=torch.empty(T, **f32),
+        partial=torch.empty((tiles, nchunks, _TILE, _TILE), **f32),
+        flags=torch.empty((tiles, nchunks), dtype=torch.int32, device=dev),
+        boxes=torch.empty((nchunks, 4), dtype=torch.int32, device=dev),
+        buf=torch.empty((buf_len, buf_len), **f32))
+    args = (out['consts'].data_ptr(), h_scat.data_ptr(), cdf_mu.data_ptr(),
+            idx.data_ptr(), T, K, buf_len, chunk,
+            *(out[k].data_ptr() for k in ('scratch', 'bsum', 'partial',
+                                          'flags', 'boxes', 'buf')))
+    return out, args
+
+
 def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
     global LAUNCHES
     from ._build import load
     lib = load('day_kernel')
-    dev = h_scat.device
-    T = h_scat.shape[0]
-    n = 2 * K + 1
-    consts = _pack_constants(Dparams, cell, dev)
-    # scratch and outputs come from the caching allocator, so a day loop
-    # reuses the same memory every day
-    scratch = torch.empty((T, n, n), dtype=torch.float32, device=dev)
-    bsum = torch.empty(T, dtype=torch.float32, device=dev)
-    buf = torch.empty((buf_len, buf_len), dtype=torch.float32, device=dev)
+    out, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len,
+                              _CHUNK)
     _cuda_call(lib, 'parasitoids_day_accumulate', 'parasitoids_day_smem_bytes',
-               K, dev, consts.data_ptr(), h_scat.data_ptr(),
-               cdf_mu.data_ptr(), idx.data_ptr(), T, K, buf_len,
-               scratch.data_ptr(), bsum.data_ptr(), buf.data_ptr())
+               K, h_scat.device, *args)
     LAUNCHES += 1
-    loss = torch.sum(clipped * h_scat * (1.0 - bsum))
-    return buf, loss
+    loss = torch.sum(clipped * h_scat * (1.0 - out['bsum']))
+    return out['buf'], loss
+
+
+def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
+            reps=20, chunk=_CHUNK):
+    """Device milliseconds of the forward kernel's three passes,
+    ``(reps, 3)`` numpy (block_build, gather, reduce), from CUDA events
+    recorded around the kernels alone, every rep queued before the first
+    is waited on: the wrapper's checks and packing are outside them.  Takes
+    :func:`accumulate_day`'s inputs, on the card; each rep counts as one
+    launch."""
+    global LAUNCHES
+    from ._build import load
+    _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
+    if h_scat.device.type != 'cuda':
+        raise ValueError('pass_ms times the CUDA kernel: give it CUDA tensors')
+    if reps < 1:
+        raise ValueError('reps must be at least 1, got {}'.format(reps))
+    lib = load('day_kernel')
+    bufs, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K,
+                               buf_len, chunk)
+    ms = (ctypes.c_float * (3 * reps))()
+    _cuda_call(lib, 'parasitoids_day_accumulate_timed',
+               'parasitoids_day_smem_bytes', K, h_scat.device, *args, reps,
+               ctypes.addressof(ms))
+    LAUNCHES += reps
+    del bufs                 # the call waited for the card: safe to free
+    return np.frombuffer(ms, dtype=np.float32).reshape(reps, 3).copy()
 
 
 def _launch_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,

@@ -23,7 +23,7 @@ def wind(interp=2, site='data/kalbar', start='00:00'):
     port's prefix sum (``wind_prefix_sum``), fed to both packages."""
     key = (interp, site, start)
     if key not in _WIND:
-        from parasitoids_tpu.io import get_wind_data, pack_wind
+        from parasitoids_tpu_torch.io import get_wind_data, pack_wind
         from parasitoids_tpu_torch.models.forward import wind_prefix_sum
         wind_data, days = get_wind_data(site, interp, start)
         packed = pack_wind(wind_data, days, ndays=len(days))

@@ -4,6 +4,7 @@ a direct JAX-vs-port ``forward_fields``; the CLI end to end; and the
 port's independence from JAX."""
 
 import os
+import re
 import subprocess
 import sys
 import warnings
@@ -136,10 +137,45 @@ def test_cli_end_to_end(tmp_path, capsys):
     assert os.path.exists(out + '.json')
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 def test_port_does_not_import_jax():
+    # every module of the port (its entry points, its own copies of the
+    # host layer) loads neither JAX nor any module of the JAX package
     code = ('import sys, parasitoids_tpu_torch, parasitoids_tpu_torch.cli, '
             'parasitoids_tpu_torch.ops.day_kernel, '
-            'parasitoids_tpu_torch.bayes.map_fit; '
-            "assert 'jax' not in sys.modules, 'jax was imported'")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    subprocess.run([sys.executable, '-c', code], check=True, cwd=root)
+            'parasitoids_tpu_torch.bayes.map_fit, '
+            'parasitoids_tpu_torch.bayes.model, parasitoids_tpu_torch.io, '
+            'parasitoids_tpu_torch.io.locinfo, '
+            'parasitoids_tpu_torch.utils.checks, '
+            'parasitoids_tpu_torch.viz.plot_result; '
+            'import pkgutil, importlib; '
+            'mods = [m.name for m in pkgutil.walk_packages('
+            "parasitoids_tpu_torch.__path__, 'parasitoids_tpu_torch.') "
+            "if not m.name.endswith('__main__')]; "
+            '[importlib.import_module(m) for m in mods]; '
+            "assert 'jax' not in sys.modules, 'jax was imported'; "
+            "bad = [k for k in sys.modules if k == 'parasitoids_tpu' or "
+            "k.startswith('parasitoids_tpu.')]; "
+            "assert not bad, 'the JAX package was imported: %s' % bad")
+    subprocess.run([sys.executable, '-c', code], check=True, cwd=ROOT)
+
+
+def test_port_has_no_import_of_the_jax_package():
+    # no line of the port, its smoke run or its profile scripts imports
+    # parasitoids_tpu or a module of it
+    pattern = re.compile(r'^\s*(from|import)\s+parasitoids_tpu(\.|\s|$)')
+    files = [os.path.join(d, f)
+             for d, _, fs in os.walk(os.path.join(ROOT,
+                                                  'parasitoids_tpu_torch'))
+             for f in fs if f.endswith('.py')]
+    files += [os.path.join(ROOT, 'chip_smoke.py')] + [
+        os.path.join(ROOT, 'scripts', f)
+        for f in os.listdir(os.path.join(ROOT, 'scripts'))
+        if f.startswith(('profile_torch', 'time_day_kernel'))]
+    assert len(files) > 30
+    hits = ['{}:{}'.format(os.path.relpath(f, ROOT), i + 1)
+            for f in files for i, line in enumerate(open(f))
+            if pattern.match(line)]
+    assert not hits, hits
