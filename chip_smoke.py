@@ -9,16 +9,17 @@ goldens through the kernel, then drives the forward main path — the CLI
 population run at the Kalbar default and ``forward_fields`` at the
 prior-coverage windows — and checks that every simulation went through the
 kernel once per day.  Then the gradient path: the backward kernel (K3/K4)
-against its plain twin at the headline shapes, the gradient of the log
-posterior at the Bayes default (801²) through the kernels and through the
-plain path, and the MAP CLI at its default (401²) with its value and
-gradient held against a JAX golden.  Any failed phase exits non-zero.  The
-last line is a JSON object with ``"ok": true`` and the device; the line
-before it lists the kernels with their launches, errors, times (the
-forward's three passes also timed alone, with CUDA events around the
-kernels) and bounds, the least time the card could take for the same
-work from this run's inputs.  Needs one CUDA device; imports nothing of
-JAX or of the JAX package, and checks that.
+against its plain twin at the headline shapes and at K = 88, the gradient
+of the log posterior at the Bayes default (801²) through the kernels and
+through the plain path, and the MAP CLI at its default (401²) with its
+value and gradient held against a JAX golden.  Any failed phase exits
+non-zero.  The last line is a JSON object with ``"ok": true`` and the
+device; the line before it lists the kernels with their launches, errors,
+times (the forward's three passes and the backward's two launches also
+timed alone, with CUDA events around the kernels) and bounds, the least
+time the card could take for the same work from this run's inputs.  Needs
+one CUDA device; imports nothing of JAX or of the JAX package, and checks
+that.
 """
 
 import json
@@ -396,76 +397,136 @@ def phase_main_path(dev, card):
     return day_kernel.LAUNCHES, sec, per_sim
 
 
+BWD_NAMES = ('dh', 'dmu', 'dclip', 'dsig_x', 'dsig_y', 'drho', 'dcell')
+
+
+def backward_outputs(out):
+    dh, dmu, dclip, dD, dcell = out
+    return [dh, dmu, dclip, *dD, dcell]
+
+
+def backward_vs_plain(args, label, f64=False):
+    """One backward through the kernel, twice, and through the plain
+    version: the launches bitwise equal and every output within its atol
+    + BWD_RTOL * scale.  With ``f64`` the plain version runs in f64 on the
+    same f32 inputs, and the distance of the f32 plain version from it is
+    printed beside the kernel's.  Returns (worst error over scale, worst
+    absolute error)."""
+    from parasitoids_tpu_torch.ops.day_kernel import (accumulate_day_bwd,
+                                                      accumulate_day_bwd_plain)
+    got = accumulate_day_bwd(*args)
+    again = accumulate_day_bwd(*args)
+    plain = accumulate_day_bwd_plain(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          label + ': two launches bitwise equal')
+    got, want = backward_outputs(got), backward_outputs(plain)
+    if f64:
+        ct_buf, ct_loss, h, mu, idx, clip, Dp, cell, K, buf_len = args
+        up = lambda v: torch.as_tensor(v, dtype=torch.float32,
+                                       device=h.device).double()
+        want = backward_outputs(accumulate_day_bwd_plain(
+            up(ct_buf), up(ct_loss), up(h), up(mu), idx, up(clip), up(Dp),
+            up(cell), K, buf_len))
+    scales = [float(w.abs().max()) for w in want]
+    scales[2] = float((args[1] * args[2]).abs().max())      # ct_loss * h
+    errs = []
+    for name, g, w, sc in zip(BWD_NAMES, got, want, scales):
+        e = float((g - w).abs().max())
+        errs.append((name, e, e / max(sc, 1e-30),
+                     e <= BWD_ATOL[name] + BWD_RTOL * sc))
+    ok = all(np.isfinite(e) and inside for _, e, _, inside in errs)
+    ref = 'f64 plain' if f64 else 'plain'
+    msg = '{}: every output within its atol + {:.0e} * scale; |kernel - ' \
+        '{}| (/ scale): {}'.format(
+            label, BWD_RTOL, ref, ', '.join(
+                '{} {:.2e} ({:.2e})'.format(n, e, r) for n, e, r, _ in errs))
+    if f64:
+        msg += '; |f32 plain - f64 plain| (/ scale): ' + ', '.join(
+            '{} {:.2e} ({:.2e})'.format(
+                n, float((p - w).abs().max()),
+                float((p - w).abs().max()) / max(sc, 1e-30))
+            for n, p, w, sc in zip(BWD_NAMES, backward_outputs(plain), want,
+                                   scales))
+    check(ok, msg)
+    return max(r for _, _, r, _ in errs), max(e for _, e, _, _ in errs)
+
+
 def phase_backward_vs_plain(dev, card, rate):
     """K3/K4 against the plain backward on days 0, 9, 17 of Kalbar at the
-    headline shapes, seeded random cotangents; two launches bitwise
-    equal; returns (worst error over scale, abs error, timings)."""
+    headline shapes, a seeded white-noise cotangent, two launches bitwise
+    equal; at day 9, the two launches timed alone beside the wrapper, the
+    plain version and the bound; then one day at K = 88 (12.5 m cells),
+    wider than any lattice that fits shared memory whole, against the
+    plain version run in f64.  A cell of the block is a difference of four
+    lattice values of order 1, so its f32 rounding is about 1e-7 whatever
+    the cell's mass (1e-3 at most at K = 88), in the kernel and in the f32
+    plain version alike; white noise contracts that rounding over 177²
+    cells into dh, and two f32 results then stand a whole BWD_RTOL apart
+    while each is nearer to f64: the f64 reference leaves the limit to the
+    kernel alone.  Returns (worst error over scale, abs error, timings)."""
     from parasitoids_tpu_torch.models.forward import (prior_coverage_windows,
                                                       setup_forward)
     from parasitoids_tpu_torch.ops.daily_kernel import day_scatter_inputs
     from parasitoids_tpu_torch.ops.day_kernel import (accumulate_day_bwd,
-                                                      accumulate_day_bwd_plain)
+                                                      accumulate_day_bwd_plain,
+                                                      pass_ms_bwd)
     print('[6] backward kernel vs plain on the card (D = 801, T = 1440, '
           'K = 44)')
-    p = kalbar_params()
-    cell = p.domain_info[0] / p.domain_info[1]
-    p.kernel_rad, p.kernel_rad_local = prior_coverage_windows(cell)
-    s = setup_forward(p, device=dev)
-    K = s.kcfg.K
-    buf_len = s.scfg.dom_len + 4 * K
-    hp = (p.lam, *p.g_params, *p.f_params)
     gen = torch.Generator(device=dev).manual_seed(0)
-    ct_buf = torch.randn((buf_len, buf_len), generator=gen, device=dev)
-    ct_loss = torch.randn((), generator=gen, device=dev)
-    names = ('dh', 'dmu', 'dclip', 'dsig_x', 'dsig_y', 'drho', 'dcell')
     worst = {'K3': 0.0, 'K4': 0.0}
     worst_abs = {'K3': 0.0, 'K4': 0.0}
     timing = {}
-    for day in (0, 9, 17):
-        h, mu, idx, clip, _ = day_scatter_inputs(
-            s.wind_flat, s.wind_cumsum, day, hp, p.mu_r, p.n_periods, 0,
-            s.kcfg, s.rad_dist)
-        for rho in (0.253, 0.5, 0.8, 0.93, -0.93, 0.99, -0.99):
-            Dp = (p.Dparams[0], p.Dparams[1], rho)
-            args = (ct_buf, ct_loss, h, mu, idx, clip, Dp, cell, K, buf_len)
-            got = accumulate_day_bwd(*args)
-            again = accumulate_day_bwd(*args)
-            want = accumulate_day_bwd_plain(*args)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  'day {:2d} rho {:+.3f}: two launches bitwise equal'.format(
-                      day, rho))
-            got = [got[0], got[1], got[2], *got[3], got[4]]
-            want = [want[0], want[1], want[2], *want[3], want[4]]
-            scales = [float(w.abs().max()) for w in want]
-            scales[2] = float((ct_loss * h).abs().max())
-            branch = 'K4' if abs(rho) >= 0.925 else 'K3'
-            errs = []
-            for name, g, w, sc in zip(names, got, want, scales):
-                e = float((g - w).abs().max())
-                errs.append((name, e, e / max(sc, 1e-30),
-                             e <= BWD_ATOL[name] + BWD_RTOL * sc))
-            rel = max(r for _, _, r, _ in errs)
-            ok = all(np.isfinite(e) and inside for _, e, _, inside in errs)
-            check(ok, 'day {:2d} rho {:+.3f} ({}): every output within its '
-                  'atol + {:.0e} * scale; |kernel - plain| (/ scale): {}'
-                  .format(day, rho, branch, BWD_RTOL,
-                          ', '.join('{} {:.2e} ({:.2e})'.format(n, e, r)
-                                    for n, e, r, _ in errs)))
-            worst[branch] = max(worst[branch], rel)
-            worst_abs[branch] = max(worst_abs[branch],
-                                    max(e for _, e, _, _ in errs))
-            if day == 9 and rho in (0.253, 0.99):
+    for rad_res, days, rhos in ((400, (0, 9, 17), (0.253, 0.5, 0.8, 0.93,
+                                                   -0.93, 0.99, -0.99)),
+                                (800, (9,), (0.253,))):
+        p = kalbar_params()
+        p.domain_info = (p.domain_info[0], rad_res)
+        cell = p.domain_info[0] / rad_res
+        p.kernel_rad, p.kernel_rad_local = prior_coverage_windows(cell)
+        s = setup_forward(p, device=dev)
+        K = s.kcfg.K
+        buf_len = s.scfg.dom_len + 4 * K
+        check((K, s.kcfg.periods, buf_len) == {400: (44, 1440, 977),
+                                               800: (88, 1440, 1953)}[rad_res],
+              'cells of {} m: K = {}, T = {}, buf = {}'.format(
+                  cell, K, s.kcfg.periods, buf_len))
+        hp = (p.lam, *p.g_params, *p.f_params)
+        ct_buf = torch.randn((buf_len, buf_len), generator=gen, device=dev)
+        ct_loss = torch.randn((), generator=gen, device=dev)
+        for day in days:
+            h, mu, idx, clip, _ = day_scatter_inputs(
+                s.wind_flat, s.wind_cumsum, day, hp, p.mu_r, p.n_periods, 0,
+                s.kcfg, s.rad_dist)
+            for rho in rhos:
+                Dp = (p.Dparams[0], p.Dparams[1], rho)
+                args = (ct_buf, ct_loss, h, mu, idx, clip, Dp, cell, K,
+                        buf_len)
+                branch = 'K4' if abs(rho) >= 0.925 else 'K3'
+                rel, err = backward_vs_plain(
+                    args, 'K = {} day {:2d} rho {:+.3f} ({})'.format(
+                        K, day, rho, branch), f64=K != 44)
+                worst[branch] = max(worst[branch], rel)
+                worst_abs[branch] = max(worst_abs[branch], err)
+                if K != 44 or day != 9 or rho not in (0.253, 0.99):
+                    continue
+                passes = pass_ms_bwd(*args, reps=20)
                 t = dict(ms=median_ms(lambda: accumulate_day_bwd(*args), 20),
                          plain_ms=median_ms(
-                             lambda: accumulate_day_bwd_plain(*args), 5))
+                             lambda: accumulate_day_bwd_plain(*args), 5),
+                         passes=np.median(passes, axis=0).tolist(),
+                         kernel_ms=float(np.median(passes.sum(axis=1))))
                 t['bound_ms'], t['bound_by'], what = backward_bound(
                     h, mu, Dp, cell, K, buf_len, rate)
                 timing[branch] = t
-                print('  day 9 {}: wrapper {:.4f} ms, plain {:.4f} ms '
-                      '(median); bound {:.4f} ms by {} ({}) ({})'.format(
-                          branch, t['ms'], t['plain_ms'], t['bound_ms'],
-                          t['bound_by'], what, card))
+                print('  day 9 {}: kernels {:.4f} ms (block_bwd {:.4f}, '
+                      'bwd_reduce {:.4f}; CUDA events around the kernels '
+                      'alone, median of 20); wrapper {:.4f} ms; plain {:.4f} '
+                      'ms; bound {:.4f} ms by {} ({}), bound / kernels {:.3f} '
+                      '({})'.format(
+                          branch, t['kernel_ms'], *t['passes'], t['ms'],
+                          t['plain_ms'], t['bound_ms'], t['bound_by'], what,
+                          t['bound_ms'] / t['kernel_ms'], card))
     return worst, worst_abs, timing
 
 
@@ -711,9 +772,14 @@ def main():
         'max_err_over_scale_k3': bwd_err['K3'],
         'max_err_over_scale_k4': bwd_err['K4'],
         'ms': k3['ms'], 'plain_ms': k3['plain_ms'],
+        'kernel_ms': k3['kernel_ms'],
+        'block_bwd_ms': k3['passes'][0], 'bwd_reduce_ms': k3['passes'][1],
         'bound_ms': k3['bound_ms'], 'bound_by': k3['bound_by'],
         'library_ms': None,
         'ms_k4': k4['ms'], 'plain_ms_k4': k4['plain_ms'],
+        'kernel_ms_k4': k4['kernel_ms'],
+        'block_bwd_ms_k4': k4['passes'][0],
+        'bwd_reduce_ms_k4': k4['passes'][1],
         'bound_ms_k4': k4['bound_ms'], 'bound_by_k4': k4['bound_by'],
         'sec_per_value_801': sec_v,
         'sec_per_value_and_grad_801': sec_vg,

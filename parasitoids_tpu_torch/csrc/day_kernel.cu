@@ -63,22 +63,37 @@
 // forward here (not the Pallas kernel's fixed 20), so its clamp mask and
 // block sums are those of the forward the port ran.  Two launches, no
 // atomics, bitwise reproducible:
-//   1. block_bwd: one CTA per minute.  It rebuilds the corner lattice U in
-//      shared memory, gathers the (n, n) cotangent window at idx_t, forms
-//      dh_t and dclip_t from two fixed-order tree sums, and the masked block
-//      cotangent ctb = [rect > 0] (h_t ct - ct_loss clip_t h_t), kept in
-//      shared memory.  Each lattice corner then forms the adjoint of the
-//      four-corner difference (ctU) and the closed-form derivative lattices
-//          dL/dh = -phi(h) Phi(-(k - rho h)/s), dL/dk likewise,
-//          dL/drho = phi2(h, k; rho),     s = sqrt(max(1 - rho^2, 1e-12)),
-//      and stores ctU dL/dh and ctU dL/dk; column and row sums (one thread
-//      per column or row, in index order) give dxe and dye, and tree sums
-//      give dmu_t and the minute's partials of dsig_x, dsig_y, drho, dcell.
+//   1. block_bwd: one CTA per minute, one streamed pass.  The corner
+//      lattice U is rebuilt ring - 1 rows at a time into a ring of rows in
+//      shared memory.  Once rows r and r + 1 exist, cell row r follows:
+//      the block (for dh_t, dclip_t and the clamp mask) and the masked
+//      block cotangent
+//          ctb = [rect > 0] (h_t ct - ct_loss clip_t h_t),
+//      its cotangent window read straight from ct_buf (L2-resident), kept
+//      in a second ring.  Corner row r then needs nothing else: every
+//      output is a plain sum over corners of ctU times a closed-form
+//      derivative of L (see corner_rows), so each thread adds its corners
+//      into seven registers while the next rows are built, and one
+//      fixed-order tree sum at the end of the minute gives dh_t, dclip_t,
+//      dmu_t and the minute's partials of dsig_x, dsig_y, drho, dcell.  No
+//      derivative lattice is stored.  Threads walk each range of rows
+//      flat, consecutive threads on consecutive elements (see Walk): no
+//      index is divided in a loop, every lane works whatever 2K + 2 is,
+//      and shared-memory accesses run along rows.
 //   2. bwd_reduce: one CTA sums the (T, 4) partials in minute order and
 //      applies the VJPs of the sigma and rho clamps.
-// What bounds it: the lattice rebuild (the forward's exps), plus two
-// normcdf and one exp per corner; shared memory 2 (2K+2)^2 + (2K+1)^2
-// floats (96.5 KB at K = 44), so two CTAs per SM.
+// What bounds it: instruction throughput, not memory or occupancy.  A
+// corner costs the forward's rebuild (G exps and G IEEE divisions, about
+// 170 instructions at G = 6) plus two normcdf and one exp; on an H100 the
+// rebuild and the cell rows alone take about 0.14 ms a day at K = 44,
+// T = 1440, the derivatives 0.06 ms more, and 3, 4 or 5 CTAs an SM differ
+// by 3%.  Shared memory is O(ring K), 50 KB at K = 44 with a ring of 64
+// rows, so it bounds neither the occupancy (registers do: 60, four CTAs
+// of 256 threads an SM) nor K: the wrapper halves the ring as K grows,
+// and the backward runs wherever block_build's K^2 lattice fits, and
+// beyond.  What is left is the lattice's own arithmetic, shared with the
+// forward: its divisions are by the per-node 1 - sn^2, warp-uniform
+// constants whose reciprocals every thread recomputes.
 //
 // Parameters are packed by parasitoids_tpu_torch/ops/day_kernel.py
 // (_pack_constants) into one float vector; the layout is kConst* below.
@@ -495,138 +510,221 @@ reduce_tiles_kernel(const float* __restrict__ partial,
   }
 }
 
-__host__ __device__ constexpr size_t bwd_smem_floats(int K) {
-  // lattice (then ctU dL/dh) + ctU dL/dk + ctb + 6 edge vectors + constants
-  // + reduction scratch (7 values per warp)
-  return 2 * (size_t)(2 * K + 2) * (2 * K + 2) +
-         (size_t)(2 * K + 1) * (2 * K + 1) + 6 * (size_t)(2 * K + 2) +
-         kConsts + 7 * (kBuildThreads / 32);
+constexpr int kBwdThreads = 256;          // threads of a block_bwd CTA
+constexpr int kBwdMinCtas = 4;            // CTAs an SM must hold: 64 registers
+constexpr int kBwdSums = 9;               // CTA-wide sums of one minute
+
+// Floats of dynamic shared memory of block_bwd at half-width K with rings
+// of `ring` rows: the lattice ring and the padded block cotangent ring, a
+// row of zeros, 6 edge vectors, the constants and the reduction scratch.
+__host__ __device__ constexpr size_t bwd_smem_floats(int K, int ring) {
+  const size_t m = 2 * (size_t)K + 2;
+  return ring * m + ring * (m + 1) + (m + 1) + 6 * m + kConsts +
+         kBwdSums * (kBwdThreads / 32);
 }
 
-__global__ void __launch_bounds__(kBuildThreads)
+// The ring block_bwd uses when asked for `ring` rows: a power of two (a
+// row's slot is row & (ring - 1)), at least 2, and no more than the whole
+// lattice of 2K + 2 rows and the carried row need.
+__host__ __device__ constexpr int bwd_ring(int K, int ring) {
+  int r = 2;
+  while (r < ring && r < 2 * K + 3) r *= 2;
+  return r;
+}
+
+// A thread's walk over a row-major range of rows of `w` elements, one
+// element a step and kBwdThreads elements between steps, with no division
+// in the loop: the thread starts at (row q, column r) = (tid / w, tid % w)
+// of the range and a step adds (dq, dr) = (kBwdThreads / w, kBwdThreads %
+// w), with a carry.  Consecutive threads take consecutive elements, so
+// every lane works whatever w is, and shared-memory accesses run along
+// rows.
+struct Walk {
+  int w, q, r, dq, dr;
+  __device__ Walk(int width)
+      : w(width), q(threadIdx.x / width), r(threadIdx.x % width),
+        dq(kBwdThreads / width), dr(kBwdThreads % width) {}
+  __device__ __forceinline__ void step(int& row, int& col) const {
+    col += dr;
+    row += dq;
+    if (col >= w) {
+      col -= w;
+      ++row;
+    }
+  }
+};
+
+// One corner of the lattice by Genz branch BR (see rho_branch).
+template <int BR>
+__device__ __forceinline__ float corner_upper(float x, float y, float phi,
+                                              const float* q) {
+  if constexpr (BR == 0) return upper_low<6>(x, y, phi, q, 0);
+  if constexpr (BR == 1) return upper_low<12>(x, y, phi, q, 6);
+  if constexpr (BR == 2) return upper_low<20>(x, y, phi, q, 18);
+  return upper_high(x, y, q);
+}
+
+// Rows [lo, hi) of the corner lattice into a ring of rows of m (row r
+// lives in slot r & mask).  The values are those of build_lattice, bit
+// for bit.
+template <int BR>
+__device__ __forceinline__ void lattice_rows(float* U, int mask, int lo,
+                                             int hi, const Walk& wm,
+                                             const float* xe, const float* ye,
+                                             const float* px, const float* py,
+                                             const float* q) {
+  const int m = wm.w;
+  for (int r = lo + wm.q, c = wm.r; r < hi; wm.step(r, c)) {
+    const float phi = px[c] * py[r];
+    U[(r & mask) * m + c] = corner_upper<BR>(xe[c], ye[r], phi, q);
+  }
+}
+
+// Corner rows [lo, hi) of one minute's backward: at corner (i, j) the
+// adjoint of the four-corner difference,
+//   ctU[i][j] = ctb[i-1][j] - ctb[i-1][j-1] - ctb[i][j] + ctb[i][j-1],
+// against the closed-form derivatives
+//   dL/dh = -phi(h) Phi(-(k - rho h)/s), dL/dk likewise,
+//   dL/drho = phi2(h, k; rho),           s = sqrt(max(1 - rho^2, 1e-12)),
+// added to the thread's seven sums v[2..8] (sum dxe, dxe xe, dxe jcol,
+// sum dye, dye ye, dye irow, sum ctU dL/drho).  ctb rows are padded by a
+// zero column on each side (row stride m + 1) and live in a ring; rows
+// -1 and n read the row of zeros.  A corner whose ctU is 0 (masked cells,
+// a minute with h = 0) adds exact zeros and is skipped.
+__device__ __forceinline__ void corner_rows(
+    float (&v)[kBwdSums], int lo, int hi, const Walk& wm, const float* ctb,
+    const float* zrow, int mask, const float* xe, const float* ye,
+    const float* fx, const float* fy, const float* q, int K) {
+  const int m = wm.w, n = m - 1, cw = m + 1;
+  const float rho = q[kRho], inv_s = q[kInvS], inv_s2 = q[kInvS2];
+  const float lr_scale = inv_s / kTwoPi;
+  const float centre = (float)K + 0.5f;
+  for (int i = lo + wm.q, j = wm.r; i < hi; wm.step(i, j)) {
+    const float* up = i > 0 ? ctb + ((i - 1) & mask) * cw : zrow;
+    const float* dn = i < n ? ctb + (i & mask) * cw : zrow;
+    const float cu = ((up[j + 1] - up[j]) - dn[j + 1]) + dn[j];
+    if (cu == 0.0f) continue;
+    const float x = xe[j], y = ye[i];
+    const float lx = -fx[j] * normcdff(-(y - rho * x) * inv_s);
+    const float ly = -fy[i] * normcdff(-(x - rho * y) * inv_s);
+    const float qf = (x * x - 2.0f * rho * (x * y) + y * y) * inv_s2;
+    const float gx = cu * lx, gy = cu * ly;
+    v[2] += gx;
+    v[3] += gx * x;
+    v[4] += gx * ((float)j - centre);
+    v[5] += gy;
+    v[6] += gy * y;
+    v[7] += gy * (centre - (float)i);
+    v[8] += cu * (expf(-0.5f * qf) * lr_scale);
+  }
+}
+
+// The backward of one day's accumulate, a CTA per minute.  The lattice is
+// built ring - 1 rows at a time; as soon as rows r and r + 1 exist, cell
+// row r of the block (for dh, dclip and the clamp mask) and of the masked
+// block cotangent ctb = [rect > 0] (h_t ct - ct_loss clip_t h_t) follow,
+// the cotangent window read straight from ct_buf, and then corner row r's
+// sums, in the same phase that builds the next strip.  Nothing of size
+// K^2 is kept unless the ring is asked to hold the whole lattice.
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinCtas)
 block_bwd_kernel(const float* __restrict__ consts,
                  const float* __restrict__ h,       // (T,)
                  const float* __restrict__ mu,      // (T, 2)
                  const int32_t* __restrict__ idx,   // (T, 2): row, col
                  const float* __restrict__ clip,    // (T,)
                  const float* __restrict__ ct_buf,  // (buf_len, buf_len)
-                 int K, int buf_len,
+                 int K, int buf_len, int ring,
                  float* __restrict__ dh,            // (T,)
                  float* __restrict__ dmu,           // (T, 2)
                  float* __restrict__ dclip,         // (T,)
                  float* __restrict__ part) {        // (T, 4)
   extern __shared__ float smem[];
   const int n = 2 * K + 1;
-  const int m = n + 1;
-  float* U = smem;               // lattice [row][col]; then ctU dL/dh
-  float* Y = U + m * m;          // ctU dL/dk
-  float* ctb = Y + m * m;        // masked block cotangent, n * n
-  float* xe = ctb + n * n;
+  const int m = n + 1, cw = m + 1, mask = ring - 1, strip = ring - 1;
+  float* U = smem;               // lattice ring [slot][col], ring * m
+  float* ctb = U + ring * m;     // cotangent ring [slot][1 + col], ring * cw
+  float* zrow = ctb + ring * cw; // cw zeros
+  float* xe = zrow + cw;
   float* ye = xe + m;
-  float* px = ye + m;            // Phi(-xe); then dxe
-  float* py = px + m;            // Phi(-ye); then dye
+  float* px = ye + m;            // Phi(-xe)
+  float* py = px + m;            // Phi(-ye)
   float* fx = py + m;            // phi(xe)
   float* fy = fx + m;            // phi(ye)
   float* q = fy + m;             // constants
   float* red = q + kConsts;
 
-  const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  for (int i = tid; i < kConsts; i += blockDim.x) q[i] = consts[i];
+  const Walk wm(m), wn(n);       // over lattice rows and over cell rows
+  for (int i = tid; i < kConsts; i += kBwdThreads) q[i] = consts[i];
+  for (int i = tid; i < cw; i += kBwdThreads) zrow[i] = 0.0f;
+  for (int i = tid; i < ring; i += kBwdThreads)
+    ctb[i * cw] = ctb[i * cw + n + 1] = 0.0f;
   __syncthreads();
+  const int branch = rho_branch(q);
+  const float ctl = q[kCtLoss];
+  const int nstrips = (m + strip - 1) / strip;
 
+  const int t = blockIdx.x;
   corner_edges(xe, ye, px, py, q, mu[2 * t], mu[2 * t + 1], K);
   __syncthreads();
-  for (int i = tid; i < m; i += blockDim.x) {
+  for (int i = tid; i < m; i += kBwdThreads) {
     fx[i] = expf(-0.5f * xe[i] * xe[i]) / kSqrt2Pi;
     fy[i] = expf(-0.5f * ye[i] * ye[i]) / kSqrt2Pi;
   }
-  build_lattice(U, xe, ye, px, py, q, m);
-  __syncthreads();
-
-  // the block as the forward built it, the cotangent window at idx_t, and
-  // the masked block cotangent (the buffer's h block plus the loss's
-  // -ct_loss clip h sum(block))
-  const float ht = h[t], clt = clip[t], ctl = q[kCtLoss];
+  const float ht = h[t], clt = clip[t];
   const float cl_h = ctl * clt * ht;
   const float* ctw = ct_buf + (size_t)idx[2 * t] * buf_len + idx[2 * t + 1];
-  float s2[2] = {0.f, 0.f};      // sum ct block, sum block
-  for (int p = tid; p < n * n; p += blockDim.x) {
-    const int r = p / n, c = p - r * n;
-    const float* u0 = U + r * m + c;
-    const float rect = (u0[m] - u0[m + 1]) - (u0[0] - u0[1]);
-    const float b = fmaxf(rect, 0.0f);
-    const float ct = ctw[(size_t)r * buf_len + c];
-    s2[0] += ct * b;
-    s2[1] += b;
-    ctb[p] = rect > 0.0f ? ht * ct - cl_h : 0.0f;
-  }
-  cta_sum(s2, red);              // synchronizes: ctb is complete, U free
-  if (tid == 0) {
-    dh[t] = s2[0] + ctl * clt * (1.0f - s2[1]);
-    dclip[t] = ctl * ht * (1.0f - s2[1]);
-  }
-
-  // adjoint of the four-corner difference at each corner,
-  // ctU[i][j] = ctb[i-1][j] - ctb[i-1][j-1] - ctb[i][j] + ctb[i][j-1],
-  // against the closed-form derivative lattices
-  const float rho = q[kRho], inv_s = q[kInvS], inv_s2 = q[kInvS2];
-  const float lr_scale = inv_s / kTwoPi;
-  float s_rho[1] = {0.f};
-  for (int p = tid; p < m * m; p += blockDim.x) {
-    const int i = p / m, j = p - i * m;
-    const bool up = i > 0, dn = i < n, lf = j > 0, rt = j < n;
-    const float a = (up && rt) ? ctb[(i - 1) * n + j] : 0.0f;
-    const float b = (up && lf) ? ctb[(i - 1) * n + j - 1] : 0.0f;
-    const float c = (dn && rt) ? ctb[i * n + j] : 0.0f;
-    const float d = (dn && lf) ? ctb[i * n + j - 1] : 0.0f;
-    const float cu = ((a - b) - c) + d;
-    const float x = xe[j], y = ye[i];
-    const float lx = -fx[j] * normcdff(-(y - rho * x) * inv_s);
-    const float ly = -fy[i] * normcdff(-(x - rho * y) * inv_s);
-    const float qf = (x * x - 2.0f * rho * (x * y) + y * y) * inv_s2;
-    U[p] = cu * lx;
-    Y[p] = cu * ly;
-    s_rho[0] += cu * (expf(-0.5f * qf) * lr_scale);
-  }
-  __syncthreads();
-  // dxe[j] = sum_i ctU dL/dh (columns), dye[i] = sum_j ctU dL/dk (rows),
-  // each summed in index order by one thread
-  for (int k = tid; k < 2 * m; k += blockDim.x) {
-    float acc = 0.f;
-    if (k < m) {
-      for (int i = 0; i < m; ++i) acc += U[i * m + k];
-      px[k] = acc;
-    } else {
-      const float* row = Y + (size_t)(k - m) * m;
-      for (int j = 0; j < m; ++j) acc += row[j];
-      py[k - m] = acc;
+  // v[0] = sum ct block, v[1] = sum block, v[2..8]: see corner_rows
+  float v[kBwdSums];
+#pragma unroll
+  for (int k = 0; k < kBwdSums; ++k) v[k] = 0.0f;
+  int c_lo = 0, c_hi = 0;        // corner rows whose ctb rows are complete
+  for (int s = 0; s < nstrips; ++s) {
+    const int u_lo = s * strip, u_hi = min(u_lo + strip, m);
+    switch (branch) {
+      case 0: lattice_rows<0>(U, mask, u_lo, u_hi, wm, xe, ye, px, py, q);
+        break;
+      case 1: lattice_rows<1>(U, mask, u_lo, u_hi, wm, xe, ye, px, py, q);
+        break;
+      case 2: lattice_rows<2>(U, mask, u_lo, u_hi, wm, xe, ye, px, py, q);
+        break;
+      default: lattice_rows<3>(U, mask, u_lo, u_hi, wm, xe, ye, px, py, q);
+        break;
     }
+    corner_rows(v, c_lo, c_hi, wm, ctb, zrow, mask, xe, ye, fx, fy, q, K);
+    __syncthreads();             // lattice rows < u_hi are complete
+    // cell rows whose two lattice rows exist; y descends with the row
+    // index, so a cell's low-y corners are on lattice row r + 1
+    c_lo = max(u_lo - 1, 0);
+    const int r_hi = u_hi - 1;
+    for (int r = c_lo + wn.q, c = wn.r; r < r_hi; wn.step(r, c)) {
+      const float* u0 = U + (r & mask) * m + c;
+      const float* u1 = U + ((r + 1) & mask) * m + c;
+      const float rect = (u1[0] - u1[1]) - (u0[0] - u0[1]);
+      const float b = fmaxf(rect, 0.0f);
+      const float ct = ctw[(size_t)r * buf_len + c];
+      v[0] += ct * b;
+      v[1] += b;
+      ctb[(r & mask) * cw + 1 + c] = rect > 0.0f ? ht * ct - cl_h : 0.0f;
+    }
+    __syncthreads();             // ctb rows < r_hi are complete
+    c_hi = s == nstrips - 1 ? m : r_hi;
   }
-  __syncthreads();
-  // chain through the standardization xe = (jcol cell - mu_x) / sig_x,
-  // ye = (irow cell - mu_y) / sig_y
-  const float centre = (float)K + 0.5f;
-  float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, s_rho[0]};
-  for (int i = tid; i < m; i += blockDim.x) {
-    const float fi = (float)i;
-    v[0] += px[i];                          // sum dxe
-    v[1] += px[i] * xe[i];                  // sum dxe xe
-    v[2] += px[i] * (fi - centre);          // sum dxe jcol
-    v[3] += py[i];                          // sum dye
-    v[4] += py[i] * ye[i];                  // sum dye ye
-    v[5] += py[i] * (centre - fi);          // sum dye irow
-  }
+  corner_rows(v, c_lo, c_hi, wm, ctb, zrow, mask, xe, ye, fx, fy, q, K);
   cta_sum(v, red);
   if (tid == 0) {
     const float sig_x = q[kSigX], sig_y = q[kSigY];
-    dmu[2 * t] = -v[0] / sig_x;
-    dmu[2 * t + 1] = -v[3] / sig_y;
+    dh[t] = v[0] + ctl * clt * (1.0f - v[1]);
+    dclip[t] = ctl * ht * (1.0f - v[1]);
+    // chain through the standardization xe = (jcol cell - mu_x) / sig_x,
+    // ye = (irow cell - mu_y) / sig_y
+    dmu[2 * t] = -v[2] / sig_x;
+    dmu[2 * t + 1] = -v[5] / sig_y;
     float* pt = part + 4 * (size_t)t;
-    pt[0] = -v[1] / sig_x;                  // dsig_x
-    pt[1] = -v[4] / sig_y;                  // dsig_y
-    pt[2] = v[6];                           // drho
-    pt[3] = v[2] / sig_x + v[5] / sig_y;    // dcell
+    pt[0] = -v[3] / sig_x;                  // dsig_x
+    pt[1] = -v[6] / sig_y;                  // dsig_y
+    pt[2] = v[8];                           // drho
+    pt[3] = v[4] / sig_x + v[7] / sig_y;    // dcell
   }
 }
 
@@ -691,6 +789,59 @@ cudaError_t launch_day(const float* consts, const float* h, const float* mu,
   return cudaGetLastError();
 }
 
+// The two launches of one day's backward on `s`, block_bwd with rings of
+// bwd_ring(K, ring) rows; when `ev` is not null, ev[0..2] are recorded
+// before block_bwd, between the launches and after bwd_reduce.
+cudaError_t launch_day_bwd(const float* consts, const float* h,
+                           const float* mu, const int32_t* idx,
+                           const float* clip, const float* ct_buf, int T,
+                           int K, int buf_len, int ring, float* dh, float* dmu, float* dclip, float* part,
+                           float* dD, float* dcell, cudaStream_t s,
+                           cudaEvent_t* ev) {
+  ring = bwd_ring(K, ring);
+  const size_t smem = bwd_smem_floats(K, ring) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  if (ev) cudaEventRecord(ev[0], s);
+  block_bwd_kernel<<<T, kBwdThreads, smem, s>>>(consts, h, mu, idx, clip, ct_buf,
+                                            K, buf_len, ring, dh, dmu, dclip,
+                                            part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (ev) cudaEventRecord(ev[1], s);
+  bwd_reduce_kernel<<<1, 128, 0, s>>>(consts, part, T, dD, dcell);
+  if (ev) cudaEventRecord(ev[2], s);
+  return cudaGetLastError();
+}
+
+// Runs launch(ev) `reps` times back to back, each recording its `passes`
+// + 1 events; every rep is queued before the first is waited on, so no
+// pass waits on the host.  Then waits for the card and writes the device
+// milliseconds of rep r's passes to ms[passes r .. passes r + passes - 1]
+// (host memory).
+template <class Launch>
+cudaError_t time_passes(int reps, int passes, float* ms, Launch launch) {
+  if (reps < 1) return cudaErrorInvalidValue;
+  const int per = passes + 1;
+  cudaEvent_t* ev = new cudaEvent_t[per * reps];
+  int made = 0;
+  cudaError_t err = cudaSuccess;
+  while (made < per * reps &&
+         (err = cudaEventCreate(&ev[made])) == cudaSuccess)
+    ++made;
+  for (int r = 0; r < reps && err == cudaSuccess; ++r)
+    err = launch(ev + per * r);
+  if (err == cudaSuccess) err = cudaEventSynchronize(ev[per * reps - 1]);
+  for (int r = 0; r < reps && err == cudaSuccess; ++r)
+    for (int p = 0; p < passes && err == cudaSuccess; ++p)
+      err = cudaEventElapsedTime(&ms[passes * r + p], ev[per * r + p],
+                                 ev[per * r + p + 1]);
+  for (int i = 0; i < made; ++i) cudaEventDestroy(ev[i]);
+  delete[] ev;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -732,52 +883,51 @@ int parasitoids_day_accumulate_timed(const float* consts, const float* h,
                                      int32_t* boxes, float* buf, int reps,
                                      float* ms,
                                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaEvent_t* ev = new cudaEvent_t[4 * reps];
-  int made = 0;
-  cudaError_t err = cudaSuccess;
-  while (made < 4 * reps && (err = cudaEventCreate(&ev[made])) == cudaSuccess)
-    ++made;
-  for (int r = 0; r < reps && err == cudaSuccess; ++r)
-    err = launch_day(consts, h, mu, idx, T, K, buf_len, chunk, scratch, bsum,
-                     partial, flags, (int4*)boxes, buf, s, ev + 4 * r);
-  if (err == cudaSuccess) err = cudaEventSynchronize(ev[4 * reps - 1]);
-  for (int r = 0; r < reps && err == cudaSuccess; ++r)
-    for (int p = 0; p < 3 && err == cudaSuccess; ++p)
-      err = cudaEventElapsedTime(&ms[3 * r + p], ev[4 * r + p],
-                                 ev[4 * r + p + 1]);
-  for (int i = 0; i < made; ++i) cudaEventDestroy(ev[i]);
-  delete[] ev;
-  return (int)err;
+  return (int)time_passes(reps, 3, ms, [&](cudaEvent_t* ev) {
+    return launch_day(consts, h, mu, idx, T, K, buf_len, chunk, scratch, bsum,
+                      partial, flags, (int4*)boxes, buf, (cudaStream_t)stream,
+                      ev);
+  });
 }
 
-// Dynamic shared memory that block_bwd needs at half-width K (bytes).
-int parasitoids_day_bwd_smem_bytes(int K) {
-  return (int)(bwd_smem_floats(K) * sizeof(float));
+// Dynamic shared memory that block_bwd needs at half-width K when asked
+// for rings of `ring` rows (bytes).
+int parasitoids_day_bwd_smem_bytes(int K, int ring) {
+  return (int)(bwd_smem_floats(K, bwd_ring(K, ring)) * sizeof(float));
 }
 
-// One day's backward on `stream`: block_bwd over T minutes, then the
-// minute-order reduction of the shared partials.  Every pointer is device
-// memory; `part` is (T, 4) scratch.  Returns the cudaError_t of the
+// One day's backward on `stream`: block_bwd over T minutes (rings of
+// `ring` rows, rounded up to a power of two), then
+// the minute-order reduction of the shared partials.  Every pointer is
+// device memory; `part` is (T, 4) scratch.  Returns the cudaError_t of the
 // launches (0 on success).
 int parasitoids_day_accumulate_bwd(const float* consts, const float* h,
                                    const float* mu, const int32_t* idx,
                                    const float* clip, const float* ct_buf,
-                                   int T, int K, int buf_len, float* dh,
-                                   float* dmu, float* dclip, float* part,
-                                   float* dD, float* dcell, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = bwd_smem_floats(K) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  block_bwd_kernel<<<T, kBuildThreads, smem, s>>>(
-      consts, h, mu, idx, clip, ct_buf, K, buf_len, dh, dmu, dclip, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bwd_reduce_kernel<<<1, 128, 0, s>>>(consts, part, T, dD, dcell);
-  return (int)cudaGetLastError();
+                                   int T, int K, int buf_len, int ring,
+                                   float* dh, float* dmu, float* dclip,
+                                   float* part, float* dD, float* dcell,
+                                   void* stream) {
+  return (int)launch_day_bwd(consts, h, mu, idx, clip, ct_buf, T, K, buf_len,
+                             ring, dh, dmu, dclip, part, dD, dcell,
+                             (cudaStream_t)stream, nullptr);
+}
+
+// The same backward `reps` times back to back with CUDA events around
+// each launch (see time_passes): the device milliseconds of block_bwd and
+// bwd_reduce of rep r go to ms[2 r] and ms[2 r + 1] (host memory).
+int parasitoids_day_accumulate_bwd_timed(const float* consts, const float* h,
+                                         const float* mu, const int32_t* idx,
+                                         const float* clip,
+                                         const float* ct_buf, int T, int K,
+                                         int buf_len, int ring, float* dh, float* dmu, float* dclip,
+                                         float* part, float* dD, float* dcell,
+                                         int reps, float* ms, void* stream) {
+  return (int)time_passes(reps, 2, ms, [&](cudaEvent_t* ev) {
+    return launch_day_bwd(consts, h, mu, idx, clip, ct_buf, T, K, buf_len,
+                          ring, dh, dmu, dclip, part, dD, dcell,
+                          (cudaStream_t)stream, ev);
+  });
 }
 
 }  // extern "C"

@@ -33,9 +33,11 @@ _SIGNATURES = {
                                       [_VP],
         'parasitoids_day_accumulate_timed': [_VP] * 4 + [_INT] * 4 +
                                             [_VP] * 6 + [_INT, _VP, _VP],
-        'parasitoids_day_bwd_smem_bytes': [_INT],
-        'parasitoids_day_accumulate_bwd': [_VP] * 6 + [_INT] * 3 +
+        'parasitoids_day_bwd_smem_bytes': [_INT, _INT],
+        'parasitoids_day_accumulate_bwd': [_VP] * 6 + [_INT] * 4 +
                                           [_VP] * 6 + [_VP],
+        'parasitoids_day_accumulate_bwd_timed': [_VP] * 6 + [_INT] * 4 +
+                                                [_VP] * 6 + [_INT, _VP, _VP],
     },
 }
 

@@ -16,11 +16,14 @@ Two implementations of one contract, forward and backward:
   minute; it builds blocks into a ``(T, n, n)`` scratch, gathers them per
   (buffer tile, chunk of ``_CHUNK`` minutes) into partial tiles and sums a
   tile's partials in chunk order, so its output is bitwise reproducible.
-  The backward rebuilds each minute's block, so it costs the forward's
-  exps plus three closed-form lattices (two Φ and one exp per corner);
-  its per-minute partial sums are reduced in minute order, so it is
-  bitwise reproducible too.  On CPU tensors the wrapper calls the plain
-  versions.  It never falls back from CUDA to a plain version.
+  The backward rebuilds each minute's block a few lattice rows at a time
+  and adds every corner's closed-form derivative terms (two Φ and one exp
+  per corner) into per-thread sums as it goes, so it costs the forward's
+  exps plus those, keeps a ring of rows in shared memory whatever K is,
+  and runs wherever the forward runs; its per-minute partial sums are
+  reduced in minute order, so it is bitwise reproducible too.  On CPU
+  tensors the wrapper calls the plain versions.  It never falls back from
+  CUDA to a plain version.
 * :func:`accumulate_day_plain` and :func:`accumulate_day_bwd_plain` — the
   plain PyTorch twins: chunked block builds with
   :func:`..ops.bvn.corner_rect` (6/12/20 nodes by |ρ|), an ``index_add_``
@@ -47,7 +50,7 @@ from .bvn import (bvn_cell_masses, cell_masses_vjp, corner_rect, genz_branch,
 
 __all__ = ['LAUNCHES', 'LAUNCHES_BWD', 'accumulate_day',
            'accumulate_day_bwd', 'accumulate_day_bwd_plain',
-           'accumulate_day_plain', 'pass_ms']
+           'accumulate_day_plain', 'pass_ms', 'pass_ms_bwd']
 
 # kernel launches so far (one per day accumulated on the card, and one per
 # day's backward); a run reads them to show that its main path went
@@ -62,6 +65,8 @@ _MAX_CHUNK = 256                     # kGatherThreads: one minute a thread
 _MAX_CHUNKS = 1024                   # kMaxChunks: a tile's chunks
 _N_SCALARS = 16                      # csrc/day_kernel.cu kScalars
 _SMEM_LIMIT = 232448                 # dynamic shared memory per CTA, H100
+_BWD_MAX_RING = 64                   # most rows of block_bwd's lattice ring
+_BWD_CTAS = 4                        # block_bwd CTAs an SM holds (registers)
 _RHO_MAX = 1 - 1e-6                  # the |ρ| clamp of the BVN op
 
 
@@ -226,12 +231,12 @@ def _pack_constants(Dparams, cell, device, ct_loss=None):
     return torch.cat([scal, pad, *sn, *w, *den, xs, rs, wg]).contiguous()
 
 
-def _cuda_call(lib, fn, smem_fn, K, dev, *args):
-    """Launch ``fn`` of the kernel library on ``dev``'s current stream.
+def _cuda_call(lib, fn, smem, K, dev, *args):
+    """Launch ``fn`` of the kernel library, whose CTAs need ``smem`` bytes
+    of shared memory at half-width ``K``, on ``dev``'s current stream.
     The C entry point launches in the current CUDA context, so the call
     runs under ``torch.cuda.device(dev)`` (the autograd engine runs a
     backward on a thread of its own)."""
-    smem = getattr(lib, smem_fn)(K)
     if smem > _SMEM_LIMIT:
         raise ValueError('K = {} needs {} B of shared memory per CTA; a CTA '
                          'has {} B'.format(K, smem, _SMEM_LIMIT))
@@ -279,8 +284,8 @@ def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
     lib = load('day_kernel')
     out, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len,
                               _CHUNK)
-    _cuda_call(lib, 'parasitoids_day_accumulate', 'parasitoids_day_smem_bytes',
-               K, h_scat.device, *args)
+    _cuda_call(lib, 'parasitoids_day_accumulate',
+               lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args)
     LAUNCHES += 1
     loss = torch.sum(clipped * h_scat * (1.0 - out['bsum']))
     return out['buf'], loss
@@ -306,11 +311,50 @@ def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
                                buf_len, chunk)
     ms = (ctypes.c_float * (3 * reps))()
     _cuda_call(lib, 'parasitoids_day_accumulate_timed',
-               'parasitoids_day_smem_bytes', K, h_scat.device, *args, reps,
-               ctypes.addressof(ms))
+               lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args,
+               reps, ctypes.addressof(ms))
     LAUNCHES += reps
     del bufs                 # the call waited for the card: safe to free
     return np.frombuffer(ms, dtype=np.float32).reshape(reps, 3).copy()
+
+
+def _backward_args(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
+                   cell, K, buf_len, ring):
+    """Packed constants, scratch and outputs of one backward launch, and the
+    C arguments up to the stream (see ``parasitoids_day_accumulate_bwd``)."""
+    dev = h_scat.device
+    T = h_scat.shape[0]
+    if ct_buf.shape != (buf_len, buf_len) or ct_buf.dtype != torch.float32 \
+            or ct_buf.device != dev or not ct_buf.is_contiguous():
+        raise ValueError('ct_buf must be a contiguous f32 ({0}, {0}) tensor '
+                         'on {1}'.format(buf_len, dev))
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(
+        consts=_pack_constants(Dparams, cell, dev, ct_loss),
+        dh=torch.empty(T, **f32), dmu=torch.empty((T, 2), **f32),
+        dclip=torch.empty(T, **f32),
+        part=torch.empty((T, 4), **f32),  # per-minute dσx, dσy, dρ, dcell
+        dD=torch.empty(3, **f32), dcell=torch.empty((), **f32))
+    args = (out['consts'].data_ptr(), h_scat.data_ptr(), cdf_mu.data_ptr(),
+            idx.data_ptr(), clipped.data_ptr(), ct_buf.data_ptr(), T, K,
+            buf_len, ring,
+            *(out[k].data_ptr() for k in ('dh', 'dmu', 'dclip', 'part', 'dD',
+                                          'dcell')))
+    return out, args
+
+
+def _bwd_ring(lib, K):
+    """Rows of block_bwd's lattice ring at half-width ``K``: the largest
+    power of two up to ``_BWD_MAX_RING`` that leaves room for
+    ``_BWD_CTAS`` CTAs in an SM's shared memory (each CTA also takes 1 KB
+    of it), so that the registers and not K set the occupancy; 2 at
+    least.  The ring shrinks as K grows, so no K is too wide.  Any height
+    from 2 up gives the same gradient but for the order of its sums."""
+    ring = _BWD_MAX_RING
+    room = (_SMEM_LIMIT + 1024) // _BWD_CTAS - 1024
+    while ring > 2 and lib.parasitoids_day_bwd_smem_bytes(K, ring) > room:
+        ring //= 2
+    return ring
 
 
 def _launch_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
@@ -318,26 +362,43 @@ def _launch_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
     global LAUNCHES_BWD
     from ._build import load
     lib = load('day_kernel')
-    dev = h_scat.device
-    T = h_scat.shape[0]
-    if ct_buf.shape != (buf_len, buf_len) or ct_buf.dtype != torch.float32 \
-            or ct_buf.device != dev or not ct_buf.is_contiguous():
-        raise ValueError('ct_buf must be a contiguous f32 ({0}, {0}) tensor '
-                         'on {1}'.format(buf_len, dev))
-    consts = _pack_constants(Dparams, cell, dev, ct_loss)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dh, dclip = torch.empty(T, **f32), torch.empty(T, **f32)
-    dmu = torch.empty((T, 2), **f32)
-    part = torch.empty((T, 4), **f32)     # per-minute dσx, dσy, dρ, dcell
-    dD, dcell = torch.empty(3, **f32), torch.empty((), **f32)
+    ring = _bwd_ring(lib, K)
+    out, args = _backward_args(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
+                               Dparams, cell, K, buf_len, ring)
     _cuda_call(lib, 'parasitoids_day_accumulate_bwd',
-               'parasitoids_day_bwd_smem_bytes', K, dev, consts.data_ptr(),
-               h_scat.data_ptr(), cdf_mu.data_ptr(), idx.data_ptr(),
-               clipped.data_ptr(), ct_buf.data_ptr(), T, K, buf_len,
-               dh.data_ptr(), dmu.data_ptr(), dclip.data_ptr(),
-               part.data_ptr(), dD.data_ptr(), dcell.data_ptr())
+               lib.parasitoids_day_bwd_smem_bytes(K, ring), K,
+               h_scat.device, *args)
     LAUNCHES_BWD += 1
-    return dh, dmu, dclip, dD, dcell
+    return out['dh'], out['dmu'], out['dclip'], out['dD'], out['dcell']
+
+
+def pass_ms_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams, cell,
+                K, buf_len, reps=20):
+    """Device milliseconds of the backward kernel's two launches,
+    ``(reps, 2)`` numpy (block_bwd, bwd_reduce), from CUDA events recorded
+    around the kernels alone, every rep queued before the first is waited
+    on: the wrapper's checks and packing are outside them.  Takes
+    :func:`accumulate_day_bwd`'s inputs, on the card, and launches what
+    it launches; each rep counts as one launch."""
+    global LAUNCHES_BWD
+    from ._build import load
+    _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
+    if reps < 1:
+        raise ValueError('reps must be at least 1, got {}'.format(reps))
+    if h_scat.device.type != 'cuda':
+        raise ValueError('pass_ms_bwd times the CUDA kernel: give it CUDA '
+                         'tensors')
+    lib = load('day_kernel')
+    ring = _bwd_ring(lib, K)
+    out, args = _backward_args(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
+                               Dparams, cell, K, buf_len, ring)
+    ms = (ctypes.c_float * (2 * reps))()
+    _cuda_call(lib, 'parasitoids_day_accumulate_bwd_timed',
+               lib.parasitoids_day_bwd_smem_bytes(K, ring), K,
+               h_scat.device, *args, reps, ctypes.addressof(ms))
+    LAUNCHES_BWD += reps
+    del out                  # the call waited for the card: safe to free
+    return np.frombuffer(ms, dtype=np.float32).reshape(reps, 2).copy()
 
 
 def _check(h_scat, cdf_mu, idx, clipped, K, buf_len):

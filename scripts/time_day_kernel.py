@@ -1,16 +1,26 @@
-"""Device time of the forward day-accumulate kernel's passes, on a GPU.
+"""Device time of the day-accumulate kernels' passes, on a GPU.
 
     python scripts/time_day_kernel.py [--chunks 32,64,128] [--reps 20]
                                       [--ptxas]
+    python scripts/time_day_kernel.py --bwd [--ks 22,44,88] [--reps 20]
+                                      [--ptxas]
 
-On Kalbar day 9 at the headline shapes (801², T = 1440, K = 44, buffer
-977²), at ρ = 0.253 (K1, 6-node rule) and ρ = 0.99 (K2), prints for each
-gather chunk size the median device milliseconds of ``block_build``,
-``gather`` and ``reduce`` (CUDA events around the kernels alone), their
-sum, and the wrapper's time (CUDA events around ``accumulate_day``,
-constants packing included).  ``--ptxas`` first compiles
-``csrc/day_kernel.cu`` with ``-Xptxas -v`` and prints each kernel's
-registers, shared memory and spills.  Needs a CUDA device; imports no JAX.
+Forward (default): on Kalbar day 9 at the headline shapes (801², T = 1440,
+K = 44, buffer 977²), at ρ = 0.253 (K1, 6-node rule) and ρ = 0.99 (K2),
+prints for each gather chunk size the median device milliseconds of
+``block_build``, ``gather`` and ``reduce`` (CUDA events around the kernels
+alone), their sum, and the wrapper's time (CUDA events around
+``accumulate_day``, constants packing included).
+
+``--bwd``: the backward's two launches, ``block_bwd`` and ``bwd_reduce``,
+on day 9 at ρ = 0.253 (K3) and ρ = 0.99 (K4), for the prior-coverage
+window K = 22, 44, 88 (the 10 km domain in cells of 50, 25 and 12.5 m),
+against a seeded random cotangent, with the height of the lattice ring
+that the wrapper picks for each K.
+
+``--ptxas`` first compiles ``csrc/day_kernel.cu`` with ``-Xptxas -v`` and
+prints each kernel's registers, shared memory and spills.  Needs a CUDA
+device; imports no JAX.
 """
 
 import argparse
@@ -40,60 +50,102 @@ def ptxas_report():
         sys.exit('nvcc failed')
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--chunks', default='64')
-    ap.add_argument('--reps', type=int, default=20)
-    ap.add_argument('--ptxas', action='store_true')
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit('time_day_kernel: needs a CUDA device')
-    sys.path.insert(0, ROOT)
-    os.chdir(ROOT)
+def day_inputs(rad_res, day=9):
+    """(h, mu, idx, clip, Dparams, cell, K, buf_len) of one Kalbar day on
+    the card, the 10 km domain cut into ``rad_res`` cells a side of the
+    release point, with the prior-coverage windows."""
     from parasitoids_tpu_torch.config import Params
     from parasitoids_tpu_torch.models.forward import (prior_coverage_windows,
                                                       setup_forward)
     from parasitoids_tpu_torch.ops.daily_kernel import day_scatter_inputs
-    from parasitoids_tpu_torch.ops.day_kernel import accumulate_day, pass_ms
-
-    if args.ptxas:
-        ptxas_report()
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True).stdout.strip()
-    print('card: ' + smi)
     p = Params()
     p.cmd_line_chg(['--kalbar', '--pop'])
     p.PLOT = p.OUTPUT = False
-    cell = p.domain_info[0] / p.domain_info[1]
+    p.domain_info = (p.domain_info[0], rad_res)
+    cell = p.domain_info[0] / rad_res
     p.kernel_rad, p.kernel_rad_local = prior_coverage_windows(cell)
     s = setup_forward(p, device='cuda')
     K = s.kcfg.K
-    buf_len = s.scfg.dom_len + 4 * K
     h, mu, idx, clip, _ = day_scatter_inputs(
-        s.wind_flat, s.wind_cumsum, 9, (p.lam, *p.g_params, *p.f_params),
+        s.wind_flat, s.wind_cumsum, day, (p.lam, *p.g_params, *p.f_params),
         p.mu_r, p.n_periods, 0, s.kcfg, s.rad_dist)
+    return h, mu, idx, clip, p.Dparams, cell, K, s.scfg.dom_len + 4 * K
+
+
+def wrapper_ms(fn, reps):
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def time_forward(args):
+    from parasitoids_tpu_torch.ops.day_kernel import accumulate_day, pass_ms
+    h, mu, idx, clip, Dp, cell, K, buf_len = day_inputs(400)
     for rho in (0.253, 0.99):
-        a = (h, mu, idx, clip, (p.Dparams[0], p.Dparams[1], rho), cell, K,
-             buf_len)
-        accumulate_day(*a)
-        wrapper = []
-        for _ in range(args.reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            accumulate_day(*a)
-            end.record()
-            end.synchronize()
-            wrapper.append(start.elapsed_time(end))
+        a = (h, mu, idx, clip, (Dp[0], Dp[1], rho), cell, K, buf_len)
         print('day 9 rho {:+.3f}: wrapper {:.4f} ms (median of {})'.format(
-            rho, float(np.median(wrapper)), args.reps))
+            rho, wrapper_ms(lambda: accumulate_day(*a), args.reps),
+            args.reps))
         for chunk in (int(c) for c in args.chunks.split(',')):
             pass_ms(*a, reps=2, chunk=chunk)                # warm-up
             ms = np.median(pass_ms(*a, reps=args.reps, chunk=chunk), axis=0)
             print('  chunk {:4d}: block_build {:.4f} ms, gather {:.4f} ms, '
                   'reduce {:.4f} ms, kernels {:.4f} ms'.format(
                       chunk, *ms, float(ms.sum())))
+
+
+def time_backward(args):
+    from parasitoids_tpu_torch.ops import _build, day_kernel
+    lib = _build.load('day_kernel')
+    for K_want in (int(v) for v in args.ks.split(',')):
+        h, mu, idx, clip, Dp, cell, K, buf_len = day_inputs(
+            int(round(400 * K_want / 44)))
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        ct_buf = torch.randn((buf_len, buf_len), generator=gen, device='cuda')
+        ct_loss = torch.randn((), generator=gen, device='cuda')
+        for rho in (0.253, 0.99):
+            a = (ct_buf, ct_loss, h, mu, idx, clip, (Dp[0], Dp[1], rho), cell,
+                 K, buf_len)
+            print('day 9 K = {} (cell {} m, buffer {}^2) rho {:+.3f}: wrapper '
+                  '{:.4f} ms (median of {})'.format(
+                      K, cell, buf_len, rho, wrapper_ms(
+                          lambda: day_kernel.accumulate_day_bwd(*a),
+                          args.reps), args.reps))
+            day_kernel.pass_ms_bwd(*a, reps=2)              # warm-up
+            ms = np.median(day_kernel.pass_ms_bwd(*a, reps=args.reps),
+                           axis=0)
+            print('  ring {:4d}: block_bwd {:.4f} ms, bwd_reduce {:.4f} ms, '
+                  'kernels {:.4f} ms'.format(day_kernel._bwd_ring(lib, K),
+                                             *ms, float(ms.sum())))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--chunks', default='64')
+    ap.add_argument('--reps', type=int, default=20)
+    ap.add_argument('--ptxas', action='store_true')
+    ap.add_argument('--bwd', action='store_true')
+    ap.add_argument('--ks', default='22,44,88')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit('time_day_kernel: needs a CUDA device')
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    if args.ptxas:
+        ptxas_report()
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True).stdout.strip()
+    print('card: ' + smi)
+    (time_backward if args.bwd else time_forward)(args)
 
 
 if __name__ == '__main__':

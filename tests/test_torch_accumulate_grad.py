@@ -139,3 +139,136 @@ def test_gradient_reaches_every_diffusion_parameter():
     assert all(g != 0.0 for g in got)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-7)
     assert day_kernel.LAUNCHES_BWD == 0       # no kernel on the CPU
+
+
+# --- the per-corner form of the backward, and shapes that stress it ------
+
+def _seven_sums_vjp(ctb, mu, sig_x, sig_y, rho, cell, K):
+    """The BVN cell-mass VJP as seven plain sums over lattice corners of
+    per-corner products (the form the CUDA backward accumulates in
+    registers): with ctU the adjoint of the four-corner difference and
+    Lx, Ly, Lρ the closed-form derivative lattices,
+    Σ ctU·Lx·{1, xe_j, jcol_j}, Σ ctU·Ly·{1, ye_i, irow_i} and Σ ctU·Lρ.
+    No column or row sum is formed first."""
+    n = 2 * K + 1
+    ar = torch.arange(n + 1, dtype=mu.dtype)
+    jcol, irow = ar - K - 0.5, K + 0.5 - ar
+    xe = (jcol * cell - mu[:, 0:1]) / sig_x                  # (C, m)
+    ye = (irow * cell - mu[:, 1:2]) / sig_y
+    pad = torch.nn.functional.pad(ctb, (1, 1, 1, 1))         # zero border
+    ctU = ((pad[:, :-1, 1:] - pad[:, :-1, :-1]) - pad[:, 1:, 1:]) + \
+        pad[:, 1:, :-1]
+    s = torch.sqrt(torch.clamp(1.0 - rho * rho, min=1e-12))
+    X, Y = xe[:, None, :], ye[:, :, None]                    # [row i, col j]
+    ndtr = torch.special.ndtr
+    two_pi = 2.0 * np.pi
+    Lx = -torch.exp(-0.5 * X * X) / np.sqrt(two_pi) * ndtr(-(Y - rho * X) / s)
+    Ly = -torch.exp(-0.5 * Y * Y) / np.sqrt(two_pi) * ndtr(-(X - rho * Y) / s)
+    Lr = torch.exp(-0.5 * (X * X - 2.0 * rho * X * Y + Y * Y) / (s * s)) / \
+        (two_pi * s)
+    gx, gy = ctU * Lx, ctU * Ly
+    sums = [gx.sum(dim=(1, 2)), (gx * X).sum(dim=(1, 2)),
+            (gx * jcol[None, None, :]).sum(dim=(1, 2)),
+            gy.sum(dim=(1, 2)), (gy * Y).sum(dim=(1, 2)),
+            (gy * irow[None, :, None]).sum(dim=(1, 2)),
+            (ctU * Lr).sum(dim=(1, 2))]
+    dmu = torch.stack([-sums[0] / sig_x, -sums[3] / sig_y], dim=-1)
+    return (dmu, -sums[1].sum() / sig_x, -sums[4].sum() / sig_y,
+            sums[6].sum(), sums[2].sum() / sig_x + sums[5].sum() / sig_y)
+
+
+@pytest.mark.parametrize('K', [1, 5])
+@pytest.mark.parametrize('rho', [0.0, 0.253, -0.8, 0.95])
+def test_per_corner_sums_equal_the_cell_mass_vjp(rho, K):
+    # f64, rtol 1e-12: the two differ by the order of the sums only
+    from parasitoids_tpu_torch.ops.bvn import cell_masses_vjp, corner_rect
+    rng = np.random.default_rng(11)
+    C, n = 6, 2 * K + 1
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    mu = f64(rng.uniform(-30.0, 30.0, (C, 2)))
+    sig_x, sig_y, cell, r = f64(21.1), f64(10.6), f64(25.0), f64(rho)
+    rect = corner_rect(mu, sig_x, sig_y, r, cell, K)
+    ctb = torch.where(rect > 0, f64(rng.normal(size=(C, n, n))),
+                      torch.zeros_like(rect))
+    want = cell_masses_vjp(ctb, mu, sig_x, sig_y, r, cell, K)
+    got = _seven_sums_vjp(ctb, mu, sig_x, sig_y, r, cell, K)
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12,
+                                   atol=1e-14 * float(w.abs().max()))
+
+
+def _edge_inputs(K, T, clip_all):
+    """A short day that stresses the backward's edges: blocks at both idx
+    extremes, minutes without take-off, means several σ off the block's
+    centre (so that part of the block is clamped at 0), every minute
+    clipped or none."""
+    rng = np.random.default_rng(100 * K + T)
+    n = 2 * K + 1
+    buf = n + 6
+    h = rng.uniform(1e-4, 1e-3, T).astype(np.float32)
+    mu = rng.uniform(-12.0, 12.0, (T, 2)).astype(np.float32)
+    idx = rng.integers(0, buf - n + 1, (T, 2)).astype(np.int32)
+    idx[0] = (0, 0)
+    if T > 1:
+        idx[-1] = (buf - n, buf - n)
+        h[2::3] = 0.0
+        mu[1] = (3 * 21.1, -4 * 10.6)
+        mu[-1] = (-5 * 21.1, 2 * 10.6)
+    clipped = np.full(T, float(clip_all), np.float32)
+    w = rng.normal(size=(buf, buf)).astype(np.float32)
+    return h, mu, idx, clipped, w, buf
+
+
+@pytest.mark.parametrize('clip_all', [True, False])
+@pytest.mark.parametrize('T', [1, 7])
+@pytest.mark.parametrize('K,rho', [(1, 0.253), (2, -0.95), (5, 0.8)])
+def test_plain_backward_matches_xla_vjp_at_the_edges(K, rho, T, clip_all):
+    # rtol 2e-4 and atol 1e-7 of each output's largest magnitude
+    # (test_pallas_kernel.py:200), as test_plain_backward_matches_xla_vjp
+    # holds them; dclip's atol is 1e-6 of ct_loss·max h (f32 roundoff of
+    # Σblock).  The XLA path is the one held: it takes the port's 6/12/20
+    # node rule, while the Pallas kernel's fixed 20 nodes and erf
+    # polynomial flip far-tail cells across the clamp at 0.
+    h, mu, idx, clipped, w, buf = _edge_inputs(K, T, clip_all)
+
+    def acc(hh, mm, cl, Dp, cell):
+        return xla_accumulate_day(hh, mm, jnp.asarray(idx), cl, Dp, cell, K,
+                                  8, buf)
+
+    _, vjp = jax.vjp(acc, jnp.asarray(h), jnp.asarray(mu),
+                     jnp.asarray(clipped),
+                     (jnp.float32(21.1), jnp.float32(10.6), jnp.float32(rho)),
+                     jnp.float32(25.0))
+    dh, dmu, dcl, dD, dcell = vjp((jnp.asarray(w), jnp.float32(CT_LOSS)))
+    got = accumulate_day_bwd_plain(t32(w), CT_LOSS, t32(h), t32(mu), t32(idx),
+                                   t32(clipped), (21.1, 10.6, rho), 25.0, K,
+                                   buf, chunk=3)
+    assert all(torch.isfinite(g).all() for g in got)
+    for g, want in zip(got[:2], (np.asarray(dh), np.asarray(dmu))):
+        np.testing.assert_allclose(g.numpy(), want, rtol=2e-4,
+                                   atol=1e-7 * np.abs(want).max())
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(dcl), rtol=2e-4,
+                               atol=1e-6 * CT_LOSS * h.max())
+    dD = np.asarray(dD)
+    np.testing.assert_allclose(got[3].numpy(), dD, rtol=2e-4,
+                               atol=1e-7 * max(np.abs(dD).max(), 1.0))
+    np.testing.assert_allclose(float(got[4]), float(dcell), rtol=2e-4,
+                               atol=1e-7)
+    # a minute without take-off passes nothing to its mean offset
+    assert np.all(got[1].numpy()[h == 0] == 0)
+
+
+@pytest.mark.parametrize('case', ['cpu_tensors', 'no_reps'])
+def test_pass_ms_bwd_refuses_what_it_cannot_time(case):
+    h, mu, idx, clipped, w = _inputs()
+    args = (t32(w), CT_LOSS, t32(h), t32(mu), t32(idx), t32(clipped),
+            (21.1, 10.6, 0.35), 25.0, K, BUF)
+    before = day_kernel.LAUNCHES_BWD
+    if case == 'cpu_tensors':
+        with pytest.raises(ValueError, match='CUDA tensors'):
+            day_kernel.pass_ms_bwd(*args)
+    else:
+        with pytest.raises(ValueError, match='reps must be at least 1'):
+            day_kernel.pass_ms_bwd(*args, reps=0)
+    assert day_kernel.LAUNCHES_BWD == before
