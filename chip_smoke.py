@@ -12,7 +12,11 @@ kernel once per day.  Then the gradient path: the backward kernel (K3/K4)
 against its plain twin at the headline shapes and at K = 88, the gradient
 of the log posterior at the Bayes default (801²) through the kernels and
 through the plain path, and the MAP CLI at its default (401²) with its
-value and gradient held against a JAX golden.  Any failed phase exits
+value and gradient held against a JAX golden.  Then the sampling path: the
+adaptive-Metropolis CLI at the Bayes default (801², two chains, a
+checkpoint, a resume), with the forward kernel's launches held to 18 per
+forward simulation the chains ran, exact resume on the card, the host
+reads of a step counted, and seconds per AM step.  Any failed phase exits
 non-zero.  The last line is a JSON object with ``"ok": true`` and the
 device; the line before it lists the kernels with their launches, errors,
 times (the forward's three passes and the backward's two launches also
@@ -26,7 +30,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -67,6 +74,13 @@ GOLDEN_VALUE_RTOL, GOLDEN_L2_LIMIT = 5e-6, 3e-5
 GOLDEN_COMP_LIMIT = 2e-5          # max |dg_i| / max |g|
 GRAD_GOLDEN = os.path.join(ROOT, 'tests', 'torch_golden',
                            'map_grad_401.npz')
+# the AM chain's initial log likelihood at 801² (no pre-spread day) through
+# K1 against the plain path run in f64.  One observation's expected count
+# of 0.02 is f32 roundoff of the propagation to 0.3-0.5% in either f32
+# path, so two f32 values stand further apart than each stands from f64
+# (readings on an H100: K1 1.6e-6 of the value from f64, the f32 plain path
+# 5.6e-6 and changing from run to run with its atomic adds)
+AM_LOGLIK_RTOL = 1e-5
 
 
 class SmokeError(RuntimeError):
@@ -692,6 +706,233 @@ def phase_map_cli(dev, card):
     return launches, sec / steps, sec_vg, dv, l2
 
 
+def flat_proj(proj):
+    return torch.cat([p.reshape(-1) for p in (*proj[0], *proj[1], proj[2])])
+
+
+def states_equal(a, b):
+    """Two stacked chain states bitwise equal, generators included."""
+    tensors = all(torch.equal(getattr(a, f), getattr(b, f))
+                  for f in a._fields if f not in ('key', 'proj'))
+    keys = all(torch.equal(x.get_state(), y.get_state())
+               for x, y in zip(a.key, b.key))
+    return tensors and keys and torch.equal(flat_proj(a.proj),
+                                            flat_proj(b.proj))
+
+
+def count_host_reads(fn):
+    """Run ``fn`` with every synchronizing CUDA call reported as a
+    warning; returns (result, the calls' places in this repository)."""
+    seen = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if 'called a synchronizing' in str(message):
+            here = [f for f in traceback.extract_stack()
+                    if f.filename.startswith(ROOT)]
+            seen.append(' <- '.join('{}:{}'.format(
+                os.path.relpath(f.filename, ROOT), f.lineno)
+                for f in reversed(here[-4:-1])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter('always')
+        old_show, warnings.showwarning = warnings.showwarning, record
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+            warnings.showwarning = old_show
+    return out, seen
+
+
+def phase_am_cli(dev, card):
+    """The AM CLI at the Bayes default (801², 25 m, K = 44, Kl = 20,
+    18 days, no pre-spread day): a new run of two chains with a checkpoint,
+    then a resume, with the forward kernel's count zeroed just before and
+    read just after; exact resume on the card; the initial log likelihood
+    through K1 against the plain accumulate; a step's host reads; seconds
+    per step.  Returns (launches, forwards, seconds per step, per model
+    block, per sweep, launches per step, device busy seconds per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.bayes import sampler
+    from parasitoids_tpu_torch.bayes.store import load_chain, save_chain
+    from parasitoids_tpu_torch.ops import day_kernel
+    from parasitoids_tpu_torch.parallel.chains import run_chains
+    print('[9] AM CLI at the Bayes default (801^2, 18 days, K = 44, '
+          'Kl = 20, two chains)')
+    meta_keys = {'n_samples', 'burn', 'chains', 'obs_sweeps', 'obs_model',
+                 'sampler', 'seed', 'device'}
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, 'am')
+
+        def stored():
+            with np.load(db + '.npz') as npz, open(db + '.meta.json') as fh:
+                return ({k: npz[k] for k in npz.files}, json.load(fh))
+
+        day_kernel.LAUNCHES = day_kernel.LAUNCHES_BWD = 0
+        sampler.FORWARDS = 0
+        bayes_run.main(['--new', '20', '10', db, '--chains', '2',
+                        '--checkpoint-every', '15', '--seed', '0'],
+                       device=dev)
+        first, meta = stored()
+        dim = first['traces'].shape[-1]
+        check(first['traces'].shape == (2, 20, 26) and
+              bool(np.isfinite(first['traces']).all()),
+              '--new: traces {} finite'.format(first['traces'].shape))
+        check(set(meta) == meta_keys and meta['n_samples'] == 20 and
+              meta['device'] == 'cuda' and meta['sampler'] == 'am',
+              '--new: meta {}'.format(json.dumps(meta)))
+        bayes_run.main(['--resume', db, '10'], device=dev)
+        torch.cuda.synchronize()
+        launches, forwards = day_kernel.LAUNCHES, sampler.FORWARDS
+        both, meta = stored()
+        check(both['traces'].shape == (2, 30, dim) and
+              bool(np.isfinite(both['traces']).all()) and
+              np.array_equal(both['traces'][:, :20], first['traces']),
+              '--resume: traces {} finite, the first 20 kept'.format(
+                  both['traces'].shape))
+        check(set(meta) == meta_keys and meta['n_samples'] == 30 and
+              meta['burn'] == 10 and meta['obs_sweeps'] == 1,
+              '--resume: meta {}'.format(json.dumps(meta)))
+        acc = both['state_accepts_m']
+        check(bool(np.all(both['state_count'] == 40)) and
+              bool(np.all((acc >= 0) & (acc <= 40))),
+              'each chain took 40 steps; block proposals accepted: {} and '
+              '{}; obs moves accepted: {} and {} of 400'.format(
+                  *acc, *both['state_accepts_o']))
+        # two chains initialised, two reloaded, and every proposal of the
+        # 80 steps whose prior was finite
+        check(4 <= forwards <= 4 + 80 and launches == 18 * forwards and
+              day_kernel.LAUNCHES_BWD == 0,
+              '{} forward launches = 18 x {} forwards (4 + {} of 80 '
+              'proposals inside the prior\'s support); no backward launch'
+              .format(launches, forwards, forwards - 4))
+
+        # exact resume on the card: some steps in memory, a save, a reload
+        setup = bayes_run.build_setup(device=dev)
+        cfg = sampler.MCMCConfig(5)
+        _, states, _ = load_chain(db, setup)
+        states, tr = run_chains(setup, states, sampler.MCMCConfig(3))
+        db2 = os.path.join(tmp, 'again')
+        save_chain(db2, tr, states)
+        _, reloaded, _ = load_chain(db2, setup)
+        check(states_equal(states, reloaded),
+              'a reloaded state is the state in memory, bit for bit')
+        s_a, tr_a = run_chains(setup, states, cfg)
+        s_b, tr_b = run_chains(setup, reloaded, cfg)
+        torch.cuda.synchronize()
+        check(torch.equal(tr_a, tr_b) and states_equal(s_a, s_b),
+              '5 steps from the reloaded state bitwise equal to 5 steps in '
+              'memory (2 chains)')
+
+        # the initial log likelihood through K1 against the plain
+        # accumulate in f64, the f32 plain path's distance beside it
+        others = [bayes_run.build_setup([ov], device=dev)
+                  for ov in ('use_pallas=False', 'use_f64=True')]
+        check(setup.setup.kcfg.pallas and
+              not any(s.setup.kcfg.pallas for s in others) and
+              others[1].setup.wind_flat.dtype == torch.float64 and
+              (setup.setup.kcfg.K, setup.setup.kcfg.K_local, setup.ndays,
+               setup.setup.scfg.dom_len) == (44, 20, 18, 801),
+              'setups: CUDA kernel, plain torch and plain torch in f64, '
+              'K = 44, Kl = 20, 18 days, 801^2')
+        ll, ll_plain, ll_64 = [float(sampler.init_chain_state(
+            s, sampler.chain_generator(0, 0, dev)).loglik)
+            for s in (setup, *others)]
+        d = abs(ll - ll_64) / abs(ll_64)
+        check(np.isfinite(ll) and d <= AM_LOGLIK_RTOL,
+              'initial loglik through K1 {!r}, plain in f64 {!r}: rel diff '
+              '{:.3e} <= {:.0e} (plain in f32 {!r}: {:.3e} from f64, {:.3e} '
+              'from K1)'.format(ll, ll_64, d, AM_LOGLIK_RTOL, ll_plain,
+                                abs(ll_plain - ll_64) / abs(ll_64),
+                                abs(ll_plain - ll) / abs(ll)))
+
+        # host reads: none in the sweep, one per block proposal
+        state = sampler.unstack_states(s_a)[0]
+        n_moves = sampler._n_obs(setup)
+        draws = sampler.draw_step(state.key, n_moves, state.m.dtype, dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            with torch.no_grad():
+                sampler._obs_sweep(setup, draws.obs_eps, draws.obs_log_u,
+                                   state.o, state.prior_o, state.loglik,
+                                   state.proj, 1.0, sampler.MCMCConfig(1))
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        check(True, 'the observation sweep ({} moves) made no synchronizing '
+              'call'.format(n_moves))
+        n_steps = 4
+        (state, _), reads = count_host_reads(
+            lambda: sampler.run_mcmc(setup, state,
+                                     sampler.MCMCConfig(n_steps)))
+        for r in sorted(set(reads)):
+            print('  host read x{}: {}'.format(reads.count(r), r))
+        check(len(reads) == n_steps, '{} synchronizing calls in {} whole '
+              'steps: one per block proposal'.format(len(reads), n_steps))
+
+        # seconds per step and its split, CUDA events on the stream's
+        # timeline read after one synchronize at the end
+        marks = {'model': [], 'sweep': [], 'step': []}
+
+        def timed_call(fn, key):
+            def wrapper(*a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                marks[key].append((start, end))
+                return out
+            return wrapper
+
+        real = (sampler._model_proposal, sampler._obs_sweep)
+        sampler._model_proposal = timed_call(real[0], 'model')
+        sampler._obs_sweep = timed_call(real[1], 'sweep')
+        n_timed = 20
+        try:
+            before = (day_kernel.LAUNCHES, sampler.FORWARDS)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(n_timed):
+                state, _ = timed_call(sampler._mcmc_step, 'step')(
+                    setup, state, sampler.MCMCConfig(1))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - tic) / n_timed
+        finally:
+            sampler._model_proposal, sampler._obs_sweep = real
+        med = {k: float(np.median([a.elapsed_time(b) for a, b in v])) * 1e-3
+               for k, v in marks.items()}
+        k1_per_step = (day_kernel.LAUNCHES - before[0]) / n_timed
+        check(day_kernel.LAUNCHES - before[0] ==
+              18 * (sampler.FORWARDS - before[1]),
+              'timed steps: {} forwards in {} steps, 18 K1 launches each'
+              .format(sampler.FORWARDS - before[1], n_timed))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = sampler.run_mcmc(setup, state, sampler.MCMCConfig(3))
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        per_step = sum(e.count for e in events) / 3
+        busy = sum(e.self_device_time_total for e in events) * 1e-6 / 3
+        check(per_step > 0 and busy > 0, 'the profiler saw the card')
+        print('  {:.4f} s per AM step per chain (median of {} post-burn '
+              'steps, CUDA events; {:.4f} s by the host clock over all): '
+              'model block {:.4f} s, observation sweep {:.4f} s; {:.0f} '
+              'device launches a step ({:.1f} of them K1), device busy '
+              '{:.4f} s a step (idle share {:.3f}); {:.0f} AM steps/hr '
+              '({})'.format(med['step'], n_timed, wall, med['model'],
+                            med['sweep'], per_step, k1_per_step, busy,
+                            1.0 - busy / med['step'],
+                            3600.0 / med['step'], card))
+    return (launches, forwards, med['step'], med['model'], med['sweep'],
+            per_step, busy)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible to torch', file=sys.stderr)
@@ -728,8 +969,11 @@ def main():
         phase_posterior_gradient(dev, card)
     map_launches, sec_step, sec_vg_401, gold_dv, gold_l2 = \
         phase_map_cli(dev, card)
-    check(launches > 0 and min(map_launches) > 0,
-          'both kernels launched on their main paths')
+    (am_launches, am_forwards, am_step, am_model, am_sweep, am_per_step,
+     am_busy) = phase_am_cli(dev, card)
+    check(launches > 0 and min(map_launches) > 0 and am_launches > 0,
+          'both kernels launched on their main paths, the forward kernel on '
+          'the AM path too')
     check('jax' not in sys.modules, 'no JAX module was imported')
     jax_pkg = sorted(k for k in sys.modules if k == 'parasitoids_tpu' or
                      k.startswith('parasitoids_tpu.'))
@@ -762,6 +1006,12 @@ def main():
         'sec_per_simulation': sec,
         'sec_per_value_and_grad_801': sec_vg,
         'launches_map_cli': map_launches[0],
+        'launches_am_cli': am_launches, 'forwards_am_cli': am_forwards,
+        'sec_per_am_step_801': am_step,
+        'sec_per_am_model_block_801': am_model,
+        'sec_per_am_obs_sweep_801': am_sweep,
+        'device_launches_per_am_step_801': am_per_step,
+        'device_busy_sec_per_am_step_801': am_busy,
     }, {
         'name': 'day_accumulate_bwd (K3 low-|rho| + K4 high-|rho|)',
         'route': 'cuda',

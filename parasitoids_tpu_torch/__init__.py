@@ -1,13 +1,16 @@
-"""parasitoids_tpu_torch — PyTorch/CUDA port of the forward dispersal model.
+"""parasitoids_tpu_torch — PyTorch/CUDA port of the dispersal model and
+its Bayesian layer.
 
 The JAX package ``parasitoids_tpu`` is the reference; this package runs the
 same forward simulation (wind -> per-day dispersal kernels -> FFT
-propagation over days) with PyTorch, and replaces the JAX package's fused
+propagation over days), the MAP fit and the adaptive-Metropolis sampler
+with PyTorch, and replaces the JAX package's fused
 Pallas day-accumulate with a CUDA kernel written for Hopper
 (``csrc/day_kernel.cu``).  It imports ``torch`` and never ``jax``, and
 nothing of the JAX package: it keeps its own copies of the host-only
 modules it needs (``config``, ``io/``, ``utils/checks``,
-``viz/plot_result``).  Its entry points run on the card unless the caller
+``utils/durable``, ``bayes/diagnostics``, ``viz/plot_result``,
+``viz/bayes_plot``).  Its entry points run on the card unless the caller
 asks for the CPU (``device='cpu'``, ``--device cpu``).
 
 Layout mirrors the JAX package:
@@ -18,9 +21,12 @@ Layout mirrors the JAX package:
                    the CUDA day-accumulate and its build
   models/          FFT propagation, the end-to-end forward model, the
                    observation projections
-  bayes/           priors, transforms, the log posterior, the MAP fit
-  utils/checks.py  numerical sanitizers of a run's fields
-  viz/             per-day plots of a run (``--plot``)
+  bayes/           priors, transforms, the log posterior, the MAP fit,
+                   the adaptive-Metropolis sampler, its trace store and
+                   command line (``python -m parasitoids_tpu_torch.bayes.run``)
+  parallel/        the chains of a run, advanced in turn on one device
+  utils/           numerical sanitizers of a run's fields; durable commits
+  viz/             per-day plots of a run (``--plot``); MCMC diagnostics
   cli.py           ``python -m parasitoids_tpu_torch [flags] [key=value ...]``
 """
 

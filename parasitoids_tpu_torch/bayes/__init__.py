@@ -1,5 +1,7 @@
 """Bayesian layer of the port: priors, bijections, the log posterior
-(``model.BayesSetup``) and MAP (``map_fit``)."""
+(``model.BayesSetup``), MAP (``map_fit``), adaptive Metropolis
+(``sampler``), its trace store (``store``), diagnostics and the MCMC
+command line (``run``)."""
 
 from .priors import (ModelParams, ObsParams, log_prior_model,  # noqa: F401
                      log_prior_obs, MODEL_PARAM_NAMES, OBS_PARAM_NAMES,

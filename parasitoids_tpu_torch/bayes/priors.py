@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.special import gammaln, ndtr, xlogy
+from torch.special import gammaln, xlogy
 
 __all__ = ['ModelParams', 'ObsParams', 'log_prior_model', 'log_prior_obs',
            'MODEL_PARAM_NAMES', 'OBS_PARAM_NAMES', 'initial_model_params',
@@ -138,24 +138,31 @@ def _neg_inf(x):
     return torch.full_like(x, -math.inf)
 
 
-def _as_t(v, like):
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+# A distribution's parameters are Python numbers, and the terms that hold
+# only them are worked out on the host: a number copied to the card would
+# make the prior wait for it.  The one tensor parameter is the sentinel
+# fields' Beta alpha.
+
+def _lgamma(v):
+    return gammaln(v) if torch.is_tensor(v) else math.lgamma(v)
+
+
+def _ndtr(v):
+    return 0.5 * math.erfc(-v / math.sqrt(2.0))
 
 
 def _beta_logpdf(x, a, b):
-    a, b = _as_t(a, x), _as_t(b, x)
     inside = (x > 0) & (x < 1)
     xs = torch.clamp(x, 1e-12, 1 - 1e-12)
     lp = (xlogy(a - 1, xs) + xlogy(b - 1, 1 - xs)
-          + gammaln(a + b) - gammaln(a) - gammaln(b))
+          + (_lgamma(a + b) - _lgamma(a) - _lgamma(b)))
     return torch.where(inside, lp, _neg_inf(lp))
 
 
 def _gamma_logpdf(x, alpha, beta):
     """PyMC-2 Gamma(alpha, beta) with beta = rate."""
-    alpha, beta = _as_t(alpha, x), _as_t(beta, x)
-    lp = (xlogy(alpha - 1, x) - beta * x + alpha * torch.log(beta)
-          - gammaln(alpha))
+    lp = (xlogy(alpha - 1, x) - beta * x
+          + (alpha * math.log(beta) - math.lgamma(alpha)))
     return torch.where(x > 0, lp, _neg_inf(lp))
 
 
@@ -168,9 +175,7 @@ def _truncnorm_logpdf(x, mu, tau, a, b):
     """PyMC-2 TruncatedNormal(mu, tau, a, b); tau is precision."""
     sd = 1.0 / math.sqrt(tau)
     z = _norm_logpdf(x, mu, sd)
-    b = _as_t(b, x)
-    norm_const = torch.log(ndtr((b - mu) / sd) - ndtr(_as_t((a - mu) / sd,
-                                                            x)))
+    norm_const = math.log(_ndtr((b - mu) / sd) - _ndtr((a - mu) / sd))
     return torch.where((x >= a) & (x <= b), z - norm_const, _neg_inf(z))
 
 
@@ -179,7 +184,6 @@ def _normal_logpdf(x, mu, tau):
 
 
 def _poisson_logpmf(k, mu):
-    mu = _as_t(mu, k)
     lp = xlogy(k, mu) - mu - gammaln(k + 1.0)
     return torch.where(k >= 0, lp, _neg_inf(lp))
 

@@ -132,14 +132,14 @@ class ObservationOps:
             self.release_proj.append(_Projection(index(idx), weights(W)))
 
         ### sentinel-field emergence (per collection): field sums via a
-        ### concatenated cell gather and per-field segment ids
-        cells, seg = [], []
-        for n, fid in enumerate(locinfo.sent_ids):
+        ### concatenated cell gather, one contiguous segment per field
+        cells = []
+        for fid in locinfo.sent_ids:
             fc = locinfo.field_cells[fid]
             cells.append(fc[:, 0] * D + fc[:, 1])
-            seg.append(np.full(fc.shape[0], n))
         self.sent_cells = index(np.concatenate(cells))
-        self.sent_seg = index(np.concatenate(seg))
+        self.sent_bounds = [0] + [int(b) for b in np.cumsum(
+            [len(c) for c in cells])]
         self.n_sent = len(locinfo.sent_ids)
         self.sentinel_W = []
         for nframe, dframe in enumerate(locinfo.sent_DataFrames):
@@ -200,9 +200,11 @@ class ObservationOps:
         release = [torch.matmul(flat.index_select(1, p.point_rows).T,
                                 p.weights) for p in self.release_proj]
         cell_vals = flat.index_select(1, self.sent_cells)  # (ndays, cells)
-        field_tot = torch.zeros((self.n_sent, flat.shape[0]),
-                                dtype=flat.dtype, device=flat.device)
-        field_tot = field_tot.index_add(0, self.sent_seg, cell_vals.T)
+        # one reduction per field, not an index_add: on the card that adds
+        # atomically, in an order that changes from run to run, and the
+        # sampler's exact resume needs the same bits from the same state
+        field_tot = torch.stack([cell_vals[:, a:b].sum(dim=1) for a, b in
+                                 zip(self.sent_bounds, self.sent_bounds[1:])])
         sentinel = [torch.matmul(field_tot, W) for W in self.sentinel_W]
         return release, sentinel
 

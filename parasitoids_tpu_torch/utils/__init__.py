@@ -1,1 +1,2 @@
-"""Host-side helpers of the port (copies of ``parasitoids_tpu/utils``)."""
+"""Host-side helpers of the port (copies of ``parasitoids_tpu/utils``:
+``checks``, ``durable``)."""

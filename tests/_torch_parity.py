@@ -74,3 +74,46 @@ def exact_support_mask(setup64, z, use_sprd):
         positive = pos if positive is None else positive & pos
     zero = torch.cat([d.reshape(-1) for d in data]) == 0
     return (zero | positive).numpy()
+
+
+def support_mask_at(setup64, m_vecs):
+    """:func:`exact_support_mask` for packed model blocks (no pre-spread
+    day): a zero count, or an expected count that is positive in f64 at
+    every block of ``m_vecs``."""
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    data = (*setup64.obs_release, *setup64.obs_sentinel, setup64.obs_grid)
+    keep = torch.cat([d.reshape(-1) for d in data]) == 0
+    positive = torch.ones_like(keep)
+    for m_vec in m_vecs:
+        rel, sent, grid = setup64.forward_projections(_as_model(
+            torch.as_tensor(np.asarray(m_vec), dtype=torch.float64)))
+        positive &= torch.cat([p.reshape(-1)
+                               for p in (*rel, *sent, grid)]) > 0
+    return (keep | positive).numpy()
+
+
+# the fields of a chain state that two packages can be compared on (the
+# random key and the cached projections are each package's own)
+CHAIN_FIELDS = ('m', 'o', 'loglik', 'prior_m', 'prior_o', 'count', 'mean',
+                'm2', 'accepts_m', 'accepts_o', 'log_scale')
+
+
+def chain_state_arrays(state):
+    """``CHAIN_FIELDS`` of either package's ``ChainState`` as numpy."""
+    return {f: np.asarray(getattr(state, f)) for f in CHAIN_FIELDS}
+
+
+def port_chain_state(arrays, setup, gen=None):
+    """The port's ``ChainState`` on ``setup``'s device from the
+    ``CHAIN_FIELDS`` arrays of a JAX one (``chain_state_arrays``), with
+    the projections recomputed by the port's forward and ``gen`` as its
+    generator."""
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    from parasitoids_tpu_torch.bayes.sampler import ChainState
+    dtype = setup.setup.wind_flat.dtype
+    dev = setup.setup.wind_flat.device
+    kw = {f: torch.as_tensor(np.asarray(arrays[f]), dtype=dtype).to(dev)
+          for f in CHAIN_FIELDS}
+    with torch.no_grad():
+        proj = setup.forward_projections(_as_model(kw['m']))
+    return ChainState(proj=proj, key=gen, **kw)

@@ -349,3 +349,60 @@ def test_log_posterior_gradient_kernels_vs_plain(cuda_device):
     assert np.isfinite(vk) and np.all(np.isfinite(gk))
     assert abs(vk - vp) <= 1e-5 * abs(vp)
     assert np.linalg.norm(gk - gp) <= 1e-4 * np.linalg.norm(gp)
+
+
+def _am_setup(device):
+    from parasitoids_tpu_torch.bayes import map_fit
+    from parasitoids_tpu_torch.bayes.model import BayesSetup
+    return BayesSetup(map_fit.map_cli_params(MAP_SMALL), device=device)
+
+
+def test_forward_projections_are_bitwise_reproducible(cuda_device):
+    # the sampler's exact resume rebuilds the cached projections: the same
+    # block must give the same bits (no atomic adds anywhere on the path)
+    from parasitoids_tpu_torch.bayes import priors
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    setup = _am_setup(cuda_device)
+    m = _as_model(torch.as_tensor(priors.initial_model_params(),
+                                  dtype=torch.float32).to(cuda_device))
+    with torch.no_grad():
+        runs = [setup.forward_projections(m) for _ in range(3)]
+    flat = [torch.cat([p.reshape(-1) for p in (*r[0], *r[1], r[2])])
+            for r in runs]
+    assert torch.equal(flat[0], flat[1]) and torch.equal(flat[0], flat[2])
+    assert float(flat[0].abs().max()) > 0
+
+
+def test_am_resume_is_exact_and_the_sweep_never_waits(cuda_device, tmp_path):
+    # the small configuration through K1: a reloaded state continues bit
+    # for bit, every forward is one kernel launch a day, and the
+    # observation sweep makes no synchronizing call
+    from parasitoids_tpu_torch.bayes import sampler
+    from parasitoids_tpu_torch.bayes.store import load_chain, save_chain
+    setup = _am_setup(cuda_device)
+    assert setup.setup.kcfg.pallas
+    launches, forwards = day_kernel.LAUNCHES, sampler.FORWARDS
+    state = sampler.init_chain_state(
+        setup, sampler.chain_generator(0, 0, cuda_device))
+    state, tr = sampler.run_mcmc(setup, state, sampler.MCMCConfig(8))
+    db = str(tmp_path / 'am')
+    save_chain(db, tr[None], state)
+    _, again, meta = load_chain(db, setup)
+    assert meta['device'] == 'cuda'
+    _, tr_a = sampler.run_mcmc(setup, state, sampler.MCMCConfig(6))
+    _, tr_b = sampler.run_mcmc(setup, again, sampler.MCMCConfig(6))
+    assert torch.equal(tr_a, tr_b) and bool(torch.isfinite(tr_a).all())
+    assert day_kernel.LAUNCHES - launches == \
+        setup.ndays * (sampler.FORWARDS - forwards)
+    with pytest.raises(ValueError, match='device type'):
+        load_chain(db, _am_setup('cpu'))
+    draws = sampler.draw_step(state.key, 10, torch.float32, cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        with torch.no_grad():
+            sampler._obs_sweep(setup, draws.obs_eps, draws.obs_log_u,
+                               again.o, again.prior_o, again.loglik,
+                               again.proj, 1.0, sampler.MCMCConfig(1))
+    finally:
+        torch.cuda.set_sync_debug_mode('default')

@@ -1,7 +1,11 @@
 """The port's own host layer against the JAX package's: ``Params``, the
-wind loader, ``LocInfo`` and the saved-run format are copies, and must
-give the same values; and the port's device policy (the card by default,
-no CPU fallback)."""
+wind loader, ``LocInfo``, the saved-run format, the MCMC diagnostics, the
+durable commit and the diagnostic plots are copies, and must give the same
+values; and the port's device policy (the card by default, no CPU
+fallback)."""
+
+import os
+import subprocess
 
 import numpy as np
 import pandas as pd
@@ -13,13 +17,20 @@ from parasitoids_tpu import config as jcfg
 from parasitoids_tpu import io as jio
 from parasitoids_tpu.io import locinfo as jloc
 from parasitoids_tpu.io import save as jsave
+from parasitoids_tpu.bayes import diagnostics as jdiag
+from parasitoids_tpu.utils import durable as jdurable
+from parasitoids_tpu.viz import bayes_plot as jplot
 from parasitoids_tpu_torch import cli, config as tcfg, device
 from parasitoids_tpu_torch import io as tio
+from parasitoids_tpu_torch.bayes import diagnostics as tdiag
 from parasitoids_tpu_torch.bayes import map_fit
+from parasitoids_tpu_torch.bayes import run as bayes_run
 from parasitoids_tpu_torch.bayes.model import BayesSetup
 from parasitoids_tpu_torch.io import locinfo as tloc
 from parasitoids_tpu_torch.io import save as tsave
 from parasitoids_tpu_torch.models import forward as tf
+from parasitoids_tpu_torch.utils import durable as tdurable
+from parasitoids_tpu_torch.viz import bayes_plot as tplot
 
 pytestmark = [
     pytest.mark.filterwarnings('ignore:wasps advected beyond:RuntimeWarning'),
@@ -88,6 +99,89 @@ def test_saved_runs_cross_load(tmp_path, writer, reader):
     np.testing.assert_allclose(back, fields, rtol=1e-6)
 
 
+def _chains(seed, n_chains=3, n=400, dim=26):
+    """Seeded AR(1) chains around the initial values: traces that every
+    diagnostic has something to say about."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n_chains, n, dim))
+    for t in range(1, n):
+        x[:, t] = 0.9 * x[:, t - 1] + rng.standard_normal((n_chains, dim))
+    return x + np.arange(dim) + 0.3 * rng.standard_normal((n_chains, 1, dim))
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_diagnostics_copy_matches(seed):
+    x = _chains(seed)
+    np.testing.assert_array_equal(tdiag.gelman_rubin(x),
+                                  jdiag.gelman_rubin(x))
+    np.testing.assert_array_equal(tdiag.gelman_rubin(x[:, :, 0]),
+                                  jdiag.gelman_rubin(x[:, :, 0]))
+    np.testing.assert_array_equal(tdiag.geweke(x[0, :, 3]),
+                                  jdiag.geweke(x[0, :, 3]))
+    for n in (3, 12, 400):
+        assert tdiag.effective_sample_size(x[1, :n, 2]) == \
+            jdiag.effective_sample_size(x[1, :n, 2])
+    names = ['p{}'.format(i) for i in range(5)]
+    truth = np.arange(5) + 0.5
+    assert tdiag.truth_diagnostics(x, names, truth, ('p1', 'p4')) == \
+        jdiag.truth_diagnostics(x, names, truth, ('p1', 'p4'))
+    # the degenerate cases of R-hat: constant chains that agree, and
+    # that disagree
+    flat = np.ones((2, 10))
+    assert tdiag.gelman_rubin(flat) == jdiag.gelman_rubin(flat) == 1.0
+    flat[1] = 2.0
+    assert tdiag.gelman_rubin(flat) == jdiag.gelman_rubin(flat) == np.inf
+    with pytest.raises(ValueError, match='at least 2 chains'):
+        tdiag.gelman_rubin(x[:1])
+
+
+@pytest.mark.parametrize('mod', [tdurable, jdurable])
+def test_durable_copy_commits_only_when_enabled(mod, tmp_path, monkeypatch):
+    def git(*args):
+        return subprocess.run(['git', *args], cwd=tmp_path, check=True,
+                              capture_output=True, text=True).stdout
+
+    git('init', '-q')
+    git('config', 'user.email', 'test@example.com')
+    git('config', 'user.name', 'test')
+    (tmp_path / '.gitignore').write_text('*.npz\n')
+    store = tmp_path / 'run.npz'
+    store.write_bytes(b'traces')
+    paths = [str(store), str(tmp_path / 'missing.json')]
+    monkeypatch.delenv('PARA_GIT_COMMIT', raising=False)
+    assert not mod.durability_enabled()
+    assert mod.commit_artifacts(paths, 'off', cwd=tmp_path) is False
+    monkeypatch.setenv('PARA_GIT_COMMIT', '1')
+    assert mod.durability_enabled()
+    assert mod.commit_artifacts(paths, 'AM checkpoint', cwd=tmp_path) is True
+    assert git('log', '--format=%s').split() == ['AM', 'checkpoint']
+    assert git('ls-files').split() == ['run.npz']     # force-added
+    # nothing new staged: a quiet no-op; nothing existing: the same
+    assert mod.commit_artifacts(paths, 'again', cwd=tmp_path) is False
+    assert mod.commit_artifacts(paths[1:], 'none', cwd=tmp_path) is False
+
+
+def test_bayes_plot_copy_matches(tmp_path):
+    for width, model in ((26, 'poisson'), (27, 'negbin'), (27, 'zip')):
+        assert tplot._param_names(width, model) == \
+            jplot._param_names(width, model)
+    x = _chains(2, n_chains=2, n=60)
+    made = {}
+    for name, mod in (('port', tplot), ('jax', jplot)):
+        out = str(tmp_path / name)
+        written = mod.plot_traces(x, outdir=out, start=5, stop=50,
+                                  select=['xi', 'log_posterior'])
+        written += [mod.plot_f_g(x, out), mod.plot_sprd_vars(x, out, 10),
+                    mod.plot_sent_obs_probs(x, out), mod.plot_other(x, out),
+                    mod.plot_pt_ladder([0.0, 0.5, 1.0], x[0, :, :3].T,
+                                       [4, 4], [1, 2], burn=5, outdir=out)]
+        assert all(os.path.getsize(w) > 0 for w in written)
+        made[name] = sorted(os.path.relpath(w, out) for w in written)
+    assert made['port'] == made['jax'] and len(made['port']) == 7
+    with pytest.raises(ValueError, match='unknown parameter'):
+        tplot.plot_traces(x, outdir=str(tmp_path), select=['nope'])
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
 
@@ -113,6 +207,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         cli.main(argv=['--pop', '--no_plot', '--no_output', 'ndays=2'])
     with pytest.raises(RuntimeError, match='no CUDA device'):
         map_fit.main(['--MAP', '--steps', '1', 'ndays=2'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        bayes_run.build_setup(['ndays=2'])
+    for mode in (['--new', '1', '0', 'unused'], ['--resume', 'unused', '1']):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            bayes_run.main(mode + ['ndays=2'])
 
 
 def test_device_flag_is_read_before_the_params_flags():
@@ -141,3 +240,14 @@ def test_map_cli_runs_on_the_cpu_with_device_flag(monkeypatch, tmp_path):
                         out, 'ndays=2', 'domain_info=(10000.0,50)',
                         'interp_num=2', 'kernel_rad=6', 'kernel_rad_local=3'])
     assert fit['losses'].shape == (1,) and np.isfinite(fit['losses']).all()
+
+
+def test_am_cli_runs_on_the_cpu_with_device_flag(monkeypatch, tmp_path):
+    _no_card(monkeypatch)
+    db = str(tmp_path / 'am')
+    bayes_run.main(['--device', 'cpu', '--new', '2', '1', db, 'ndays=2',
+                    'domain_info=(10000.0,50)', 'interp_num=2',
+                    'kernel_rad=6', 'kernel_rad_local=3'])
+    with np.load(db + '.npz') as npz:
+        assert npz['traces'].shape == (1, 2, 26)
+        assert np.isfinite(npz['traces']).all()

@@ -46,7 +46,11 @@ def test_host_precompute_is_the_jax_modules(kalbar):
         np.testing.assert_array_equal(t.weights.numpy(),
                                       np.asarray(j.weights, np.float32))
     np.testing.assert_array_equal(tops.sent_cells.numpy(), jops.sent_cells)
-    np.testing.assert_array_equal(tops.sent_seg.numpy(), jops.sent_seg)
+    # the port sums each field's contiguous run of cells; the runs are the
+    # JAX module's segment ids
+    np.testing.assert_array_equal(
+        np.repeat(np.arange(tops.n_sent), np.diff(tops.sent_bounds)),
+        jops.sent_seg)
     for j, t in zip(jops.sentinel_W, tops.sentinel_W):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j, np.float32))
     np.testing.assert_array_equal(tops.grid_idx.numpy(), jops.grid_idx)

@@ -1,0 +1,196 @@
+"""The port's AM command line (``parasitoids_tpu_torch.bayes.run``) on the CPU at
+the small configuration: ``--new`` / ``--resume`` write the meta keys and
+write ``obs_sweeps`` back (test_obs_sweeps_meta.py:19-47), checkpoints and
+a resume change no sample, the result is read by the JAX package's
+consumers, the unported samplers exit naming their ROADMAP item, and the
+``--analyze`` menu answers from stdin."""
+
+import io
+import json
+import os
+
+import numpy as np
+import pytest
+
+from tests._torch_parity import MAP_SMALL
+
+from parasitoids_tpu.bayes import diagnostics as jdiag
+from parasitoids_tpu.bayes import run as jrun
+from parasitoids_tpu.viz import bayes_plot as jplot
+from parasitoids_tpu_torch.bayes import run as trun
+
+pytestmark = pytest.mark.filterwarnings(
+    'ignore:simulation covers:RuntimeWarning')
+
+TINY = list(MAP_SMALL)
+CPU = ['--device', 'cpu']
+
+
+def _meta(db):
+    with open(db + '.meta.json') as fh:
+        return json.load(fh)
+
+
+def _traces(db):
+    with np.load(db + '.npz') as npz:
+        return npz['traces']
+
+
+@pytest.fixture(scope='module')
+def store(tmp_path_factory):
+    """A two-chain run of 6 samples after 4 of burn-in, resumed for 4
+    more, with a checkpoint every 4 steps."""
+    db = str(tmp_path_factory.mktemp('am') / 'run')
+    trun.main(CPU + ['--new', '6', '4', db, '--chains', '2',
+                     '--checkpoint-every', '4', '--seed', '3'] + TINY)
+    first = _traces(db)
+    trun.main(CPU + ['--resume', db, '4'] + TINY)
+    return db, first
+
+
+def test_new_and_resume_write_the_store(store):
+    db, first = store
+    assert first.shape == (2, 6, 26)
+    traces = _traces(db)
+    assert traces.shape == (2, 10, 26) and np.isfinite(traces).all()
+    np.testing.assert_array_equal(traces[:, :6], first)
+    meta = _meta(db)
+    assert meta == {'n_samples': 10, 'burn': 4, 'chains': 2,
+                    'obs_sweeps': 1, 'obs_model': 'poisson',
+                    'sampler': 'am', 'seed': 3, 'device': 'cpu'}
+    with np.load(db + '.npz') as npz:
+        assert float(npz['state_count'][0]) == 14.0
+        assert npz['state_key'].shape == (2, 5056)
+
+
+def test_checkpoints_and_resume_change_no_sample(store, tmp_path, capsys):
+    # the same seed in one piece, with no checkpoint between: the
+    # checkpointed and resumed run of the fixture drew the same samples
+    db, _ = store
+    whole = str(tmp_path / 'whole')
+    trun.main(CPU + ['--new', '10', '4', whole, '--chains', '2', '--seed',
+                     '3'] + TINY)
+    out = capsys.readouterr().out
+    assert out.splitlines()[0] == 'device cpu, accumulate plain torch'
+    assert 'checkpoint:' not in out and 'Gelman-Rubin' in out
+    np.testing.assert_array_equal(_traces(whole), _traces(db))
+    assert _meta(whole)['n_samples'] == 10
+
+
+def test_store_is_read_by_the_jax_package(store, tmp_path, monkeypatch,
+                                          capsys):
+    db, _ = store
+    traces = _traces(db)
+    rhat = jdiag.gelman_rubin(traces[:, :, :15])
+    assert rhat.shape == (15,) and not np.isnan(rhat).any()
+    monkeypatch.chdir(tmp_path)
+    jplot.main([db])
+    assert os.path.exists(tmp_path / 'diagnostics' / 'trace_xi.png')
+    # the JAX package's --analyze menu over the port's store
+    monkeypatch.setattr('sys.stdin', io.StringIO('s\ng\nq\n'))
+    jrun.run_analyze(jrun.parser.parse_args(['--analyze', db]))
+    out = capsys.readouterr().out
+    assert '2 chain(s) x 10 samples x 26 columns' in out
+    assert 'wrote diagnostics/gelman-rubin.txt' in out
+
+
+def test_am_resume_override_written_back(tmp_path, capsys):
+    db = str(tmp_path / 'am_run')
+    trun.main(CPU + ['--new', '4', '2', db, '--obs-sweeps', '2'] + TINY)
+    assert _meta(db)['obs_sweeps'] == 2
+    # an override on resume is honored and recorded
+    trun.main(CPU + ['--resume', db, '3', '--obs-sweeps', '5',
+                     '--checkpoint-every', '2'] + TINY)
+    assert 'checkpoint: 2/3 steps done' in capsys.readouterr().out
+    assert _meta(db)['obs_sweeps'] == 5
+    # a plain resume inherits the recorded value (not the original)
+    trun.main(CPU + ['--resume', db, '2'] + TINY)
+    meta = _meta(db)
+    assert meta['obs_sweeps'] == 5 and meta['n_samples'] == 9
+    assert _traces(db).shape == (1, 9, 26)
+    # a store of another sampler is refused
+    with open(db + '.meta.json', 'w') as fh:
+        json.dump(dict(meta, sampler='pt'), fh)
+    with pytest.raises(SystemExit, match='--sampler pt'):
+        trun.main(CPU + ['--resume', db, '2'] + TINY)
+
+
+def test_burn_in_checkpoint_holds_no_samples_yet(tmp_path, capsys):
+    # a checkpoint inside the burn-in stores an empty trace block and the
+    # state; the JAX plots say so instead of failing
+    db = str(tmp_path / 'short')
+    trun.main(CPU + ['--new', '0', '2', db] + TINY)
+    assert 'no posterior draws yet' in capsys.readouterr().out
+    assert _traces(db).shape == (1, 0, 26)
+    assert _meta(db)['n_samples'] == 0
+
+
+@pytest.mark.parametrize('flags,item', [
+    (['--sampler', 'nuts'], 'item 14'), (['--sampler', 'pt'], 'item 18'),
+    (['--sampler', 'smc'], 'item 18'), (['--sampler', 'vi'], 'item 18'),
+    (['--shard-forward'], 'item 16')])
+def test_cli_refuses_what_is_not_ported(flags, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        trun.main(CPU + ['--new', '2', '1', 'unused'] + flags + TINY)
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert 'ROADMAP' in err and item in err
+
+
+def test_obs_sweeps_rejects_nonpositive():
+    for bad in ('0', '-1'):
+        with pytest.raises(SystemExit):
+            trun.parser.parse_args(['--new', '1', '0', 'x', '--obs-sweeps',
+                                    bad])
+
+
+def test_parser_has_the_jax_modules_options():
+    # --help reads the same: every option of the JAX module, plus --device
+    def options(parser):
+        return {s for a in parser._actions for s in a.option_strings}
+
+    assert options(trun.parser) == options(jrun.parser) | {'--device'}
+    assert trun.parser.prog == 'parasitoids_tpu_torch.bayes.run'
+
+
+def test_analyze_menu(store, tmp_path, monkeypatch, capsys):
+    db, _ = store
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr('sys.stdin', io.StringIO('s\ng\nr\nx\nq\n'))
+    trun.main(['--analyze', db])
+    out = capsys.readouterr().out
+    assert '2 chain(s) x 10 samples x 26 columns' in out
+    assert '"sampler": "am"' in out
+    assert 'posterior means (model block):' in out
+    assert 'Gelman-Rubin R-hat' in out and 'ESS (g_aw, pooled)' in out
+    assert 'wrote diagnostics/gelman-rubin.txt' in out
+    assert 'python -m parasitoids_tpu_torch.bayes.run --resume' in out
+    assert "unrecognized option 'x'" in out
+    assert '[e] log-evidence' not in out
+    with open(tmp_path / 'diagnostics' / 'gelman-rubin.txt') as fh:
+        lines = fh.read().splitlines()
+    assert len(lines) == 25 and lines[0].startswith('g_aw: ')
+
+
+def test_analyze_plots_and_evidence_entry(store, tmp_path, monkeypatch,
+                                          capsys):
+    # [p] and [t] go through the port's own copy of viz/bayes_plot.py; a
+    # store with tempering extras offers [e], which says what is missing
+    db, _ = store
+    with np.load(db + '.npz') as npz:
+        payload = {k: npz[k] for k in npz.files}
+    pt = str(tmp_path / 'pt')
+    np.savez(pt + '.npz', x_betas=np.linspace(0, 1, 3),
+             x_loglik=np.zeros((3, 4)), **payload)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr('sys.stdin', io.StringIO(
+        'p\nt\nxi mu_r\n2 8\nt\nnope\n\ne\n'))
+    trun.main(['--analyze', pt + '.npz'])
+    out = capsys.readouterr().out
+    assert 'diagnostics written to ./diagnostics/' in out
+    assert 'wrote 2 plot(s) to ./diagnostics/' in out
+    assert "unknown parameter name(s) ['nope']" in out
+    assert '[e] log-evidence' in out and 'item 18' in out
+    made = os.listdir(tmp_path / 'diagnostics')
+    assert {'trace_xi.png', 'trace_mu_r.png', 'posterior_f_g.png',
+            'posterior_sprd.png', 'posterior_sent_obs.png'} <= set(made)
