@@ -16,8 +16,12 @@ value and gradient held against a JAX golden.  Then the sampling path: the
 adaptive-Metropolis CLI at the Bayes default (801², two chains, a
 checkpoint, a resume), with the forward kernel's launches held to 18 per
 forward simulation the chains ran, exact resume on the card, the host
-reads of a step counted, and seconds per AM step.  Any failed phase exits
-non-zero.  The last line is a JSON object with ``"ok": true`` and the
+reads of a step counted, and seconds per AM step.  Then the NUTS command
+line at the Bayes default (two chains from a short MAP fit), with both
+kernels' launches held to 18 per value+gradient, its target held against
+the plain path, an interrupted chain resumed bit for bit, the host reads
+of a transition counted, and seconds per leapfrog and per transition.  Any
+failed phase exits non-zero.  The last line is a JSON object with ``"ok": true`` and the
 device; the line before it lists the kernels with their launches, errors,
 times (the forward's three passes and the backward's two launches also
 timed alone, with CUDA events around the kernels) and bounds, the least
@@ -81,6 +85,14 @@ GRAD_GOLDEN = os.path.join(ROOT, 'tests', 'torch_golden',
 # (readings on an H100: K1 1.6e-6 of the value from f64, the f32 plain path
 # 5.6e-6 and changing from run to run with its atomic adds)
 AM_LOGLIK_RTOL = 1e-5
+# the NUTS target at 801² at the MAP start (10 Adam steps, near the mode,
+# where the gradient's largest component is 85 against 2e4 at [7]'s start)
+# through the kernels against the plain path run in f64.  Readings on an
+# H100: value 1.23e-6 of itself, gradient relative L2 1.01e-4, worst
+# component 1.2e-4 of the largest; the f32 plain path stands 3.9e-7 to
+# 7.0e-7, 6.8e-5 to 7.7e-5 and 7.5e-5 to 8.8e-5 from f64, changing from run
+# to run with its atomic adds.  Each limit about ten times its reading.
+NUTS_VALUE_RTOL, NUTS_GRAD_L2_LIMIT, NUTS_GRAD_COMP_LIMIT = 1e-5, 1e-3, 1e-3
 
 
 class SmokeError(RuntimeError):
@@ -933,6 +945,222 @@ def phase_am_cli(dev, card):
             per_step, busy)
 
 
+def phase_nuts_cli(dev, card):
+    """The NUTS CLI at the Bayes default (801², 25 m, K = 44, Kl = 20,
+    18 days, no pre-spread day, plain Poisson, f32): two chains in turn
+    from a short MAP fit, with every count zeroed just before and read just
+    after; the value and gradient of the NUTS target at the MAP start
+    through the kernels against the plain path; an interrupted chain
+    resumed from its checkpoint against the chain that never stopped; the
+    host reads of a transition; seconds per leapfrog and per transition.
+    Returns (K1 launches, K3 launches, value+gradients, seconds per
+    leapfrog, seconds per transition per chain, leapfrogs per transition,
+    host reads per leapfrog, the run's seconds, device launches and busy
+    seconds a leapfrog)."""
+    from parasitoids_tpu_torch.bayes import map_fit, nuts
+    from parasitoids_tpu_torch.bayes import model as bayes_model
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.ops import day_kernel
+    print('[10] NUTS CLI at the Bayes default (801^2, 18 days, K = 44, '
+          'Kl = 20, two chains in turn)')
+    tic_phase = time.perf_counter()
+    burn, draws, depth, map_steps, chains = 8, 4, 4, 10, 2
+    print('  cut in depth only: warm-up {} asked (the CLI runs at least 10) '
+          '+ {} draws a chain, --max-depth {} (default 6), --init-map-steps '
+          '{} (default 200); grid, windows and days not cut'.format(
+              burn, draws, depth, map_steps))
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, 'nuts')
+        day_kernel.LAUNCHES = day_kernel.LAUNCHES_BWD = 0
+        nuts.VALUE_AND_GRADS = 0
+        bayes_model.SKIPPED_FORWARDS = 0
+        torch.cuda.synchronize()
+        out = bayes_run.main(['--sampler', 'nuts', '--new', str(draws),
+                              str(burn), db, '--chains', str(chains),
+                              '--init', 'map', '--init-map-steps',
+                              str(map_steps), '--max-depth', str(depth),
+                              '--checkpoint-every', '3', '--seed', '0'],
+                             device=dev)
+        torch.cuda.synchronize()
+        k1, k3 = day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD
+        n_eval = nuts.VALUE_AND_GRADS
+        skipped = bayes_model.SKIPPED_FORWARDS
+        with np.load(db + '.npz') as npz:
+            saved = {k: npz[k] for k in npz.files}
+        check(set(saved) == {'traces', 'z_samples', 'step_size', 'inv_mass',
+                             'sampler'} and str(saved['sampler']) == 'nuts'
+              and saved['traces'].shape == (chains, draws, 26) and
+              saved['z_samples'].shape == (chains, draws, 25),
+              'trace file: JAX run_nuts keys, traces {}'.format(
+                  saved['traces'].shape))
+        check(bool(np.isfinite(saved['traces']).all()) and
+              bool(np.isfinite(saved['z_samples']).all()),
+              'every draw finite')
+        check(not os.path.exists(db + '.ckpt.npz') and
+              not os.path.exists(db + '.ckpt_durable.npz'),
+              'a completed run leaves no checkpoint')
+    # the value+gradients: the sampler's own (initial points, step-size
+    # search, leapfrogs) and the MAP fit's Adam steps, less any evaluation
+    # outside the prior's support (no forward); the MAP fit's last value
+    # has no gradient
+    n_vg = n_eval + map_steps - skipped
+    check(k3 == 18 * n_vg and k1 == 18 * (n_vg + 1),
+          'K3 launches {} = 18 x {} value+gradients ({} by the sampler + {} '
+          'Adam steps - {} outside the support); K1 launches {} = K3 + 18 '
+          '(the MAP fit\'s final value)'.format(k3, n_vg, n_eval, map_steps,
+                                              skipped, k1))
+    warm = max(burn, 10)
+    n_trans = chains * (warm + draws)
+    sec = out['seconds']
+    leaps = out['n_leapfrog']
+    per_leap = sec / max(n_eval, 1)
+    per_trans = sec / n_trans
+    print('  NUTS: {:.4f} s per leapfrog (the run\'s {:.2f} s over its {} '
+          'value+gradients), {:.2f} leapfrogs per draw transition (warm-up '
+          'and draws: {:.2f} evaluations per transition), {:.4f} s per '
+          'transition per chain; step size {} accept {:.3f}, {} divergences '
+          '({})'.format(per_leap, sec, n_eval, float(leaps.mean()),
+                        n_eval / n_trans, per_trans,
+                        np.array2string(out['step_size'], precision=4),
+                        float(out['accept_rate']), int(out['n_divergent']),
+                        card))
+
+    # the NUTS target at the MAP start through the kernels, held against
+    # the plain path run in f64 with the f32 plain path's distance beside:
+    # near the mode the gradient is small, and the two f32 paths stand
+    # further apart than [7]'s limits (as [9]'s initial loglik is held)
+    setup = bayes_run.build_setup(device=dev)
+    plain = bayes_run.build_setup(['use_pallas=False'], device=dev)
+    plain64 = bayes_run.build_setup(['use_f64=True'], device=dev)
+    check(setup.setup.kcfg.pallas and not plain.setup.kcfg.pallas and
+          not plain64.setup.kcfg.pallas and
+          plain64.setup.wind_flat.dtype == torch.float64 and
+          (setup.setup.kcfg.K, setup.setup.kcfg.K_local, setup.ndays,
+           setup.setup.scfg.dom_len) == (44, 20, 18, 801),
+          'setups: CUDA kernels, plain torch and plain torch in f64, K = 44, '
+          'Kl = 20, 18 days, 801^2')
+    z_map = torch.as_tensor(map_fit.map_fit(setup, n_steps=map_steps,
+                                            use_sprd=False)['z']).to(dev)
+    runs = []
+    for s in (setup, plain, plain64):
+        zz = z_map.to(s.setup.wind_flat.dtype)
+        lp, g = nuts.value_and_grad(nuts.make_transformed_logpdf(s)[0])(zz)
+        runs.append((float(lp), g.double().cpu().numpy()))
+    v64, g64 = runs[2]
+
+    def distance(v, g):
+        return (abs(v - v64) / abs(v64),
+                float(np.linalg.norm(g - g64) / np.linalg.norm(g64)),
+                float(np.abs(g - g64).max() / np.abs(g64).max()))
+
+    dk, dp = distance(*runs[0]), distance(*runs[1])
+    print('  NUTS target at the MAP start: value kernels {!r}, f32 plain {!r}, '
+          'f64 plain {!r}; f64 gradient {}'.format(
+              runs[0][0], runs[1][0], v64, np.array2string(g64,
+                                                           precision=3)))
+    check(np.isfinite(runs[0][0]) and np.all(np.isfinite(runs[0][1])) and
+          dk[0] <= NUTS_VALUE_RTOL and dk[1] <= NUTS_GRAD_L2_LIMIT and
+          dk[2] <= NUTS_GRAD_COMP_LIMIT,
+          'NUTS target at the MAP start, kernels against the plain path in '
+          'f64: value rel {:.3e} <= {:.0e}, gradient relative L2 {:.3e} <= '
+          '{:.0e}, worst component {:.3e} <= {:.0e} of the largest (the f32 '
+          'plain path: {:.3e}, {:.3e}, {:.3e})'.format(
+              dk[0], NUTS_VALUE_RTOL, dk[1], NUTS_GRAD_L2_LIMIT, dk[2],
+              NUTS_GRAD_COMP_LIMIT, *dp))
+    del plain, plain64
+
+    # exact resume on the card: one chain from the run's last draw, stopped
+    # after its first draw, resumed from the checkpoint of warm-up
+    logpdf = nuts.make_transformed_logpdf(setup)[0]
+    z0 = torch.as_tensor(saved['z_samples'][:1, -1]).to(dev)
+    cfg = nuts.NUTSConfig(num_warmup=4, num_samples=2, max_depth=2,
+                          init_step_size=float(out['step_size'][0]))
+
+    def gens():
+        return [torch.Generator(device=dev).manual_seed(11)]
+
+    class Stop(Exception):
+        pass
+
+    def stop(phase, i, total):
+        if (phase, i) == ('sample', 1):
+            raise Stop
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'one.ckpt.npz')
+        whole = nuts.nuts_sample_stepwise(logpdf, z0, gens(), cfg)
+        try:
+            nuts.nuts_sample_stepwise(logpdf, z0, gens(), cfg, progress=stop,
+                                      checkpoint_path=ckpt,
+                                      checkpoint_every=2)
+        except Stop:
+            pass
+        with np.load(ckpt) as d:
+            phase = str(d['phase'])
+        resumed = nuts.nuts_sample_stepwise(logpdf, z0, gens(), cfg,
+                                            checkpoint_path=ckpt,
+                                            checkpoint_every=2, resume=True)
+    same = all(np.array_equal(whole[k], resumed[k]) for k in
+               ('samples', 'logp', 'step_size', 'inv_mass', 'n_leapfrog'))
+    check(same and phase == 'warmup',
+          'one chain stopped after its first draw and resumed from its '
+          'warm-up checkpoint: draws bitwise equal to the chain that never '
+          'stopped ({} leapfrogs a draw)'.format(
+              whole['n_leapfrog'][0].tolist()))
+
+    # host reads: one per leapfrog, plus one where a gate stops the tree
+    lpg = nuts.value_and_grad(logpdf)
+    z = z0[0]
+    lp, g = lpg(z)
+    inv_mass = torch.as_tensor(resumed['inv_mass'][0]).to(dev)
+    step = torch.as_tensor(resumed['step_size'][0]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_leaf = []
+
+    def transitions():
+        zz, ll, gg = z, lp, g
+        for _ in range(2):
+            zz, ll, gg, _, n, _ = nuts._nuts_step(
+                lpg, inv_mass, step, 3, zz, ll, gg,
+                nuts.draw_transition(gen, zz.shape[0], 3, zz.dtype))
+            n_leaf.append(n)
+
+    torch.cuda.synchronize()
+    _, reads = count_host_reads(transitions)
+    for r in sorted(set(reads)):
+        print('  host read x{}: {}'.format(reads.count(r), r))
+    per = len(reads) / max(sum(n_leaf), 1)
+    check(sum(n_leaf) <= len(reads) <= sum(n_leaf) + 2 and per <= 2.0,
+          '{} synchronizing calls in 2 transitions of {} leapfrogs: {:.2f} '
+          'per leapfrog (budget 2)'.format(len(reads), n_leaf, per))
+    # device launches and busy time a leapfrog, one profiled transition
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n_prof = []
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        n_prof.append(nuts._nuts_step(
+            lpg, inv_mass, step, 2, z, lp, g,
+            nuts.draw_transition(gen, z.shape[0], 2, z.dtype))[4])
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - tic) / n_prof[0]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    launches_leap = sum(e.count for e in events) / n_prof[0]
+    busy = sum(e.self_device_time_total for e in events) * 1e-6 / n_prof[0]
+    check(launches_leap > 0 and busy > 0, 'the profiler saw the card')
+    print('  profiled transition of {} leapfrogs: {:.0f} device launches and '
+          '{:.4f} s device busy a leapfrog of {:.4f} s (idle share {:.3f}, '
+          'the profiler on; {})'.format(n_prof[0], launches_leap, busy, wall,
+                                        1.0 - busy / wall, card))
+    sec_phase = time.perf_counter() - tic_phase
+    print('  phase [10]: {:.1f} s'.format(sec_phase))
+    return (k1, k3, n_vg, per_leap, per_trans, float(leaps.mean()), per,
+            sec, launches_leap, busy)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible to torch', file=sys.stderr)
@@ -971,9 +1199,13 @@ def main():
         phase_map_cli(dev, card)
     (am_launches, am_forwards, am_step, am_model, am_sweep, am_per_step,
      am_busy) = phase_am_cli(dev, card)
-    check(launches > 0 and min(map_launches) > 0 and am_launches > 0,
+    (nuts_k1, nuts_k3, nuts_vg, nuts_leap, nuts_trans, nuts_leaps,
+     nuts_reads, nuts_sec, nuts_launches, nuts_busy) = phase_nuts_cli(dev,
+                                                                      card)
+    check(launches > 0 and min(map_launches) > 0 and am_launches > 0 and
+          min(nuts_k1, nuts_k3) > 0,
           'both kernels launched on their main paths, the forward kernel on '
-          'the AM path too')
+          'the AM path too, both on the NUTS path')
     check('jax' not in sys.modules, 'no JAX module was imported')
     jax_pkg = sorted(k for k in sys.modules if k == 'parasitoids_tpu' or
                      k.startswith('parasitoids_tpu.'))
@@ -987,7 +1219,8 @@ def main():
         'route': 'cuda',
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:157',
-        'launches': launches,
+        'launches': launches + nuts_k1,
+        'launches_main_path': launches, 'launches_nuts_cli': nuts_k1,
         'launches_per_simulation': per_sim,
         'max_abs_err': max(err['K1'], err['K2']),
         'max_abs_err_k1': err['K1'], 'max_abs_err_k2': err['K2'],
@@ -1017,7 +1250,8 @@ def main():
         'route': 'cuda',
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:326',
-        'launches': map_launches[1],
+        'launches': map_launches[1] + nuts_k3,
+        'launches_map_cli': map_launches[1], 'launches_nuts_cli': nuts_k3,
         'max_abs_err': max(bwd_abs.values()),
         'max_err_over_scale_k3': bwd_err['K3'],
         'max_err_over_scale_k4': bwd_err['K4'],
@@ -1041,6 +1275,14 @@ def main():
         'sec_per_map_step_401': sec_step,
         'golden_value_rel_401': gold_dv,
         'golden_grad_rel_l2_401': gold_l2,
+        'nuts_value_and_grads': nuts_vg,
+        'sec_per_nuts_leapfrog_801': nuts_leap,
+        'sec_per_nuts_transition_per_chain_801': nuts_trans,
+        'nuts_leapfrogs_per_draw_801': nuts_leaps,
+        'nuts_host_reads_per_leapfrog': nuts_reads,
+        'sec_nuts_cli_801': nuts_sec,
+        'device_launches_per_nuts_leapfrog_801': nuts_launches,
+        'device_busy_sec_per_nuts_leapfrog_801': nuts_busy,
     }]
     print(smi)
     print(json.dumps({'kernels': kernels}))

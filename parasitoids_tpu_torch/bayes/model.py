@@ -47,6 +47,11 @@ __all__ = ['BayesSetup', 'poisson_logpmf', 'poisson_loglik',
 _N_MODEL = 15
 _RATE_FLOOR = 1e-12
 
+# evaluations of ``log_posterior`` that returned −inf without running the
+# forward because the prior was not finite; a run reads it beside
+# ``ops.day_kernel.LAUNCHES`` to account for every launch
+SKIPPED_FORWARDS = 0
+
 
 def poisson_logpmf(obs, rate):
     """Elementwise Poisson log-pmfs.  Rates are floored at 1e-12: a zero
@@ -257,20 +262,24 @@ class BayesSetup:
             '"Leave unported"); use the JAX package')
 
     # ------------------------------------------------------------------
-    def _branches(self, m: ModelParams, prior=None):
+    def _branches(self, m: ModelParams, prior=None, gate=None):
         """The Genz branches (``ops.bvn.genz_branch``) of the flight and
         local |ρ| of ``m``, which pick the node count of every BVN of the
         forward on the host, read from the device in one transfer together
-        with ``prior`` when given.  Returns ``(branches, prior value or
-        None)``."""
+        with ``prior`` and ``gate`` when given.  Returns ``(branches, prior
+        value or None)``, and the gate's value after them when a gate is
+        given."""
         dtype = self.setup.wind_flat.dtype
         device = self.setup.wind_flat.device
         vals = [scalar(m.corr, dtype, device), scalar(m.corr_l, dtype, device)]
         if prior is not None:
             vals.append(prior.to(dtype))
+        if gate is not None:
+            vals.append(gate.to(dtype))
         got = torch.stack([v.detach() for v in vals]).tolist()
-        return ((genz_branch(abs(got[0])), genz_branch(abs(got[1]))),
-                got[2] if prior is not None else None)
+        out = ((genz_branch(abs(got[0])), genz_branch(abs(got[1]))),
+               got[2] if prior is not None else None)
+        return out if gate is None else out + (got[-1],)
 
     def _pre_spread_kernel(self, m: ModelParams, sprd_factor,
                            branches=(None, None)):
@@ -391,16 +400,24 @@ class BayesSetup:
                                              self._rates(projections, o))])
 
     def log_posterior(self, m: ModelParams, o: ObsParams, sprd_factor=None,
-                      obs=None):
+                      obs=None, gate=None):
         """Full joint log posterior; −inf outside the prior's support
         without running the forward model.  One host read per evaluation
         takes the prior's value, which decides that, and the BVN branches
         of the forward.  ``obs``: optional observed-data structure
-        (``obs_pytree``) in place of the setup's."""
+        (``obs_pytree``) in place of the setup's.  ``gate``: optional 0-d
+        tensor read in the same transfer; where it is 0 nothing more runs
+        and None is returned (a sampler's decision whether it needs this
+        evaluation at all rides on the evaluation's own read)."""
+        global SKIPPED_FORWARDS
         prior = log_prior_model(m) + log_prior_obs(
             o, self.field_areas, self.min_field_area, self.obs_model)
-        branches, prior_value = self._branches(m, prior)
+        read = self._branches(m, prior, gate)
+        branches, prior_value = read[:2]
+        if gate is not None and not read[2]:
+            return None
         if not math.isfinite(prior_value):
+            SKIPPED_FORWARDS += 1
             return prior + torch.full_like(prior, -math.inf)
         proj = self.forward_projections(m, sprd_factor, branches)
         return prior + self.log_likelihood(proj, o, obs=obs)

@@ -8,7 +8,8 @@ parameterization: ``Gamma(alpha, beta)`` with rate beta;
 tau; ``Poisson(mu)`` over the flight duration ``n_periods``.  Every
 function takes tensors (0-d per parameter) and returns a 0-d tensor on
 their device, differentiable where finite.  The prior samplers
-(``sample_prior_*``) are not ported yet.
+(``sample_prior_model``, ``sample_prior_obs``) draw from an explicit
+``torch.Generator``, on its device.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from torch.special import gammaln, xlogy
 __all__ = ['ModelParams', 'ObsParams', 'log_prior_model', 'log_prior_obs',
            'MODEL_PARAM_NAMES', 'OBS_PARAM_NAMES', 'initial_model_params',
            'initial_obs_params', 'STEP_SCALES', 'sent_obs_prior_alpha',
-           'OBS_EXTRA_NAME', 'obs_extra_names']
+           'OBS_EXTRA_NAME', 'obs_extra_names', 'sample_prior_model',
+           'sample_prior_obs']
 
 # sampled model-parameter order = the reference's AM block
 # (Bayes_Run.py:186-187)
@@ -214,6 +216,125 @@ def sent_obs_prior_alpha(A_collected, field_areas, sent_beta=40.0):
     (Bayes_Run.py:155-166)."""
     mean = A_collected / field_areas
     return mean * sent_beta / (1.0 - mean)
+
+
+# ----------------------------------------------------------------------
+# prior samplers: the exact distributions whose log densities the
+# ``log_prior_*`` functions evaluate (the reference never samples its
+# priors; the multi-start MAP and the later SMC and predictive modules
+# do).  Each takes the generator it draws from and a number of draws
+# ``n``; the draws are computed in f64 on the generator's device and
+# returned in f32, one row per draw.
+# ----------------------------------------------------------------------
+
+def _uniform(gen, shape):
+    return torch.rand(shape, generator=gen, dtype=torch.float64,
+                      device=gen.device)
+
+
+def _sample_gamma(gen, alpha, rate, shape):
+    """PyMC-2 Gamma(alpha, beta=rate) by Marsaglia and Tsang's rejection
+    sampler (alpha < 1 through the boost U^(1/alpha) of a Gamma(alpha + 1)
+    draw).  ``alpha`` is a number or a tensor broadcast to ``shape``.  The
+    rounds of proposals repeat until every draw is accepted, a host decision
+    per round (about 5% of proposals are rejected)."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float64).to(gen.device)
+    alpha = alpha.expand(shape)
+    boost = alpha < 1.0
+    a = torch.where(boost, alpha + 1.0, alpha)
+    d = a - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    out = torch.zeros(shape, dtype=torch.float64, device=gen.device)
+    todo = torch.ones(shape, dtype=torch.bool, device=gen.device)
+    while bool(todo.any()):
+        x = torch.randn(shape, generator=gen, dtype=torch.float64,
+                        device=gen.device)
+        v = (1.0 + c * x) ** 3
+        log_u = torch.log(_uniform(gen, shape))
+        ok = (v > 0) & (log_u < 0.5 * x * x + d - d * v +
+                        d * torch.log(torch.clamp(v, min=1e-300)))
+        out = torch.where(todo & ok, d * v, out)
+        todo = todo & ~ok
+    u = _uniform(gen, shape)
+    out = torch.where(boost, out * u ** (1.0 / alpha), out)
+    return out / rate
+
+
+def _sample_beta(gen, a, b, shape):
+    x = _sample_gamma(gen, a, 1.0, shape)
+    return x / (x + _sample_gamma(gen, b, 1.0, shape))
+
+
+def _truncnorm_from_uniform(u, mu, tau, a, b):
+    """PyMC-2 TruncatedNormal(mu, tau=precision, a, b) from standard
+    uniforms ``u`` by the inverse CDF, the arithmetic of JAX's
+    ``random.truncated_normal`` (erf of both standardized bounds, a uniform
+    between them, ``sqrt(2) erfinv``, clipped inside the bounds)."""
+    sd = 1.0 / math.sqrt(tau)
+    lo = (a - mu) / sd
+    hi = (b - mu) / sd
+    ea, eb = math.erf(lo / math.sqrt(2.0)), math.erf(hi / math.sqrt(2.0))
+    v = torch.clamp(u * (eb - ea) + ea, min=ea)
+    x = math.sqrt(2.0) * torch.erfinv(v)
+    x = torch.clamp(x, np.nextafter(lo, np.inf), np.nextafter(hi, -np.inf))
+    return mu + sd * x
+
+
+def _sample_truncnorm(gen, mu, tau, a, b, shape):
+    return _truncnorm_from_uniform(_uniform(gen, shape), mu, tau, a, b)
+
+
+def _draws(gen, n, fn):
+    """``fn(shape)`` for ``n`` draws: ``(n, k)`` rows, or ``(k,)`` for
+    ``n=None``."""
+    out = fn((1,) if n is None else (n,)).to(torch.float32)
+    return out[0] if n is None else out
+
+
+def sample_prior_model(gen, n=None):
+    """``n`` draws of the 15-dim model block from the joint prior (the
+    distributions of Bayes_Run.py:102-131, in MODEL_PARAM_NAMES order).
+    ``log_prior_model`` is finite at every draw."""
+    def fn(shape):
+        g = lambda alpha, rate: _sample_gamma(gen, alpha, rate, shape)
+        t = lambda mu, tau, a, b: _sample_truncnorm(gen, mu, tau, a, b, shape)
+        cols = [g(2.2, 1.0), g(5.0, 1.0), t(6.0, 0.3, 0.0, 9.0), g(2.0, 1.0),
+                t(20.0, 0.3, 15.0, 24.0), g(2.0, 1.0), g(26.0, 0.15),
+                g(15.0, 0.15), _sample_beta(gen, 5.0, 5.0, shape),
+                g(2.0, 0.08), g(2.0, 0.14),
+                _sample_beta(gen, 5.0, 5.0, shape),
+                _sample_beta(gen, 5.0, 1.0, shape),
+                torch.poisson(torch.full(shape, 30.0, dtype=torch.float64,
+                                         device=gen.device), generator=gen),
+                1.0 + torch.randn(shape, generator=gen, dtype=torch.float64,
+                                  device=gen.device)]
+        return torch.stack(cols, dim=-1)
+    return _draws(gen, n, fn)
+
+
+def sample_prior_obs(gen, field_areas, min_field_area, obs_model='poisson',
+                     n=None):
+    """``n`` draws of the observation-parameter vector from its joint prior
+    (Bayes_Run.py:132-166), including the hierarchical sentinel
+    observation probabilities Beta(alpha(A_collected), 40) and, for
+    observation-model variants, the extra slot (see ``OBS_EXTRA_NAME``)."""
+    areas = torch.as_tensor(np.asarray(field_areas, np.float64)).to(
+        gen.device)
+
+    def fn(shape):
+        xi = _sample_gamma(gen, 1.0, 1.0, shape)
+        em, gr = _uniform(gen, shape), _uniform(gen, shape)
+        a_coll = _sample_truncnorm(gen, 2500.0, 1.0 / 2500.0, 0.0,
+                                   float(min_field_area), shape)
+        alpha = sent_obs_prior_alpha(a_coll[..., None], areas)
+        sent = _sample_beta(gen, alpha, 40.0, alpha.shape)
+        parts = [torch.stack([xi, em, gr, a_coll], dim=-1), sent]
+        if obs_model == 'negbin':
+            parts.append(_sample_gamma(gen, 2.0, 0.1, shape)[..., None])
+        elif obs_model == 'zip':
+            parts.append(_sample_beta(gen, 1.0, 3.0, shape)[..., None])
+        return torch.cat(parts, dim=-1)
+    return _draws(gen, n, fn)
 
 
 def log_prior_obs(o: ObsParams, field_areas, min_field_area,

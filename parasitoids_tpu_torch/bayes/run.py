@@ -1,5 +1,5 @@
-"""MCMC command line (L4/L5), PyTorch port of the adaptive-Metropolis half of
-``parasitoids_tpu/bayes/run.py``.
+"""MCMC command line (L4/L5), PyTorch port of the adaptive-Metropolis and
+NUTS paths of ``parasitoids_tpu/bayes/run.py``.
 
 Reference entry point: ``python Bayes_Run.py --new <iters> <burn> <db>`` /
 ``--resume <db> <iters>`` (Bayes_Run.py:31-36,475-537).  Ours:
@@ -7,16 +7,22 @@ Reference entry point: ``python Bayes_Run.py --new <iters> <burn> <db>`` /
     python -m parasitoids_tpu_torch.bayes.run --new 1000 100 runs/kalbar
     python -m parasitoids_tpu_torch.bayes.run --resume runs/kalbar 1000
     python -m parasitoids_tpu_torch.bayes.run --analyze runs/kalbar
+    python -m parasitoids_tpu_torch.bayes.run --sampler nuts --new 200 200 \
+        runs/kalbar_nuts [--gibbs-n] [--dense-mass]
+    python -m parasitoids_tpu_torch.bayes.run --sampler nuts \
+        --resume runs/kalbar_nuts 0
     # options: --chains N, --device cpu, plus key=value Params overrides
     # after the mode args
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback).  The
-chains of a run advance in turn on the one card; the trace store is an npz
-with exact sampler-state resume instead of a PyMC HDF5 database;
+chains of a run advance in turn on the one card; the AM trace store is an
+npz with exact sampler-state resume instead of a PyMC HDF5 database, and a
+NUTS run keeps a transition checkpoint (``<db>.ckpt.npz``, mirrored to
+``<db>.ckpt_durable.npz``) that a ``--resume`` continues bit for bit;
 Gelman–Rubin is printed automatically when >= 2 chains.  The argument
-parser is the JAX module's, so ``--help`` reads the same, but only
-``--sampler am`` is ported: ``nuts``, ``pt``, ``smc``, ``vi`` and
-``--shard-forward`` exit naming their ROADMAP item.
+parser is the JAX module's, so ``--help`` reads the same, but ``pt``,
+``smc``, ``vi``, NUTS's ``--mass laplace|ridge`` and ``--shard-forward``
+exit naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from .sampler import MCMCConfig
 from .store import append_traces, load_chain, load_extras, save_chain
 
 # the samplers that are not ported yet, by ROADMAP Queue 1 item
-_NOT_PORTED = {'nuts': 14, 'pt': 18, 'smc': 18, 'vi': 18}
+_NOT_PORTED = {'pt': 18, 'smc': 18, 'vi': 18}
 
 
 def _positive_int(s):
@@ -386,17 +392,185 @@ def _sample(setup, states, n_steps, chunk, obs_sweeps, checkpoint):
     return states
 
 
+def _nuts_init_point(args, setup, z0_prior):
+    """The NUTS starting point in unconstrained space: the reference's
+    initial values (``--init prior``), a short MAP fit (``map``: the prior
+    point predicts almost no wasps where they were counted, and warm-up's
+    dual averaging collapses the step size on the floor-rate terms' f32
+    noise), or chain 0's final state of a saved AM trace store."""
+    from .map_fit import _make_objective, map_fit
+    mode = args.init
+    if mode == 'prior':
+        return z0_prior
+    dev = z0_prior.device
+    _, _, unconstrain = _make_objective(setup, use_sprd=False)
+    if mode == 'map':
+        print('NUTS init: MAP fit ({} steps)...'.format(
+            args.init_map_steps), flush=True)
+        fit = map_fit(setup, n_steps=args.init_map_steps, use_sprd=False)
+        print('NUTS init: MAP logp = {:.2f}'.format(fit['logp']),
+              flush=True)
+        return torch.as_tensor(fit['z']).to(dev)   # the same z-packing
+    with np.load(mode if mode.endswith('.npz') else mode + '.npz') as st:
+        m = np.atleast_2d(st['state_m'])[0]
+        o = np.atleast_2d(st['state_o'])[0]
+    n_obs = 4 + setup.n_sent + setup.n_extra_obs
+    if o.shape[0] != n_obs:
+        raise SystemExit('--init trace has {} obs params, model needs {} '
+                         '(different site/domain?)'.format(o.shape[0],
+                                                           n_obs))
+    print('NUTS init: from trace {}'.format(mode), flush=True)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+    return unconstrain(f32(m), f32(o), f32(0.3))
+
+
+def run_nuts(args, setup):
+    """The gradient-based path (``--sampler nuts``): chains in turn,
+    unconstrained space with log-Jacobians, warm-up = the burn-in argument,
+    a transition checkpoint with a durable twin.  Returns the sampler's
+    result with the run's seconds under ``'seconds'``."""
+    from ..utils.durable import commit_artifacts
+    from .nuts import (NUTSConfig, make_transformed_logpdf,
+                       nuts_sample_stepwise)
+    from .sampler import chain_generator
+
+    dev = setup.setup.wind_flat.device
+    resume = args.new is None
+    if resume:
+        # --resume <db> <iters>: continue an interrupted run from its
+        # transition checkpoint to the originally requested totals (the
+        # iters argument is ignored: warm-up schedules are length-bound)
+        db = args.resume[0]
+        ckpt = db.removesuffix('.npz') + '.ckpt.npz'
+        twin = db.removesuffix('.npz') + '.ckpt_durable.npz'
+        if not os.path.exists(ckpt) and os.path.exists(twin):
+            # the transient checkpoint is gitignored and dies with a VM
+            # recycle; the committed durable twin is an identical payload
+            import shutil
+            shutil.copyfile(twin, ckpt)
+            print('NUTS resume: transient checkpoint missing; restored '
+                  'from durable twin {}'.format(twin))
+        if not os.path.exists(ckpt):
+            raise SystemExit('no NUTS checkpoint at {!r} (a completed run '
+                             'deletes it; rerun with --new)'.format(ckpt))
+        with np.load(ckpt) as d:
+            sig = [int(v) for v in d['cfg_sig']]
+        nw, ns, md, nch, _dim = sig[:5]
+        gibbs = bool(sig[6]) if len(sig) > 6 else False
+        n_samples = ns
+        cfg = NUTSConfig(num_warmup=nw, num_samples=ns, max_depth=md,
+                         dense_mass=bool(sig[5]) if len(sig) > 5 else False,
+                         n_step=sig[7] if len(sig) > 7 else 1,
+                         fixed_mass=bool(sig[8]) if len(sig) > 8 else False)
+        args.chains = nch
+        logpdf, constrain, z0 = make_transformed_logpdf(setup)
+    else:
+        n_samples, burn, db = int(args.new[0]), int(args.new[1]), args.new[2]
+        ckpt = db.removesuffix('.npz') + '.ckpt.npz'
+        twin = db.removesuffix('.npz') + '.ckpt_durable.npz'
+        gibbs = args.gibbs_n
+        logpdf, constrain, z0 = make_transformed_logpdf(setup)
+        z0 = _nuts_init_point(args, setup, z0)
+        cfg = NUTSConfig(num_warmup=max(burn, 10), num_samples=n_samples,
+                         max_depth=args.max_depth, dense_mass=args.dense_mass,
+                         n_step=args.n_step)
+    logpdf_n = (make_transformed_logpdf(setup, free_n=True)[0]
+                if gibbs else None)
+    gens = [chain_generator(args.seed, i, dev) for i in range(args.chains)]
+    # per-chain start jitter in z-space, drawn on the host
+    jitter = torch.randn((args.chains,) + tuple(z0.shape),
+                         generator=torch.Generator().manual_seed(
+                             args.seed + 1), dtype=z0.dtype)
+    z0s = z0[None] + 0.01 * jitter.to(dev)
+
+    print('NUTS: {} chains, {} warmup + {} samples, max depth {}{}...'.format(
+        args.chains, cfg.num_warmup, n_samples, cfg.max_depth,
+        ' (resuming)' if resume else ''))
+    tic = time.time()
+
+    def progress(phase, i, total):
+        if i % 25 == 0 or i == total:
+            print('  {} {}/{} ({:.1f} s)'.format(phase, i, total,
+                                                 time.time() - tic),
+                  flush=True)
+
+    # library-level durability (utils/durable.py): every checkpoint is
+    # mirrored to a durable twin and, when PARA_GIT_COMMIT=1, committed at
+    # most once per 10 min
+    last_commit = [0.0]
+
+    def on_ckpt(phase, i, path):
+        import shutil
+        shutil.copyfile(path, twin)
+        now = time.time()
+        if now - last_commit[0] >= 600:
+            if commit_artifacts([twin], 'NUTS durable checkpoint: {} {} '
+                                '({})'.format(phase, i,
+                                              os.path.basename(db))):
+                last_commit[0] = now
+
+    out = nuts_sample_stepwise(
+        logpdf, z0s, gens, cfg, progress=progress, checkpoint_path=ckpt,
+        checkpoint_every=max(1, min(args.checkpoint_every, 25)),
+        resume=resume, gibbs_n=logpdf_n, steps_per_call=args.steps_per_call,
+        on_checkpoint=on_ckpt)
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+    dt = time.time() - tic
+    samples = out['samples']                 # (chains, n, dim) z-space
+    print('NUTS finished: {:.1f} s ({:.3f} s/sample/chain); accept {:.2f}, '
+          '{} divergences; {:.1f} leapfrogs per draw'.format(
+              dt, dt / max(1, n_samples), float(np.mean(out['accept_rate'])),
+              int(np.sum(out['n_divergent'])),
+              float(np.mean(out['n_leapfrog'])) if n_samples else 0.0))
+    if gibbs:
+        print('  n_periods Gibbs moves: accept {:.2f}'.format(
+            float(out['n_accept_rate'])))
+
+    # constrained-space traces for reporting and diagnostics
+    with torch.no_grad():
+        flat = torch.as_tensor(samples.reshape(-1, samples.shape[-1]))
+        theta = torch.stack([torch.cat(constrain(z)[:2])
+                             for z in flat]).numpy().reshape(
+                                 samples.shape[:2] + (-1,))
+    if gibbs:
+        # slot 13 of the model block is the Gibbs-sampled n_periods, not
+        # the fixed 30 the 1-arg constrain pins there
+        theta[:, :, 13] = out['n_periods']
+    traces = np.concatenate([theta, out['logp'][..., None]], axis=-1)
+    np.savez(db if db.endswith('.npz') else db + '.npz',
+             traces=traces, z_samples=samples, step_size=out['step_size'],
+             inv_mass=out['inv_mass'], sampler='nuts')
+    print('Saved to {}.npz'.format(db.removesuffix('.npz')))
+    if os.path.exists(twin):
+        os.remove(twin)   # superseded by the final committed trace
+    commit_artifacts([db.removesuffix('.npz') + '.npz'],
+                     'Record NUTS trace {}'.format(os.path.basename(db)))
+    _report(traces, setup)
+    return dict(out, seconds=dt)
+
+
 def main(argv=None, device=None):
-    """The AM command line.  ``device`` given here wins over ``--device``."""
+    """The AM and NUTS command line.  ``device`` given here wins over
+    ``--device``."""
     args = parser.parse_args(argv)
 
     if args.analyze is not None:
         return run_analyze(args)
 
-    if args.sampler != 'am':
+    if args.obs_sweeps is not None and args.sampler in ('nuts', 'vi'):
+        # the obs block is inside the (gradient) target for these
+        # samplers, so there is no Metropolis-within-Gibbs sweep to repeat
+        parser.error('--obs-sweeps only applies to the am/pt/smc samplers'
+                     ' (nuts/vi update the observation block jointly)')
+    if args.sampler in _NOT_PORTED:
         parser.error('--sampler {} is not ported to torch yet (ROADMAP Queue '
-                     '1 item {}); only --sampler am runs here'.format(
+                     '1 item {}); --sampler am and nuts run here'.format(
                          args.sampler, _NOT_PORTED[args.sampler]))
+    if args.sampler == 'nuts' and args.mass != 'adapt':
+        parser.error('--mass {} needs the Laplace approximation, which is not '
+                     'ported to torch yet (ROADMAP Queue 1 item 13b)'.format(
+                         args.mass))
     if args.shard_forward:
         parser.error('--shard-forward is not ported (ROADMAP Queue 1 item '
                      '16)')
@@ -406,6 +580,8 @@ def main(argv=None, device=None):
     print('device {}, accumulate {}'.format(
         dev, 'CUDA day kernel' if setup.setup.kcfg.pallas
         else 'plain torch'))
+    if args.sampler == 'nuts':
+        return run_nuts(args, setup)
     from ..parallel.chains import init_chains
 
     def sync():

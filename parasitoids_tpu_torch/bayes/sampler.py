@@ -179,12 +179,17 @@ def _proposal_chol(state, adapt_start):
     """Cholesky factor of the proposal covariance: seeded diag(scales²),
     switching to the scaled empirical covariance once enough history exists
     (Haario AM).  The switch is a ``torch.where`` on the device's count and
-    the factorization does not report back, so nothing waits on the card."""
+    the factorization does not report back, so nothing waits on the card.
+    A covariance that is not positive definite gives NaN, as JAX's
+    ``cholesky`` does: the proposal's prior is then not finite and the step
+    is rejected, where ``cholesky_ex``'s partly factored matrix would
+    propose from a covariance nobody chose."""
     seed, jitter = _seed_cov(state.m.dtype, state.m.device)
     emp = state.m2 / torch.clamp(state.count - 1.0, min=1.0)
     adapted = _OPT_SCALE * torch.exp(state.log_scale) * emp + jitter
     cov = torch.where(state.count >= adapt_start, adapted, seed)
-    return torch.linalg.cholesky_ex(cov, check_errors=False).L
+    L, info = torch.linalg.cholesky_ex(cov, check_errors=False)
+    return torch.where(info == 0, L, torch.full_like(L, math.nan))
 
 
 def _obs_move(setup: BayesSetup, j, z, o_vec, prior_o, ll_cur, proj, beta,

@@ -77,6 +77,38 @@ class _Projection(NamedTuple):
     weights: torch.Tensor      # (ndays, n_obs_cols)
 
 
+class _Gather(NamedTuple):
+    """A gather whose gradient is the same bits on every run.
+    ``index_select``'s backward adds into its source with ``index_add_``,
+    atomic on the card, so where an index repeats the repeated cotangents
+    add in a changing order.  Here the source is read once at each distinct
+    index and the repeats are copied by a product with a one-hot matrix,
+    whose transpose sums them in a fixed order; the forward's values are
+    the same bits as ``index_select``'s."""
+    index: torch.Tensor             # the distinct indices, sorted
+    expand: torch.Tensor | None     # (n_distinct, n) one-hot, or None
+
+
+def _dedup_gather(index, dtype):
+    idx = index.cpu().numpy()
+    uniq, inv = np.unique(idx, return_inverse=True)
+    if len(uniq) == len(idx):
+        return _Gather(index, None)
+    onehot = np.zeros((len(uniq), len(idx)), np.float32)
+    onehot[inv, np.arange(len(idx))] = 1.0
+    return _Gather(torch.as_tensor(uniq, device=index.device),
+                   torch.as_tensor(onehot, device=index.device).to(dtype))
+
+
+def _gather(x, dim, g: _Gather):
+    """``x.index_select(dim, idx)`` (dim 0 or 1 of a 2-d ``x``) for the
+    :class:`_Gather` of ``idx``."""
+    y = x.index_select(dim, g.index)
+    if g.expand is None:
+        return y
+    return y @ g.expand if dim == 1 else g.expand.T @ y
+
+
 class ObservationOps:
     """Precomputed observation projections for one LocInfo + domain, with
     the index and weight tensors on ``device`` (weights in ``dtype``)."""
@@ -191,15 +223,22 @@ class ObservationOps:
             self.card_gathers.append((min(day, ndays - 1),
                                       index(rows * D + cols)))
 
+        # the likelihood's gathers, with gradients reproducible on the card
+        self._rel_gathers = [_dedup_gather(p.point_rows, dtype)
+                             for p in self.release_proj]
+        self._sent_gather = _dedup_gather(self.sent_cells, dtype)
+        self._grid_gather = _dedup_gather(self.grid_idx, dtype)
+        self._day_gather = _dedup_gather(self.grid_days, dtype)
+
     # ------------------------------------------------------------------
     def project_emergence(self, fields):
         """fields (ndays, D, D) → (release_emerg list, sentinel_emerg list):
         rows = grid points / fields, cols = observation dates
         (Bayes_funcs.py:145-152)."""
         flat = fields.reshape(fields.shape[0], -1)       # (ndays, D*D)
-        release = [torch.matmul(flat.index_select(1, p.point_rows).T,
-                                p.weights) for p in self.release_proj]
-        cell_vals = flat.index_select(1, self.sent_cells)  # (ndays, cells)
+        release = [torch.matmul(_gather(flat, 1, g).T, p.weights)
+                   for p, g in zip(self.release_proj, self._rel_gathers)]
+        cell_vals = _gather(flat, 1, self._sent_gather)  # (ndays, cells)
         # one reduction per field, not an index_add: on the card that adds
         # atomically, in an order that changes from run to run, and the
         # sampler's exact resume needs the same bits from the same state
@@ -212,8 +251,8 @@ class ObservationOps:
         """fields → (n_grid_points, n_obs_dates) expected counts
         (ref Bayes_funcs.py:156-179)."""
         flat = fields.reshape(fields.shape[0], -1)
-        pts = flat.index_select(1, self.grid_idx)        # (ndays, n_grid)
-        return pts.index_select(0, self.grid_days).T
+        pts = _gather(flat, 1, self._grid_gather)        # (ndays, n_grid)
+        return _gather(pts, 0, self._day_gather).T
 
     def project_card(self, fields):
         """fields → list of (4, obslen) cardinal transect densities

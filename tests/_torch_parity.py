@@ -52,6 +52,19 @@ MAP_SMALL = ('ndays=3', 'domain_info=(10000.0,50)', 'interp_num=2',
              'kernel_rad=6', 'kernel_rad_local=3')
 
 
+# a point near the mode of the small configuration without the pre-spread
+# day, its roundoff-rate observations held out (exact_support_mask at
+# map_fit's start): JAX's lbfgs_polish, 200 steps from map_fit's 5
+NEAR_MODE = [-0.3205607235431671, 1.3643162250518799, 0.8801037073135376,
+             0.06281320750713348, -0.16734525561332703, 0.08854111284017563,
+             5.122961044311523, 4.541191577911377, -0.0012772323098033667,
+             2.499295949935913, 1.9505771398544312, 0.0, 5.818099498748779,
+             0.0, 1.0575529336929321, -3.795593500137329, -7.567309379577637,
+             -12.05868148803711, -2.714250087738037, -4.924688339233398,
+             -3.165127754211426, -3.1651222705841064, -4.924964904785156,
+             -27.71199607849121, -3.1654577255249023]
+
+
 def exact_support_mask(setup64, z, use_sprd):
     """Observations to score in a parity test at the point ``z``: a zero
     count, or an expected count that is positive in f64 (with and without

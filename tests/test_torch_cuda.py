@@ -406,3 +406,76 @@ def test_am_resume_is_exact_and_the_sweep_never_waits(cuda_device, tmp_path):
                                again.proj, 1.0, sampler.MCMCConfig(1))
     finally:
         torch.cuda.set_sync_debug_mode('default')
+
+
+def _nuts_setups(device):
+    """The small configuration through the kernels and on the plain path,
+    the observations whose f64 rate is 0 at map_fit's start held out."""
+    from parasitoids_tpu_torch.bayes import map_fit
+    from parasitoids_tpu_torch.bayes.model import BayesSetup
+    z0 = map_fit.initial_z(BayesSetup(map_fit.map_cli_params(MAP_SMALL),
+                                      device='cpu'), False)
+    keep = exact_support_mask(
+        BayesSetup(map_fit.map_cli_params(MAP_SMALL), device='cpu',
+                   dtype=torch.float64), z0, False)
+    out = []
+    for use_pallas in (None, False):
+        p = map_fit.map_cli_params(MAP_SMALL)
+        p.use_pallas = use_pallas
+        out.append(BayesSetup(p, device=device).with_held_out(keep))
+    return out
+
+
+def test_nuts_gradient_is_bitwise_reproducible(cuda_device):
+    # exact resume of a NUTS chain needs the same value and gradient bits
+    # from the same z: no atomic add on the forward or the backward.  At
+    # this configuration an observation cell repeats up to 16 times in one
+    # gather, whose index_select backward added them atomically: 1 of 9
+    # gradients differed before the gathers were made deterministic
+    from parasitoids_tpu_torch.bayes import nuts
+    setup = _am_setup(cuda_device)
+    logpdf, _, z0 = nuts.make_transformed_logpdf(setup)
+    lpg = nuts.value_and_grad(logpdf)
+    before = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+    runs = [lpg(z0) for _ in range(12)]
+    torch.cuda.synchronize()
+    assert (day_kernel.LAUNCHES - before[0],
+            day_kernel.LAUNCHES_BWD - before[1]) == (36, 36)
+    for lp, g in runs[1:]:
+        assert torch.equal(lp, runs[0][0]) and torch.equal(g, runs[0][1])
+    assert bool(torch.isfinite(runs[0][1]).all())
+
+
+def test_nuts_transition_kernels_vs_plain(cuda_device):
+    # one transition near the mode through K1/K3 and on the plain path
+    # with the same draws: the same leapfrogs and choices (compared where
+    # every choice clears its threshold by 1e-4), proposals within 1e-5
+    from tests._torch_parity import NEAR_MODE
+    from parasitoids_tpu_torch.bayes import nuts
+    kernels, plain = _nuts_setups(cuda_device)
+    z = torch.tensor(NEAR_MODE, device=cuda_device)
+    inv_mass = torch.full_like(z, 0.01)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    compared = 0
+    for seed in range(3):
+        draws = nuts.draw_transition(gen, z.shape[0], 3, torch.float32)
+        outs, decs = [], []
+        for setup in (kernels, plain):
+            lpg = nuts.value_and_grad(nuts.make_transformed_logpdf(setup)[0])
+            lp, g = lpg(z)
+            decisions = []
+            outs.append(nuts._nuts_step(lpg, inv_mass, torch.full_like(
+                lp, 0.2), 3, z, lp, g, draws, decisions=decisions))
+            decs.append(decisions)
+        margins = [abs(float(u) - float(t)) for u, t in decs[1]
+                   if np.isfinite(float(t))]
+        if margins and min(margins) <= 1e-4:
+            continue
+        compared += 1
+        (zk, lpk, _, ak, nk, dk), (zp, lpp, _, ap, n_p, dp) = outs
+        assert nk == n_p and bool(dk) == bool(dp)
+        np.testing.assert_allclose(zk.cpu().numpy(), zp.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        assert abs(float(lpk) - float(lpp)) <= 1e-5 * abs(float(lpp))
+        assert abs(float(ak) - float(ap)) <= 1e-4
+    assert compared >= 2

@@ -7,12 +7,17 @@ Kl 3).  The port's forward setup is built from the JAX setup's arrays
 Observations with a positive count over an expected count that is 0 in f64
 are held out of both likelihoods (see ``exact_support_mask``)."""
 
+import math
+from functools import partial
+
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
+from jax import random
 
-from tests._torch_parity import MAP_SMALL, exact_support_mask, torch
+from tests._torch_parity import (MAP_SMALL, NEAR_MODE, exact_support_mask,
+                                 torch)
 
 from parasitoids_tpu.bayes import map_fit as jm
 from parasitoids_tpu.bayes import priors as jp
@@ -234,8 +239,13 @@ def test_observation_structures(setups):
         ts.with_forward_mesh(None)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ts.with_batched_bvn()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tm._make_objective(ts, True, free_n=True)
+    # the NUTS and SBC forms of the objective: n_periods and the dataset
+    # as arguments, never both
+    with pytest.raises(ValueError, match='exclusive'):
+        tm._make_objective(ts, True, free_n=True, traced_obs=True)
+    _, constrain_n, _ = tm._make_objective(ts, True, free_n=True)
+    z0 = tm.initial_z(ts, True)
+    assert float(constrain_n(z0, 29.0)[0][_N_PERIODS]) == 29.0
 
 
 def test_cli_writes_the_report(tmp_path, capsys):
@@ -252,11 +262,264 @@ def test_cli_writes_the_report(tmp_path, capsys):
         assert '{} = '.format(name) in report
 
 
-@pytest.mark.parametrize('flags', [['--norm'], ['--MAP', '--polish', '2'],
-                                   ['--MAP', '--starts', '2'],
+@pytest.mark.parametrize('flags', [['--norm'], ['--norm', '--polish', '2'],
+                                   ['--norm', '--starts', '2'],
                                    ['--MAP', '--shard-forward']])
 def test_cli_refuses_what_is_not_ported(flags, capsys):
+    # the Laplace approximation waits for item 13b, the sharded forward
+    # for item 16; --polish, --starts and --seed run (below)
     with pytest.raises(SystemExit) as exc:
         tm.main(flags + list(MAP_SMALL), device='cpu')
     assert exc.value.code == 2
-    assert 'ROADMAP' in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert 'ROADMAP' in err
+    assert ('item 16' if '--shard-forward' in flags else 'item 13b') in err
+
+
+# ---------------------------------------------------------------------------
+# the first-order rest of map_fit and the NUTS target (bayes/nuts.py)
+# ---------------------------------------------------------------------------
+
+def _assert_value_and_grad(got, want):
+    """test_log_posterior_value_and_gradient_match_jax's tolerances."""
+    (got_v, got_g), (want_v, want_g) = got, want
+    assert np.isfinite(got_v) and np.all(np.isfinite(got_g))
+    np.testing.assert_allclose(got_v, want_v, rtol=1e-5)
+    assert np.linalg.norm(got_g - want_g) <= 1e-4 * np.linalg.norm(want_g)
+    np.testing.assert_allclose(got_g, want_g, rtol=1e-3,
+                               atol=1e-5 * np.abs(want_g).max())
+
+
+def _torch_vg(f, z, *args):
+    z = torch.as_tensor(np.asarray(z)).clone().requires_grad_()
+    v = f(z, *args)
+    v.backward()
+    return float(v.detach()), z.grad.double().numpy()
+
+
+def _jax_vg(f, z, *args):
+    v, g = jax.value_and_grad(f)(jnp.asarray(np.asarray(z)), *args)
+    return float(v), np.asarray(g, np.float64)
+
+
+def _scaled_counts(setup):
+    """The setup's observations with every positive count doubled (the
+    zero counts, and so the held-out set, unchanged)."""
+    return {'release': [2.0 * np.asarray(a) for a in setup.obs_release],
+            'sentinel': [2.0 * np.asarray(a) for a in setup.obs_sentinel],
+            'grid': 2.0 * np.asarray(setup.obs_grid)}
+
+
+def test_free_n_and_traced_obs_objectives_match_jax(setups):
+    # neg_logpost(z, n) and neg_logpost(z, obs) and their gradients
+    _, _, held = setups
+    z0, _, js, ts = held[False]
+    jneg, _, _ = jm._make_objective(js, False, free_n=True)
+    tneg, _, _ = tm._make_objective(ts, False, free_n=True)
+    for n in (29.0, 30.0, 31.0):
+        _assert_value_and_grad(_torch_vg(tneg, z0, n),
+                               _jax_vg(jneg, z0, jnp.float32(n)))
+    fixed, _, _ = tm._make_objective(ts, False)
+    np.testing.assert_allclose(_torch_vg(tneg, z0, 30.0)[0],
+                               _torch_vg(fixed, z0)[0], rtol=1e-7)
+    y = _scaled_counts(ts)
+    jneg, _, _ = jm._make_objective(js, False, traced_obs=True)
+    tneg, _, _ = tm._make_objective(ts, False, traced_obs=True)
+    _assert_value_and_grad(_torch_vg(tneg, z0, ts.obs_pytree(y)),
+                           _jax_vg(jneg, z0, js.obs_pytree(y)))
+
+
+@pytest.mark.parametrize('form', ['fixed_n', 'free_n', 'traced_obs'])
+def test_transformed_logpdf_matches_jax(setups, form):
+    # the NUTS target: the unconstrained log posterior with the
+    # bijections' log-Jacobian, at z0 and at a seeded nearby point; with
+    # n_periods or the dataset as an argument
+    from parasitoids_tpu.bayes import nuts as jn
+    from parasitoids_tpu_torch.bayes import nuts as tn
+    _, _, held = setups
+    z0, _, js, ts = held[False]
+    kw = {} if form == 'fixed_n' else {form: True}
+    jlp, _, jz0 = jn.make_transformed_logpdf(js, **kw)
+    tlp, tconstrain, tz0 = tn.make_transformed_logpdf(ts, **kw)
+    np.testing.assert_allclose(tz0.numpy(), np.asarray(jz0), rtol=1e-6,
+                               atol=1e-7)
+    if form == 'free_n':
+        targs, jargs = (29.0,), (jnp.float32(29.0),)
+    elif form == 'traced_obs':
+        y = _scaled_counts(ts)
+        targs, jargs = (ts.obs_pytree(y),), (js.obs_pytree(y),)
+    else:
+        targs = jargs = ()
+    z1 = z0.numpy() + 0.05 * np.random.default_rng(0).standard_normal(
+        z0.shape[0]).astype(np.float32)
+    for z in (z0.numpy(), z1):
+        _assert_value_and_grad(_torch_vg(tlp, z, *targs),
+                               _jax_vg(jlp, z, *jargs))
+        np.testing.assert_allclose(
+            float(tlp.log_jacobian(torch.from_numpy(z))),
+            float(jlp.log_jacobian(jnp.asarray(z))), rtol=1e-5)
+    if form == 'free_n':
+        assert float(tconstrain(z0, 29.0)[0][_N_PERIODS]) == 29.0
+
+
+def test_lbfgs_polish_matches_jax(setups):
+    # optax's L-BFGS and torch's take different paths; from the same start
+    # near the mode their optima agree to 1e-3 of the log posterior, and
+    # from map_fit's point the polish climbs most of the way
+    _, _, held = setups
+    _, _, js, ts = held[False]
+    start = np.asarray(NEAR_MODE, np.float32)
+    want = jm.lbfgs_polish(js, start, n_steps=10, use_sprd=False)
+    got = tm.lbfgs_polish(ts, start, n_steps=10, use_sprd=False)
+    assert got['logp'] >= _torch_vg(tm._make_objective(ts, False)[0],
+                                    start)[0] * -1.0 - 1e-3
+    np.testing.assert_allclose(got['logp'], want['logp'], rtol=1e-3)
+    assert set(got) == set(want)
+    adam = tm.map_fit(ts, n_steps=5, use_sprd=False)
+    polished = tm.lbfgs_polish(ts, adam['z'], n_steps=30, use_sprd=False)
+    assert polished['losses'].shape == (30,)
+    assert polished['logp'] > 0.99 * adam['logp']     # -29253 -> about -66
+    assert np.all(np.diff(polished['losses']) <= 1e-3)
+
+
+def test_multistart_runs_the_reference_start_first(setups):
+    # start 0 is map_fit's own run, bit for bit (held to JAX above); the
+    # other starts are prior draws; the best start's fit is returned
+    _, _, held = setups
+    _, _, _, ts = held[True]
+    fit = tm.map_fit(ts, n_steps=3, use_sprd=True)
+    multi = tm.map_fit_multistart(ts, n_starts=3, seed=2, n_steps=3,
+                                  use_sprd=True)
+    assert multi['start_logps'].shape == (3,)
+    assert multi['start_logps'][0] == -fit['losses'][-1]
+    assert multi['best_start'] == int(np.argmax(multi['start_logps']))
+    assert set(multi) == set(fit) | {'start_logps', 'best_start'}
+    again = tm.map_fit_multistart(ts, n_starts=3, seed=2, n_steps=3,
+                                  use_sprd=True)
+    np.testing.assert_array_equal(again['start_logps'], multi['start_logps'])
+    other = tm.map_fit_multistart(ts, n_starts=3, seed=3, n_steps=3,
+                                  use_sprd=True)
+    assert other['start_logps'][0] == multi['start_logps'][0]
+    assert not np.array_equal(other['start_logps'][1:],
+                              multi['start_logps'][1:])
+    with pytest.raises(NotImplementedError, match='item 16'):
+        tm.map_fit_multistart(ts, n_starts=2, mesh=object())
+
+
+def test_cli_polish_starts_and_seed(tmp_path, capsys):
+    out = str(tmp_path / 'map_fit.txt')
+    fit = tm.main(['--MAP', '--steps', '2', '--starts', '2', '--seed', '1',
+                   '--polish', '2', '-o', out, *MAP_SMALL], device='cpu')
+    printed = capsys.readouterr().out
+    assert 'multistart: best start' in printed
+    assert 'L-BFGS polish: logp' in printed
+    assert np.isfinite(fit['logp']) and fit['losses'].shape[0] <= 2
+    with open(out) as f:
+        assert f.read().startswith('MAP fit: logp = ')
+
+
+def test_nuts_transition_replays_jax(setups):
+    # one transition of the parasitoid target near its mode with JAX's
+    # draws: the same leapfrogs, choices and proposal
+    from parasitoids_tpu.bayes import nuts as jn
+    from parasitoids_tpu_torch.bayes import nuts as tn
+    from tests.test_torch_nuts import CLEAR, _jax_draws
+    _, _, held = setups
+    _, _, js, ts = held[False]
+    jlp, _, _ = jn.make_transformed_logpdf(js)
+    tlp, _, _ = tn.make_transformed_logpdf(ts)
+    z = jnp.asarray(np.asarray(NEAR_MODE, np.float32))
+    inv_mass = np.full(z.shape[0], 0.01, np.float32)
+    step, depth = np.float32(0.2), 3
+    jlpg = jax.value_and_grad(jlp)
+    jstep = jax.jit(partial(jn._nuts_step, jlpg, jnp.asarray(inv_mass), step,
+                            depth))
+    tlpg = tn.value_and_grad(tlp)
+    lp, g = jlpg(z)
+    tz = torch.from_numpy(np.array(z))
+    tlp0, tg = tlpg(tz)
+    compared, leaves = 0, set()
+    for seed in range(3):
+        want = jstep(z, lp, g, random.PRNGKey(seed))
+        decisions = []
+        got = tn._nuts_step(tlpg, torch.from_numpy(inv_mass),
+                            torch.tensor(step), depth, tz, tlp0, tg,
+                            _jax_draws(random.PRNGKey(seed), z.shape[0],
+                                       depth), decisions=decisions)
+        if min([abs(float(u) - float(t)) for u, t in decisions
+                if math.isfinite(float(t))] or [1.0]) <= CLEAR:
+            continue
+        compared += 1
+        assert got[4] == int(want[4]) and bool(got[5]) == bool(want[5])
+        leaves.add(got[4])
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-5)
+        np.testing.assert_allclose(float(got[3]), float(want[3]), rtol=1e-4,
+                                   atol=1e-5)
+    assert compared >= 2 and max(leaves) > 1, leaves
+    assert not torch.equal(got[0], tz)          # the chain moved
+
+
+_HOST_READS = ('item', 'tolist', 'numpy', 'cpu', '__bool__', '__float__',
+               '__int__', '__index__')
+
+
+def test_nuts_transition_reads_the_device_once_per_leapfrog(setups,
+                                                            monkeypatch):
+    # on the card every conversion of a tensor to a Python value waits for
+    # the device: a transition reads it once per leapfrog, in the
+    # evaluation's own transfer (BayesSetup._branches, which carries the
+    # tree's decision as its gate), plus once where a gate stops it; the
+    # step-size search likewise
+    from parasitoids_tpu_torch.bayes import nuts as tn
+    _, _, held = setups
+    _, _, _, ts = held[False]
+    tlp, _, _ = tn.make_transformed_logpdf(ts)
+    lpg = tn.value_and_grad(tlp)
+    z = torch.tensor(NEAR_MODE)
+    lp, g = lpg(z)                     # constants made once, off the count
+    gen = torch.Generator().manual_seed(0)
+    draws = [tn.draw_transition(gen, z.shape[0], 4, torch.float32)
+             for _ in range(3)]
+    xi = torch.randn(z.shape[0], generator=gen)
+    inv_mass = torch.full((z.shape[0],), 0.01)
+    calls = []
+    real_branches = type(ts)._branches
+    real_tolist = torch.Tensor.tolist
+
+    def no_read(*a, **k):
+        raise AssertionError('a tensor was read on the host')
+
+    def no_copy(*a, **k):
+        raise AssertionError('host data was copied to the device')
+
+    def counting_branches(self, m, prior=None, gate=None):
+        calls.append(gate is not None)
+        monkeypatch.setattr(torch.Tensor, 'tolist', real_tolist)
+        try:
+            return real_branches(self, m, prior, gate)
+        finally:
+            monkeypatch.setattr(torch.Tensor, 'tolist', no_read)
+
+    monkeypatch.setattr(type(ts), '_branches', counting_branches)
+    for name in _HOST_READS:
+        monkeypatch.setattr(torch.Tensor, name, no_read)
+    for name in ('as_tensor', 'tensor', 'from_numpy'):
+        monkeypatch.setattr(torch, name, no_copy)
+    try:
+        runs = []
+        for d, step in zip(draws, (0.05, 0.2, 0.6)):
+            before = len(calls)
+            out = tn._nuts_step(lpg, inv_mass, torch.full((), step), 4, z,
+                                lp, g, d)
+            runs.append((out[4], len(calls) - before))
+        before = len(calls)
+        tn._find_reasonable_eps(lpg, z, lp, g, inv_mass, xi, 0.1)
+        eps_reads = len(calls) - before
+    finally:
+        monkeypatch.undo()
+    for n_leaf, reads in runs:
+        assert n_leaf <= reads <= n_leaf + 1 <= 2 * n_leaf, runs
+    assert any(n < 15 for n, _ in runs), runs    # a tree stopped on a gate
+    assert 2 <= eps_reads <= 31

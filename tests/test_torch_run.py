@@ -1,9 +1,11 @@
-"""The port's AM command line (``parasitoids_tpu_torch.bayes.run``) on the CPU at
-the small configuration: ``--new`` / ``--resume`` write the meta keys and
-write ``obs_sweeps`` back (test_obs_sweeps_meta.py:19-47), checkpoints and
-a resume change no sample, the result is read by the JAX package's
-consumers, the unported samplers exit naming their ROADMAP item, and the
-``--analyze`` menu answers from stdin."""
+"""The port's AM and NUTS command line (``parasitoids_tpu_torch.bayes.run``)
+on the CPU at the small configuration: ``--new`` / ``--resume`` write the
+meta keys and write ``obs_sweeps`` back (test_obs_sweeps_meta.py:19-47),
+checkpoints and a resume change no sample, the result is read by the JAX
+package's consumers, the unported samplers exit naming their ROADMAP item,
+and the ``--analyze`` menu answers from stdin.  A NUTS run interrupted and
+resumed from its transition checkpoint writes the traces of the run that
+never stopped."""
 
 import io
 import json
@@ -126,7 +128,8 @@ def test_burn_in_checkpoint_holds_no_samples_yet(tmp_path, capsys):
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--sampler', 'nuts'], 'item 14'), (['--sampler', 'pt'], 'item 18'),
+    (['--sampler', 'nuts', '--mass', 'laplace'], 'item 13b'),
+    (['--sampler', 'pt'], 'item 18'),
     (['--sampler', 'smc'], 'item 18'), (['--sampler', 'vi'], 'item 18'),
     (['--shard-forward'], 'item 16')])
 def test_cli_refuses_what_is_not_ported(flags, item, capsys):
@@ -194,3 +197,114 @@ def test_analyze_plots_and_evidence_entry(store, tmp_path, monkeypatch,
     made = os.listdir(tmp_path / 'diagnostics')
     assert {'trace_xi.png', 'trace_mu_r.png', 'posterior_f_g.png',
             'posterior_sprd.png', 'posterior_sent_obs.png'} <= set(made)
+
+
+NUTS = ['--sampler', 'nuts', '--max-depth', '3', '--init-map-steps', '3',
+        '--seed', '4']
+
+
+def _interrupt_nuts(monkeypatch, at):
+    """Make the next NUTS run stop at ``at`` = (phase, transition)."""
+    from parasitoids_tpu_torch.bayes import nuts as tn
+
+    class Stop(Exception):
+        pass
+
+    real = tn.nuts_sample_stepwise
+
+    def stopping(*a, progress=None, **k):
+        def wrapped(phase, i, total):
+            if (phase, i) == at:
+                raise Stop
+            progress(phase, i, total)
+        return real(*a, progress=wrapped, **k)
+
+    monkeypatch.setattr(tn, 'nuts_sample_stepwise', stopping)
+    return Stop
+
+
+@pytest.mark.parametrize('at', [('warmup', 6), ('sample', 2)])
+def test_nuts_cli_resume_writes_the_uninterrupted_traces(tmp_path, at,
+                                                         monkeypatch,
+                                                         capsys):
+    whole = str(tmp_path / 'whole')
+    trun.main(CPU + NUTS + ['--new', '4', '10', whole, '--chains', '2',
+                            '--checkpoint-every', '2'] + TINY)
+    out = capsys.readouterr().out
+    assert out.splitlines()[0] == 'device cpu, accumulate plain torch'
+    assert 'NUTS init: MAP logp' in out and 'NUTS finished' in out
+    db = str(tmp_path / 'cut')
+    stop = _interrupt_nuts(monkeypatch, at)
+    with pytest.raises(stop):
+        trun.main(CPU + NUTS + ['--new', '4', '10', db, '--chains', '2',
+                                '--checkpoint-every', '2'] + TINY)
+    monkeypatch.undo()
+    assert os.path.exists(db + '.ckpt.npz')
+    # the transient checkpoint is gone: the durable twin takes its place
+    os.remove(db + '.ckpt.npz')
+    trun.main(CPU + ['--sampler', 'nuts', '--resume', db, '0'] + TINY)
+    assert 'restored from durable twin' in capsys.readouterr().out
+    with np.load(whole + '.npz') as a, np.load(db + '.npz') as b:
+        assert set(a.files) == {'traces', 'z_samples', 'step_size',
+                                'inv_mass', 'sampler'}
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a['traces'].shape == (2, 4, 26) and str(a['sampler']) == 'nuts'
+        assert np.isfinite(a['traces']).all()
+        assert np.all(a['traces'][..., 13] == 30.0)
+    for suffix in ('.ckpt.npz', '.ckpt_durable.npz'):
+        assert not os.path.exists(db + suffix)
+
+
+def test_nuts_cli_gibbs_dense_and_analyze(tmp_path, monkeypatch, capsys):
+    db = str(tmp_path / 'gibbs')
+    trun.main(CPU + NUTS + ['--new', '3', '10', db, '--gibbs-n',
+                            '--dense-mass', '--n-step', '2'] + TINY)
+    out = capsys.readouterr().out
+    assert 'n_periods Gibbs moves: accept' in out
+    with np.load(db + '.npz') as npz:
+        assert npz['traces'].shape == (1, 3, 26)
+        assert npz['inv_mass'].shape == (1, 25, 25)
+        ns = npz['traces'][..., 13]
+        assert np.all(ns >= 1) and np.all(ns == np.round(ns))
+        z = npz['z_samples']
+    # the JAX package's consumers and the port's --analyze read it
+    assert jdiag.gelman_rubin(np.concatenate([z, z])[:, :, :15]).shape == (
+        15,)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr('sys.stdin', io.StringIO('s\nq\n'))
+    trun.main(['--analyze', db])
+    out = capsys.readouterr().out
+    assert '1 chain(s) x 3 samples x 26 columns' in out
+    assert 'posterior means (model block):' in out
+
+
+@pytest.mark.parametrize('flags,msg', [
+    (['--sampler', 'nuts', '--obs-sweeps', '2'], 'only applies to the am'),
+    (['--sampler', 'nuts', '--mass', 'ridge'], 'item 13b')])
+def test_nuts_cli_refusals(flags, msg, capsys):
+    with pytest.raises(SystemExit) as exc:
+        trun.main(CPU + ['--new', '2', '1', 'unused'] + flags + TINY)
+    assert exc.value.code == 2 and msg in capsys.readouterr().err
+    with pytest.raises(SystemExit, match='no NUTS checkpoint'):
+        trun.main(CPU + ['--sampler', 'nuts', '--resume', 'nowhere', '0'] +
+                  TINY)
+
+
+def test_nuts_cli_starts_from_an_am_store(store, tmp_path, capsys):
+    # --init <trace>: chain 0's final AM state, with the pre-spread factor
+    # at 0.3, is the start; an obs block of another length is refused
+    am_db, _ = store
+    db = str(tmp_path / 'from_am')
+    trun.main(CPU + ['--sampler', 'nuts', '--max-depth', '2', '--init',
+                     am_db, '--new', '1', '10', db] + TINY)
+    assert 'NUTS init: from trace' in capsys.readouterr().out
+    with np.load(db + '.npz') as npz:
+        assert npz['traces'].shape == (1, 1, 26)
+    with np.load(am_db + '.npz') as npz:
+        payload = {k: npz[k] for k in npz.files}
+    bad = str(tmp_path / 'bad.npz')
+    np.savez(bad, **dict(payload, state_o=payload['state_o'][:, :5]))
+    with pytest.raises(SystemExit, match='obs params'):
+        trun.main(CPU + ['--sampler', 'nuts', '--init', bad, '--new', '1',
+                         '10', db] + TINY)

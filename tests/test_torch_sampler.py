@@ -171,6 +171,36 @@ def test_proposal_chol_matches_jax(count, log_scale):
         np.testing.assert_allclose(np.diag(got), tp.STEP_SCALES, rtol=1e-6)
 
 
+def test_proposal_is_nan_when_the_adapted_covariance_is_not_pd(plain):
+    # past adapt_start, a scaled empirical covariance that is not positive
+    # definite: JAX's cholesky gives NaN, so the proposal is NaN, its prior
+    # is not finite and the step is rejected with the state unchanged.  A
+    # partly factored matrix from cholesky_ex would propose finite moves
+    # from a covariance nobody chose.
+    f32 = np.float32
+    bad = np.eye(15, dtype=f32)
+    bad[0, 1] = bad[1, 0] = 2.0                      # eigenvalue -1
+    arrays = dict(m=tp.initial_model_params(), o=np.zeros(10), loglik=0.0,
+                  prior_m=0.0, prior_o=0.0, count=600.0, mean=np.zeros(15),
+                  m2=bad * 599.0, accepts_m=0.0, accepts_o=0.0,
+                  log_scale=0.0)
+    jstate = js.ChainState(proj=(), key=None, **{
+        k: jnp.asarray(np.asarray(v, f32)) for k, v in arrays.items()})
+    tstate = ts.ChainState(proj=(), key=None, **{
+        k: torch.from_numpy(np.asarray(v, f32)) for k, v in arrays.items()})
+    assert np.isnan(np.asarray(js._proposal_chol(jstate, 500))).any()
+    assert torch.isnan(ts._proposal_chol(tstate, 500)).all()
+    # the whole step: no forward, the block rejected, nothing moved
+    state = ts.init_chain_state(plain, ts.chain_generator(0, 0, 'cpu'))
+    state = state._replace(count=torch.tensor(600.0),
+                           m2=torch.from_numpy(bad * 599.0))
+    before = ts.FORWARDS
+    new, sample = ts._mcmc_step(plain, state, ts.MCMCConfig(1))
+    assert ts.FORWARDS == before
+    assert float(new.accepts_m) == 0.0 and torch.equal(new.m, state.m)
+    assert torch.isfinite(sample).all()
+
+
 def test_init_chain_state_matches_jax(pair):
     got = ts.init_chain_state(pair.ts, torch.Generator().manual_seed(0),
                               obs_mask=pair.tmask)
