@@ -20,14 +20,21 @@ reads of a step counted, and seconds per AM step.  Then the NUTS command
 line at the Bayes default (two chains from a short MAP fit), with both
 kernels' launches held to 18 per value+gradient, its target held against
 the plain path, an interrupted chain resumed bit for bit, the host reads
-of a transition counted, and seconds per leapfrog and per transition.  Any
-failed phase exits non-zero.  The last line is a JSON object with ``"ok": true`` and the
-device; the line before it lists the kernels with their launches, errors,
-times (the forward's three passes and the backward's two launches also
-timed alone, with CUDA events around the kernels) and bounds, the least
-time the card could take for the same work from this run's inputs.  Needs
-one CUDA device; imports nothing of JAX or of the JAX package, and checks
-that.
+of a transition counted, and seconds per leapfrog and per transition.
+Then the curvature and analysis paths: the MAP CLI with ``--norm`` at
+401² (no kernel launch while the f64 Hessian runs, its symmetry, three
+rows against central differences of the f64 gradient), the NUTS CLI with
+``--mass ridge`` at 801² (the whitening sidecar, a run resumed through it
+bit for bit), and ``bayes.summary`` over the AM store (18 forward
+launches per ensemble member, every section of the JAX report).  Any
+failed phase exits non-zero.  ``--only 11,12`` runs some phases alone,
+without the result line (a development run).  The last line is a JSON
+object with ``"ok": true`` and the device; the line before it lists the
+kernels with their launches, errors, times (the forward's three passes and
+the backward's two launches also timed alone, with CUDA events around the
+kernels) and bounds, the least time the card could take for the same work
+from this run's inputs.  Needs one CUDA device; imports nothing of JAX or
+of the JAX package, and checks that.
 """
 
 import json
@@ -93,6 +100,19 @@ AM_LOGLIK_RTOL = 1e-5
 # 7.0e-7, 6.8e-5 to 7.7e-5 and 7.5e-5 to 8.8e-5 from f64, changing from run
 # to run with its atomic adds.  Each limit about ten times its reading.
 NUTS_VALUE_RTOL, NUTS_GRAD_L2_LIMIT, NUTS_GRAD_COMP_LIMIT = 1e-5, 1e-3, 1e-3
+# the f64 Laplace Hessian at 401²: its asymmetry (two reverse-mode paths
+# to each entry, f64 atomics in the plain accumulate) and three rows
+# against central differences of the f64 gradient, each relative to the
+# largest entry (of the matrix, of the row).  The gradient is only
+# piecewise smooth: finish_day's 1e-8 sparsity threshold turns a cell on
+# or off as the parameters move, and a difference whose two points
+# straddle such a switch reads its jump over 2h.  Readings on an H100:
+# asymmetry 2.3e-16 to 4.8e-16; the ρ row 1.1e-9 at h = 1e-5 but 7.8e-4
+# at h = 1e-4, the σx row 1.2e-5 at h = 1e-5 and 4.5e-10 at 3e-6, the ξ
+# row 2.6e-11.  So each row is held at the best of three steps, every
+# error printed, each limit about ten times the worst reading
+HESS_SYM_LIMIT, HESS_FD_LIMIT = 5e-15, 1e-8
+HESS_FD_STEPS = (1e-5, 3e-6, 1e-6)
 
 
 class SmokeError(RuntimeError):
@@ -757,14 +777,15 @@ def count_host_reads(fn):
     return out, seen
 
 
-def phase_am_cli(dev, card):
+def phase_am_cli(dev, card, work):
     """The AM CLI at the Bayes default (801², 25 m, K = 44, Kl = 20,
     18 days, no pre-spread day): a new run of two chains with a checkpoint,
     then a resume, with the forward kernel's count zeroed just before and
     read just after; exact resume on the card; the initial log likelihood
     through K1 against the plain accumulate; a step's host reads; seconds
-    per step.  Returns (launches, forwards, seconds per step, per model
-    block, per sweep, launches per step, device busy seconds per step)."""
+    per step.  The store stays in ``work`` for [13].  Returns (launches,
+    forwards, seconds per step, per model block, per sweep, launches per
+    step, device busy seconds per step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -778,7 +799,7 @@ def phase_am_cli(dev, card):
     meta_keys = {'n_samples', 'burn', 'chains', 'obs_sweeps', 'obs_model',
                  'sampler', 'seed', 'device'}
     with tempfile.TemporaryDirectory() as tmp:
-        db = os.path.join(tmp, 'am')
+        db = os.path.join(work, 'am')
 
         def stored():
             with np.load(db + '.npz') as npz, open(db + '.meta.json') as fh:
@@ -1161,10 +1182,344 @@ def phase_nuts_cli(dev, card):
             sec, launches_leap, busy)
 
 
-def main():
+def watch_hessian(during):
+    """Wrap ``map_fit.hessian_columns`` so that every call appends the
+    forward and backward kernel launches made while it ran to ``during``;
+    returns the function that undoes the wrap."""
+    from parasitoids_tpu_torch.bayes import map_fit
+    from parasitoids_tpu_torch.ops import day_kernel
+    real = map_fit.hessian_columns
+
+    def watched(f, z):
+        torch.cuda.synchronize()
+        before = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+        out = real(f, z)
+        torch.cuda.synchronize()
+        during.append((day_kernel.LAUNCHES - before[0],
+                       day_kernel.LAUNCHES_BWD - before[1]))
+        return out
+
+    map_fit.hessian_columns = watched
+
+    def undo():
+        map_fit.hessian_columns = real
+    return undo
+
+
+def hessian_line(lap):
+    d = lap['hess_z'].shape[0]
+    return ('Hessian on the plain path in {}: d = {}, {:.2f} s ({:.3f} s a '
+            'column), peak {:.2f} GiB allocated'.format(
+                lap['precision'], d, lap['seconds'], lap['seconds'] / d,
+                lap['peak_bytes'] / 2 ** 30))
+
+
+def phase_laplace_cli(dev, card):
+    """``map_fit.main(['--norm', '--steps', '5'])`` at the MAP CLI default
+    (401², 50 m, K = 22, Kl = 10, 18 days, sprd_factor fitted), every count
+    zeroed just before and read just after: the Adam steps through K1/K3,
+    no launch while the Hessian runs (the f64 plain twin), its symmetry,
+    three of its rows (ρ, a σ, an observation slot) against central
+    differences of the f64 plain gradient, the positive-definiteness
+    verdict and the log evidence.  Returns (launches, the Laplace dict)."""
+    from parasitoids_tpu_torch.bayes import map_fit
+    from parasitoids_tpu_torch.bayes.model import BayesSetup
+    from parasitoids_tpu_torch.ops import day_kernel
+    print('[11] MAP + Laplace CLI (--norm) at its default (401^2, 18 days, '
+          'K = 22, Kl = 10)')
+    steps = 5
+    during = []
+    undo = watch_hessian(during)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, 'map_fit.txt')
+            day_kernel.LAUNCHES = day_kernel.LAUNCHES_BWD = 0
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            fit = map_fit.main(['--norm', '--steps', str(steps), '-o', out],
+                               device=dev)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - tic
+            launches = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+            with open(out) as fh:
+                report = fh.read().splitlines()
+    finally:
+        undo()
+    lap = fit['laplace']
+    check(launches == ((steps + 1) * 18, steps * 18),
+          '{} forward and {} backward launches for {} Adam steps of 18 days '
+          'and the final value'.format(*launches, steps))
+    check(during == [(0, 0)], 'no kernel launch while the Hessian ran')
+    H = lap['hess_z']
+    check(lap['precision'] == 'float64' and H.shape == (26, 26) and
+          bool(np.isfinite(H).all()),
+          'the Hessian, (26, 26) and finite, in f64 on the card')
+    print('  ' + hessian_line(lap) + ' ({})'.format(card))
+    asym = float(np.abs(H - H.T).max() / np.abs(H).max())
+    check(asym <= HESS_SYM_LIMIT, 'symmetric: max |H - H^T| / max |H| = '
+          '{:.3e} <= {:.0e}'.format(asym, HESS_SYM_LIMIT))
+    # rows of the Hessian against central differences of the f64 plain
+    # gradient, on the twin the CLI built (the setup's f32 arrays upcast)
+    twin = map_fit.plain_twin(BayesSetup(map_fit.map_cli_params(),
+                                         device=dev), torch.float64)
+    neg, _, _ = map_fit._make_objective(twin, True)
+    z = torch.as_tensor(fit['z'], dtype=torch.float64, device=dev)
+
+    def grad(zz):
+        return value_and_grad(neg, zz)[1]
+
+    for name, j in (('corr_p (rho)', 8), ('sig_x', 6), ('xi', 15)):
+        errs = []
+        for h in HESS_FD_STEPS:
+            e = torch.zeros_like(z)
+            e[j] = h
+            fd = (grad(z + e) - grad(z - e)) / (2 * h)
+            errs.append(float(np.abs(fd - H[j]).max() / np.abs(H[j]).max()))
+        check(min(errs) <= HESS_FD_LIMIT, 'row {} ({}) against central '
+              'differences of the f64 gradient: {} at h = {}; the best <= '
+              '{:.0e} of its largest entry {:.4g}'.format(
+                  j, name, ', '.join('{:.3e}'.format(v) for v in errs),
+                  ', '.join('{:.0e}'.format(h) for h in HESS_FD_STEPS),
+                  HESS_FD_LIMIT, float(np.abs(H[j]).max())))
+    free = lap['free']
+    lam = np.linalg.eigvalsh(0.5 * (H + H.T)[np.ix_(free, free)])
+    check(free.sum() == 25 and not free[13] and
+          lap['hess_pd'] == bool(lam.min() > 0) and
+          np.isfinite(lap['log_evidence']) == lap['hess_pd'] and
+          report[1].startswith('Laplace log-evidence'),
+          'free slots 25 (n_periods pinned); hess_pd {} as the free block\'s '
+          'eigenvalues say ({:.4g} to {:.4g}); log evidence {!r}, finite '
+          'exactly where the Hessian is positive definite'.format(
+              lap['hess_pd'], float(lam.min()), float(lam.max()),
+              lap['log_evidence']))
+    print('  the CLI took {:.2f} s: 5 Adam steps, the Laplace approximation, '
+          'the report ({})'.format(sec, card))
+    return launches, lap
+
+
+def phase_ridge_cli(dev, card):
+    """The NUTS CLI with ``--mass ridge`` at the Bayes default (801², 25 m,
+    K = 44, Kl = 20, 18 days, no pre-spread day), one chain from a 10-step
+    MAP fit, every count zeroed just before and read just after: the
+    Hessian on the f64 plain twin with no kernel launch, the whitening
+    sidecar, and a run interrupted after its first draw and resumed in
+    u-space through the sidecar against the run that never stopped.  The
+    interrupted run reuses the first run's warm start: the f64 plain
+    accumulate adds atomically on the card, so a second Hessian would
+    differ in its last bits.  Returns (K1, K3 launches, the Laplace dict,
+    the run's seconds)."""
+    from parasitoids_tpu_torch.bayes import map_fit, nuts
+    from parasitoids_tpu_torch.bayes import model as bayes_model
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.ops import day_kernel
+    print('[12] NUTS CLI --mass ridge at the Bayes default (801^2, 18 days, '
+          'K = 44, Kl = 20, one chain)')
+    burn, draws, depth, map_steps = 10, 2, 3, 10
+    print('  cut in depth only: --init-map-steps {} (default 200), warm-up '
+          '{} + {} draws, --max-depth {} (default 6)'.format(
+              map_steps, burn, draws, depth))
+
+    def cli(db):
+        return ['--sampler', 'nuts', '--mass', 'ridge', '--new', str(draws),
+                str(burn), db, '--chains', '1', '--init-map-steps',
+                str(map_steps), '--max-depth', str(depth),
+                '--checkpoint-every', '2', '--seed', '0']
+
+    warm = []
+    real_warm = map_fit.laplace_warm_mass
+
+    def warm_once(*a, **k):
+        if not warm:
+            warm.append(real_warm(*a, **k))
+        fit, inv = warm[0]
+        return dict(fit), inv.copy()
+
+    class Stop(Exception):
+        pass
+
+    real_sample = nuts.nuts_sample_stepwise
+
+    def stopping(*a, progress=None, **k):
+        def wrapped(phase, i, total):
+            if (phase, i) == ('sample', 1):
+                raise Stop
+            progress(phase, i, total)
+        return real_sample(*a, progress=wrapped, **k)
+
+    during = []
+    undo = watch_hessian(during)
+    map_fit.laplace_warm_mass = warm_once
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            whole, cut = os.path.join(tmp, 'whole'), os.path.join(tmp, 'cut')
+            day_kernel.LAUNCHES = day_kernel.LAUNCHES_BWD = 0
+            nuts.VALUE_AND_GRADS = 0
+            bayes_model.SKIPPED_FORWARDS = 0
+            torch.cuda.synchronize()
+            out = bayes_run.main(cli(whole), device=dev)
+            torch.cuda.synchronize()
+            k1, k3 = day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD
+            n_eval = nuts.VALUE_AND_GRADS
+            skipped = bayes_model.SKIPPED_FORWARDS
+            check(os.path.exists(whole + '.whiten.npz'),
+                  'the whitening sidecar {} is written'.format(
+                      os.path.basename(whole) + '.whiten.npz'))
+            nuts.nuts_sample_stepwise = stopping
+            try:
+                bayes_run.main(cli(cut), device=dev)
+                stopped = False
+            except Stop:
+                stopped = True
+            finally:
+                nuts.nuts_sample_stepwise = real_sample
+            check(stopped and os.path.exists(cut + '.ckpt.npz') and
+                  os.path.exists(cut + '.whiten.npz'),
+                  'a second run stopped after its first draw, leaving its '
+                  'checkpoint and sidecar')
+            bayes_run.main(['--sampler', 'nuts', '--resume', cut, '0'],
+                           device=dev)
+            same = []
+            for suffix in ('.npz', '.whiten.npz'):
+                with np.load(whole + suffix) as a, np.load(cut + suffix) as b:
+                    same.append(set(a.files) == set(b.files) and all(
+                        np.array_equal(a[k], b[k]) for k in a.files))
+                    if suffix == '.npz':
+                        traces = a['traces']
+            check(all(same) and traces.shape == (1, draws, 26) and
+                  bool(np.isfinite(traces).all()),
+                  'the run resumed in u-space through its sidecar wrote the '
+                  'traces {} and sidecar of the run that never stopped, bit '
+                  'for bit'.format(traces.shape))
+    finally:
+        undo()
+        map_fit.laplace_warm_mass = real_warm
+    lap = warm[0][0]['laplace']
+    check(during == [(0, 0)], 'no kernel launch while the Hessian ran')
+    n_vg = n_eval + map_steps - skipped
+    check(k3 == 18 * n_vg and k1 == 18 * (n_vg + 1),
+          'K3 launches {} = 18 x {} value+gradients ({} by the sampler + {} '
+          'Adam steps - {} outside the support); K1 launches {} = K3 + 18'
+          .format(k3, n_vg, n_eval, map_steps, skipped, k1))
+    check(lap['precision'] == 'float64' and lap['hess_z'].shape == (25, 25),
+          'the Hessian in f64, d = 25')
+    print('  ' + hessian_line(lap) + ' ({})'.format(card))
+    print('  NUTS: {:.2f} s for the warm-up and draws (after the warm '
+          'start); step size {}, accept {:.3f}, {} leapfrogs a draw'.format(
+              out['seconds'], np.array2string(out['step_size'], precision=4),
+              float(out['accept_rate']), out['n_leapfrog'].tolist()))
+    return k1, k3, lap, out['seconds']
+
+
+# the sections of the JAX package's bayes.summary report
+# (parasitoids_tpu/bayes/summary.py:128-226)
+REPORT_SECTIONS = ['## Posterior', '## Convergence', '## Figures',
+                   '## Posterior-predictive p-values',
+                   '## Predictive assessment (leave-one-date-out)',
+                   '## Prior/likelihood sensitivity (power-scaling)']
+
+
+def phase_summary_cli(dev, card, work):
+    """``bayes.summary`` over [9]'s AM store at the Bayes default (801²,
+    ``--draws 8``), the forward kernel's count zeroed just before and read
+    just after: 18 K1 launches per ensemble member and no backward; one
+    member's projections against a lone ``forward_projections``; every
+    section of the JAX report.  Runs in a directory of its own that sees
+    the repository's data, so that its figures stay there.  Returns (K1
+    launches, members, seconds per member, the report's seconds)."""
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.bayes import summary
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    from parasitoids_tpu_torch.ops import day_kernel
+    from parasitoids_tpu_torch.parallel import ensemble
+    print('[13] bayes.summary over [9]\'s AM store (801^2, 18 days, K = 44, '
+          'Kl = 20, --draws 8)')
+    db = os.path.join(work, 'am.npz')
+    here = os.path.join(work, 'summary')
+    os.makedirs(here)
+    os.symlink(os.path.join(ROOT, 'data'), os.path.join(here, 'data'))
+    # the ensemble's two entry points, timed on the card and their members
+    # counted while the report runs
+    timing = {}
+    real = {f: getattr(ensemble, f) for f in ('ensemble_projections',
+                                              'ensemble_fields')}
+
+    def timed(name):
+        def run(setup, thetas, *a, **k):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            out = real[name](setup, thetas, *a, **k)
+            torch.cuda.synchronize()
+            sec, n = timing.get(name, (0.0, 0))
+            timing[name] = (sec + time.perf_counter() - tic, n + len(thetas))
+            return out
+        return run
+
+    for name in real:
+        setattr(ensemble, name, timed(name))
+    os.chdir(here)
+    try:
+        day_kernel.LAUNCHES = day_kernel.LAUNCHES_BWD = 0
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        out = summary.main([db, '--draws', '8'], device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - tic
+        launches = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+    finally:
+        os.chdir(ROOT)
+        for name, fn in real.items():
+            setattr(ensemble, name, fn)
+    with open(out) as fh:
+        text = fh.read()
+    members = sum(n for _, n in timing.values())
+    check(launches == (18 * members, 0),
+          '{} K1 launches = 18 x {} ensemble members ({}), no K3'.format(
+              launches[0], members, ', '.join(
+                  '{} {}'.format(k, n) for k, (_, n) in timing.items())))
+    sections = [line for line in text.splitlines() if line.startswith('## ')]
+    check(sections == REPORT_SECTIONS, 'the report has every section of the '
+          'JAX report: ' + '; '.join(s[3:] for s in sections))
+    figures = [line for line in text.splitlines()
+               if line.startswith('- ') and ('`' in line or 'skipped' in line)]
+    print('  figures: ' + ' | '.join(figures))
+    setup = bayes_run.build_setup(device=dev)
+    with np.load(db) as npz:
+        rows = npz['traces'].reshape(-1, npz['traces'].shape[-1])[:2, :15]
+    ens = ensemble.ensemble_projections(setup, rows)
+    with torch.no_grad():
+        lone = setup.forward_projections(_as_model(torch.as_tensor(
+            rows[1], device=dev)))
+    check(all(torch.equal(a[1], b) for a, b in zip(
+        (*ens[0], *ens[1], ens[2]), (*lone[0], *lone[1], lone[2]))),
+        'member 1 of an ensemble is a lone forward_projections, bit for bit')
+    per = {k: s / n for k, (s, n) in timing.items()}
+    sec_member = sum(s for s, _ in timing.values()) / members
+    print('  seconds per member: {} ({:.4f} over all {}); the report {:.2f} '
+          's ({})'.format(', '.join('{} {:.4f}'.format(k[9:], v)
+                                    for k, v in per.items()), sec_member,
+                          members, sec, card))
+    return launches[0], members, sec_member, sec
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(prog='chip_smoke.py')
+    ap.add_argument('--only', default=None, metavar='N,N',
+                    help='run only these phases (1, 2 and the checks of '
+                         'imports always run; 13 needs 9); no result line')
+    args = ap.parse_args(argv)
+    only = (None if args.only is None else
+            {int(v) for v in args.only.split(',')})
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible to torch', file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory() as work:
+        return run(only, work)
+
+
+def run(only, work):
+    """Every phase (or those of ``only``) with ``work`` as the directory
+    that [9]'s store and [13]'s report share."""
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)                     # data/ is addressed repo-relative
     from parasitoids_tpu_torch.ops import _build
@@ -1189,6 +1544,8 @@ def main():
     print('  bounds: {:.4g} exps/s (SFU), {:.3g} f32 FLOP/s, {:.3g} B/s'
           .format(rate, F32_FLOPS_PER_S, HBM_BYTES_PER_S))
 
+    if only is not None:
+        return run_some(only, dev, card, rate, work)
     err, timing = phase_kernel_vs_plain(dev, card, rate)
     phase_goldens(dev)
     launches, sec, per_sim = phase_main_path(dev, card)
@@ -1198,19 +1555,21 @@ def main():
     map_launches, sec_step, sec_vg_401, gold_dv, gold_l2 = \
         phase_map_cli(dev, card)
     (am_launches, am_forwards, am_step, am_model, am_sweep, am_per_step,
-     am_busy) = phase_am_cli(dev, card)
+     am_busy) = phase_am_cli(dev, card, work)
     (nuts_k1, nuts_k3, nuts_vg, nuts_leap, nuts_trans, nuts_leaps,
      nuts_reads, nuts_sec, nuts_launches, nuts_busy) = phase_nuts_cli(dev,
                                                                       card)
+    lap_launches, lap401 = phase_laplace_cli(dev, card)
+    ridge_k1, ridge_k3, lap801, ridge_sec = phase_ridge_cli(dev, card)
+    sum_k1, members, sec_member, sec_report = phase_summary_cli(dev, card,
+                                                                work)
     check(launches > 0 and min(map_launches) > 0 and am_launches > 0 and
-          min(nuts_k1, nuts_k3) > 0,
+          min(nuts_k1, nuts_k3) > 0 and min(lap_launches) > 0 and
+          min(ridge_k1, ridge_k3) > 0 and sum_k1 > 0,
           'both kernels launched on their main paths, the forward kernel on '
-          'the AM path too, both on the NUTS path')
-    check('jax' not in sys.modules, 'no JAX module was imported')
-    jax_pkg = sorted(k for k in sys.modules if k == 'parasitoids_tpu' or
-                     k.startswith('parasitoids_tpu.'))
-    check(not jax_pkg, 'no module of the JAX package was imported {}'.format(
-        jax_pkg or ''))
+          'the AM path too, both on the NUTS, Laplace and ridge paths, the '
+          'forward kernel on the summary path')
+    check_imports()
 
     k1, k2 = timing['K1'], timing['K2']
     k3, k4 = bwd_timing['K3'], bwd_timing['K4']
@@ -1219,8 +1578,13 @@ def main():
         'route': 'cuda',
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:157',
-        'launches': launches + nuts_k1,
+        'launches': launches + nuts_k1 + lap_launches[0] + ridge_k1 + sum_k1,
         'launches_main_path': launches, 'launches_nuts_cli': nuts_k1,
+        'launches_laplace_cli': lap_launches[0],
+        'launches_ridge_cli': ridge_k1, 'launches_summary_cli': sum_k1,
+        'summary_ensemble_members': members,
+        'sec_per_ensemble_member_801': sec_member,
+        'sec_summary_report_801': sec_report,
         'launches_per_simulation': per_sim,
         'max_abs_err': max(err['K1'], err['K2']),
         'max_abs_err_k1': err['K1'], 'max_abs_err_k2': err['K2'],
@@ -1250,8 +1614,18 @@ def main():
         'route': 'cuda',
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:326',
-        'launches': map_launches[1] + nuts_k3,
+        'launches': map_launches[1] + nuts_k3 + lap_launches[1] + ridge_k3,
         'launches_map_cli': map_launches[1], 'launches_nuts_cli': nuts_k3,
+        'launches_laplace_cli': lap_launches[1],
+        'launches_ridge_cli': ridge_k3,
+        'hessian_precision': lap401['precision'],
+        'sec_hessian_401': lap401['seconds'],
+        'sec_per_hessian_column_401': lap401['seconds'] / 26,
+        'peak_bytes_hessian_401': lap401['peak_bytes'],
+        'sec_hessian_801': lap801['seconds'],
+        'sec_per_hessian_column_801': lap801['seconds'] / 25,
+        'peak_bytes_hessian_801': lap801['peak_bytes'],
+        'sec_ridge_cli_801': ridge_sec,
         'max_abs_err': max(bwd_abs.values()),
         'max_err_over_scale_k3': bwd_err['K3'],
         'max_err_over_scale_k4': bwd_err['K4'],
@@ -1290,6 +1664,44 @@ def main():
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
     return 0
+
+
+def check_imports():
+    check('jax' not in sys.modules, 'no JAX module was imported')
+    jax_pkg = sorted(k for k in sys.modules if k == 'parasitoids_tpu' or
+                     k.startswith('parasitoids_tpu.'))
+    check(not jax_pkg, 'no module of the JAX package was imported {}'.format(
+        jax_pkg or ''))
+
+
+def run_some(only, dev, card, rate, work):
+    """The phases of ``only`` alone (a development run): no result line."""
+    phases = {
+        3: lambda: phase_kernel_vs_plain(dev, card, rate),
+        4: lambda: phase_goldens(dev),
+        5: lambda: phase_main_path(dev, card),
+        6: lambda: phase_backward_vs_plain(dev, card, rate),
+        7: lambda: phase_posterior_gradient(dev, card),
+        8: lambda: phase_map_cli(dev, card),
+        9: lambda: phase_am_cli(dev, card, work),
+        10: lambda: phase_nuts_cli(dev, card),
+        11: lambda: phase_laplace_cli(dev, card),
+        12: lambda: phase_ridge_cli(dev, card),
+        13: lambda: phase_summary_cli(dev, card, work)}
+    failed = []
+    for n in sorted(only | ({9} if 13 in only else set())):
+        tic = time.perf_counter()
+        try:
+            phases[n]()
+        except SmokeError as e:
+            failed.append(n)
+            print('  FAILED: phase [{}]: {}'.format(n, e))
+        print('  phase [{}] took {:.1f} s'.format(n,
+                                                 time.perf_counter() - tic))
+    check_imports()
+    print('partial run of phases {}: no result line; failed: {}'.format(
+        sorted(only), failed))
+    return 1 if failed else 0
 
 
 if __name__ == '__main__':

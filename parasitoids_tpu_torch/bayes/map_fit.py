@@ -7,16 +7,26 @@ reparameterization.  As in the reference, ``n_periods`` is held at 30
 (Bayes_MAP.py:144-147) and the Kalbar pre-spread factor is an extra
 Uniform(0, 1) parameter (Bayes_MAP.py:200-205).
 
-Run as ``python -m parasitoids_tpu_torch.bayes.map_fit --MAP [--starts N
---seed S] [--polish N]``: Adam from the reference's initial values or from
-several prior draws (in turn), then optionally an L-BFGS polish.  The
-Laplace approximation (``--norm``) is not ported yet (ROADMAP Queue 1 item
-13b), nor is the sharded forward (item 16).
+Run as ``python -m parasitoids_tpu_torch.bayes.map_fit --MAP | --norm
+[--starts N --seed S] [--polish N]``: Adam from the reference's initial
+values or from several prior draws (in turn), optionally an L-BFGS polish,
+and with ``--norm`` the Laplace (normal) approximation around the mode
+(ref ``pm.NormApprox``, Bayes_MAP.py:521-569): the covariance is the
+inverse Hessian of the negative log posterior in the unconstrained space.
+The sharded forward (ROADMAP Queue 1 item 16) is not ported.
+
+The Hessian never goes through the CUDA day kernels, whose backward is
+first order (in JAX too the Pallas ``custom_vjp`` admits no forward mode).
+It is taken on the plain twin of the setup (:func:`plain_twin`), reverse
+over reverse, one column at a time (:func:`hessian_columns`).  On the card
+the twin runs in f64: the f32 plain accumulate adds atomically there, so
+its sums change from run to run.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import math
 import time
 
@@ -30,12 +40,14 @@ from .priors import (MODEL_PARAM_NAMES, OBS_PARAM_NAMES,
                      obs_extra_names)
 from .transforms import MODEL_TRANSFORMS, Unit, obs_transforms
 
-__all__ = ['default_use_sprd', 'initial_z', 'lbfgs_polish', 'main',
-           'map_cli_params', 'map_fit', 'map_fit_multistart', 'map_report']
+__all__ = ['blend_prior_metric', 'default_use_sprd', 'hessian_columns',
+           'initial_z', 'laplace_approximation', 'laplace_warm_mass',
+           'lbfgs_polish', 'main', 'map_cli_params', 'map_fit',
+           'map_fit_multistart', 'map_report', 'plain_twin', 'prior_var_z',
+           'regularize_cov_z']
 
 _N_PERIODS_FIXED = 30.0
 _N_PERIODS_SLOT = MODEL_PARAM_NAMES.index('n_periods')
-_NOT_PORTED = 'not ported to torch yet (ROADMAP Queue 1 item 13b)'
 
 
 def default_use_sprd(params):
@@ -281,19 +293,312 @@ def map_fit_multistart(setup: BayesSetup, n_starts=8, seed=0, n_steps=300,
                      start_logps=logps, best_start=best)
 
 
-def map_report(setup: BayesSetup, fit, out=None):
-    """Human-readable report like the reference's MAP text output
-    (Bayes_MAP.py:494-517).  The Laplace log-evidence and standard
-    deviations of the JAX report come with the Laplace port."""
+# ---------------------------------------------------------------------------
+# the second-order rest: Hessian, Laplace approximation, NUTS warm metric
+# ---------------------------------------------------------------------------
+
+def hessian_columns(f, z):
+    """Full Hessian of scalar ``f`` at ``z``, one row at a time: one
+    gradient with ``create_graph``, then for each coordinate i the gradient
+    of ``grad f · e_i`` through that graph (reverse over reverse; row i is
+    ∂(∂f/∂z_i)/∂z).  Never all d rows batched: JAX's batched ``jax.hessian``
+    asked 23.8 GB of a 16 GB TPU at 801² (``parasitoids_tpu/bayes/
+    map_fit.py:352-356``); one row costs one backward through the retained
+    first-order graph.  Returns a ``(d, d)`` tensor in ``z``'s dtype."""
+    z = z.detach().clone().requires_grad_()
+    grad, = torch.autograd.grad(f(z), z, create_graph=True)
+    eye = torch.eye(z.shape[0], dtype=z.dtype, device=z.device)
+    rows = [torch.autograd.grad(grad, z, grad_outputs=eye[i],
+                                retain_graph=i + 1 < z.shape[0])[0]
+            for i in range(z.shape[0])]
+    return torch.stack(rows).detach()
+
+
+def plain_twin(setup: BayesSetup, dtype=None) -> BayesSetup:
+    """The same posterior on the plain accumulate, in ``dtype`` (default
+    the setup's own): the counterpart of JAX's ``xla_twin``.  The setup
+    itself when it already is one.  The twin is built from this setup's
+    own wind arrays (upcast exactly where ``dtype`` is wider) and keeps
+    its ``sprd_factor``, observed data and held-out ``obs_mask``: a
+    Laplace metric of held-out data must take its curvature from the
+    held-out likelihood too."""
+    from ..models.forward import setup_from_numpy
+    s = setup.setup
+    own = s.wind_flat.dtype
+    dtype = own if dtype is None else dtype
+    if not s.kcfg.pallas and dtype == own:
+        return setup
+    fs = setup_from_numpy(s.wind_flat.cpu().numpy(),
+                          s.wind_cumsum.cpu().numpy(), s.days, s.ndays,
+                          s.kcfg, s.scfg, s.rad_dist, s.start_idx,
+                          s.dist_weights, s.wind_flat.device, dtype,
+                          use_pallas=False)
+    params = copy.copy(setup.params)
+    params.use_pallas = False
+    twin = BayesSetup(params, sprd_factor=setup.sprd_factor, dtype=dtype,
+                      forward_setup=fs)
+
+    def cast(group):
+        return [t.to(dtype) for t in group]
+
+    twin.obs_release = cast(setup.obs_release)
+    twin.obs_sentinel = cast(setup.obs_sentinel)
+    twin.obs_grid = setup.obs_grid.to(dtype)
+    if setup.obs_mask is not None:
+        rel, sent, grid = setup.obs_mask
+        twin.obs_mask = (tuple(cast(rel)), tuple(cast(sent)), grid.to(dtype))
+    return twin
+
+
+def hessian_dtype(setup: BayesSetup):
+    """The precision of the Laplace Hessian: f64 on the card, where the
+    f32 plain accumulate's atomic adds change its sums from run to run;
+    the setup's own dtype on the CPU."""
+    if setup.setup.wind_flat.device.type == 'cuda':
+        return torch.float64
+    return setup.setup.wind_flat.dtype
+
+
+def prior_var_z(setup: BayesSetup, use_sprd=False, n=4000, seed=0,
+                draws=None):
+    """Monte-Carlo prior variances of the unconstrained parameter vector
+    (the z packing of ``_make_objective``), from the exact prior samplers
+    (``priors.sample_prior_*`` on a CPU generator seeded with ``seed``, and
+    ``sprd_factor`` from U(1e-3, 1 - 1e-3)).  ``draws``: ``(model (n, 15),
+    obs (n, n_obs), sprd (n,))`` arrays used instead, so that a test can
+    replay another sampler's draws.  The pinned ``n_periods`` slot (packed
+    as the constant 0) comes out exactly 0, which the spectral floor of
+    :func:`regularize_cov_z` relies on to leave it pinned.  Returns f64
+    numpy."""
+    from .priors import sample_prior_model, sample_prior_obs
+    _, _, unconstrain = _make_objective(setup, use_sprd)
+    if draws is None:
+        gen = torch.Generator().manual_seed(int(seed))
+        ms = sample_prior_model(gen, n)
+        os_ = sample_prior_obs(gen, setup.field_areas.cpu().numpy(),
+                               setup.min_field_area, setup.obs_model, n)
+        sprds = 1e-3 + (1.0 - 2e-3) * torch.rand(n, generator=gen)
+    else:
+        ms, os_, sprds = (torch.as_tensor(np.array(a, np.float32))
+                          for a in draws)
+    zs = torch.func.vmap(unconstrain)(ms, os_, sprds)
+    return zs.double().numpy().var(axis=0)
+
+
+def regularize_cov_z(cov_z, prior_var, floor_frac=1e-4):
+    """Spectral prior-floor safety net for a Laplace covariance: each
+    eigendirection's variance is floored at ``floor_frac`` × its
+    prior-variance projection ``vᵀ diag(prior_var) v`` (f64 throughout).
+    The floor is tiny on purpose (an sd floor at 1% of the prior sd): a
+    data-informed direction may sit orders of magnitude below prior scale;
+    the principled repair of crushed directions is
+    :func:`blend_prior_metric`, and this floor only keeps any direction
+    from reaching f32-epsilon scale.  Pinned slots have ``prior_var = 0``
+    (:func:`prior_var_z`), so their floor is 0 and they stay at the PSD
+    jitter.  Host numpy, a copy of the JAX function."""
+    cov = np.asarray(cov_z, np.float64)
+    cov = 0.5 * (cov + cov.T)
+    lam, V = np.linalg.eigh(cov)
+    proj = (V ** 2 * np.asarray(prior_var, np.float64)[:, None]).sum(0)
+    lam = np.maximum(np.abs(lam), floor_frac * proj)
+    lam = np.maximum(lam, 1e-12)      # PSD jitter for pinned directions
+    out = (V * lam) @ V.T
+    return 0.5 * (out + out.T)
+
+
+def blend_prior_metric(H_raw, H_negprior, H_prior_T, prior_var,
+                       noise_rel=1e-5, prior_prec_floor=1e-4,
+                       lam_pin=1e12):
+    """Posterior covariance estimate that blends prior curvature into
+    prior-only and near-null eigendirections (host numpy f64, a copy of
+    the JAX function):
+
+    * ``H_lik = H_raw − H_negprior``, the likelihood curvature alone;
+    * eigenvalues of ``H_lik`` below ``noise_rel × max|eig|`` (the noise
+      floor of an f32 Hessian) or negative are zeroed;
+    * the precision is ``H_lik⁺ + H_prior_T``, with ``H_prior_T`` the exact
+      prior curvature of the NUTS target (prior and bijection
+      log-Jacobian) |eigenvalue|-clipped to ``[prior_prec_floor,
+      lam_pin]``;
+    * pinned slots (``prior_var == 0``) get precision ``lam_pin``;
+    * the covariance is the precision's inverse.
+
+    A prior-only direction thus keeps its full prior scale while a
+    data-informed one keeps its likelihood curvature."""
+    H_lik = (np.asarray(H_raw, np.float64)
+             - np.asarray(H_negprior, np.float64))
+    H_lik = 0.5 * (H_lik + H_lik.T)
+    lam, V = np.linalg.eigh(H_lik)
+    tau = noise_rel * np.max(np.abs(lam)) if lam.size else 0.0
+    lam = np.where(lam > tau, lam, 0.0)
+    H_lik_psd = (V * lam) @ V.T
+
+    Hp = np.asarray(H_prior_T, np.float64)
+    Hp = 0.5 * (Hp + Hp.T)
+    lp, Vp = np.linalg.eigh(Hp)
+    lp = np.clip(np.abs(lp), prior_prec_floor, lam_pin)
+    Hp_psd = (Vp * lp) @ Vp.T
+
+    prec = H_lik_psd + Hp_psd
+    pinned = np.asarray(prior_var, np.float64) == 0.0
+    if pinned.any():
+        idx = np.where(pinned)[0]
+        prec[idx, :] = 0.0
+        prec[:, idx] = 0.0
+        prec[idx, idx] = lam_pin
+    prec = 0.5 * (prec + prec.T)
+    cov = np.linalg.inv(prec)
+    return 0.5 * (cov + cov.T)
+
+
+def _theta_flat(constrain, use_sprd):
+    """``z -> θ`` packed flat: model block, observation block and, when
+    fit, ``sprd_factor``."""
+    def theta(z):
+        m_vec, o_vec, sprd = constrain(z)
+        parts = [m_vec, o_vec] + ([sprd.reshape(1)] if use_sprd else [])
+        return torch.cat(parts)
+    return theta
+
+
+def _neg_logprior_z(setup: BayesSetup, constrain, with_jacobian,
+                    use_sprd=False):
+    """Negative log prior over the unconstrained vector, optionally with
+    the bijections' log-Jacobian (the prior part of the NUTS target,
+    ``nuts.make_transformed_logpdf``).  It runs no forward model, so
+    ``torch.func`` differentiates it exactly; every θ_i depends on one z_j,
+    so |J| is the product of the Jacobian's row maxima."""
+    from .priors import log_prior_model, log_prior_obs
+    theta = _theta_flat(constrain, use_sprd)
+
+    def neg_prior(z):
+        m_vec, o_vec, _ = constrain(z)
+        lp = log_prior_model(_as_model(m_vec)) + log_prior_obs(
+            _as_obs(o_vec, setup.n_sent), setup.field_areas.to(z.dtype),
+            setup.min_field_area, setup.obs_model)
+        if not with_jacobian:
+            return -lp
+        d = torch.func.jacfwd(theta)(z).abs().amax(dim=1)
+        return -lp - torch.sum(torch.log(torch.where(d > 0, d,
+                                                     torch.ones_like(d))))
+
+    return neg_prior
+
+
+def laplace_warm_mass(setup: BayesSetup, n_steps=200, use_sprd=False,
+                      floor_frac=1e-4):
+    """The ``--mass laplace`` / ``--mass ridge`` warm start: MAP fit →
+    Laplace Hessian → likelihood/prior curvature blend
+    (:func:`blend_prior_metric`) → spectral safety floor
+    (:func:`regularize_cov_z`) → f32 dense inverse mass matrix.  Returns
+    ``(fit, inv_mass)``; ``fit['cov_z_reg']`` holds the regularized f64
+    covariance (the whitening input of ``--mass ridge``) and
+    ``fit['laplace']`` the :func:`laplace_approximation` it came from."""
+    fit = map_fit(setup, n_steps=n_steps, use_sprd=use_sprd)
+    lap = laplace_approximation(setup, fit)
+    _, constrain, _ = _make_objective(setup, use_sprd)
+    z = torch.as_tensor(fit['z']).to(setup.setup.wind_flat.device)
+    H_negprior, H_prior_T = (
+        torch.func.hessian(_neg_logprior_z(setup, constrain, jac,
+                                           use_sprd))(z).cpu().numpy()
+        for jac in (False, True))
+    pv = prior_var_z(setup, use_sprd=use_sprd)
+    cov = blend_prior_metric(lap['hess_z'], H_negprior, H_prior_T, pv)
+    cov_reg = regularize_cov_z(cov, pv, floor_frac=floor_frac)
+    fit['cov_z_reg'] = cov_reg
+    fit['laplace'] = lap
+    return fit, np.asarray(cov_reg, np.float32)
+
+
+def laplace_approximation(setup: BayesSetup, fit, dtype=None):
+    """Normal approximation around the MAP point (ref ``pm.NormApprox``,
+    Bayes_MAP.py:521-569): the mean and full covariance in the
+    unconstrained space, and per-parameter standard deviations mapped back
+    through the bijections by linearization.
+
+    The Hessian is :func:`hessian_columns` of the negative log posterior on
+    :func:`plain_twin` in ``dtype`` (default :func:`hessian_dtype`).  Slots
+    that do not enter the posterior (the pinned ``n_periods``) leave an
+    exactly-zero row and are regularized away (``free``).  The Laplace log
+    evidence (conditional on the pinned ``n_periods``) is
+    ``logp + log|J| + (d/2) log 2π − ½ log det H`` over the free block;
+    a Hessian that is not positive definite there (an unconverged MAP or a
+    saddle) gives NaN and ``hess_pd`` False.  Positive definiteness is read
+    from the free block's eigenvalues, not from the sign of its
+    determinant as in the JAX function, whose rule passes a saddle with an
+    even number of negative directions.  Besides JAX's keys the result
+    holds the Hessian's ``precision``, ``seconds`` and, on the card, its
+    ``peak_bytes``."""
+    use_sprd = fit['use_sprd']
+    twin = plain_twin(setup, hessian_dtype(setup) if dtype is None
+                      else dtype)
+    neg_logpost, constrain, _ = _make_objective(twin, use_sprd)
+    dev = twin.setup.wind_flat.device
+    z = torch.as_tensor(np.asarray(fit['z'])).to(
+        device=dev, dtype=twin.setup.wind_flat.dtype)
+    cuda = dev.type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    tic = time.perf_counter()
+    H = hessian_columns(neg_logpost, z).cpu().numpy()
+    seconds = time.perf_counter() - tic
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    H_raw = np.array(H, np.float64)  # before the surgery (blend_prior_metric)
+    free = np.abs(np.diag(H)) >= 1e-12
+    H = H.copy()
+    H[~free, ~free] = 1e12
+    cov_z = np.linalg.inv(H)
+
+    jac_full = torch.func.jacfwd(_theta_flat(constrain, use_sprd))(
+        z).cpu().numpy()
+    # delta method over the model and observation rows (the optional
+    # sprd_factor row is the last)
+    jac = jac_full[:-1] if use_sprd else jac_full
+    cov_theta = jac @ cov_z @ jac.T
+    col = np.max(np.abs(jac_full), axis=0)
+    log_jac = float(np.sum(np.log(col[free])))
+    H_free = H[np.ix_(free, free)]
+    _, logdet_h = np.linalg.slogdet(H_free)
+    lam = np.linalg.eigvalsh(0.5 * (H_free + H_free.T))
+    pd = bool(lam.size == 0 or lam.min() > 0)
+    d_free = int(free.sum())
+    log_evidence = (fit['logp'] + log_jac
+                    + 0.5 * d_free * np.log(2.0 * np.pi) - 0.5 * logdet_h
+                    if pd else float('nan'))
+    return {'cov_z': cov_z, 'cov_theta': cov_theta, 'hess_z': H_raw,
+            'sd_theta': np.sqrt(np.clip(np.diag(cov_theta), 0, None)),
+            'free': free, 'log_jac': log_jac, 'logdet_h': float(logdet_h),
+            'hess_pd': pd,
+            'log_evidence': float(log_evidence),
+            'precision': str(z.dtype).replace('torch.', ''),
+            'seconds': seconds, 'peak_bytes': peak}
+
+
+def map_report(setup: BayesSetup, fit, laplace=None, out=None):
+    """Human-readable report like the reference's MAP/NormApprox text
+    output (Bayes_MAP.py:494-517, 546-565): with a Laplace approximation,
+    its log evidence and each parameter's standard deviation."""
     lines = ['MAP fit: logp = {:.4f}, AIC = {:.4f}'.format(
         fit['logp'], fit['AIC'])]
+    if laplace and 'log_evidence' in laplace:
+        lines.append(
+            'Laplace log-evidence (n_periods fixed): {:.4f}{}'.format(
+                laplace['log_evidence'],
+                '' if laplace['hess_pd'] else
+                '  [nan: Hessian not positive definite at the fit]'))
     names = (list(MODEL_PARAM_NAMES) + list(OBS_PARAM_NAMES)
              + ['sent_obs_prob_{}'.format(k)
                 for k in setup.locinfo.sent_ids]
              + list(obs_extra_names(setup.obs_model)))
     vals = np.concatenate([fit['model'], fit['obs']])
-    for n, v in zip(names, vals):
-        lines.append('  {:>18s} = {:<12.6g}'.format(n, v))
+    sds = laplace['sd_theta'] if laplace else None
+    for i, (n, v) in enumerate(zip(names, vals)):
+        if sds is not None:
+            lines.append('  {:>18s} = {:<12.6g} (sd {:.4g})'.format(
+                n, v, sds[i]))
+        else:
+            lines.append('  {:>18s} = {:<12.6g}'.format(n, v))
     if fit['use_sprd']:
         lines.append('  {:>18s} = {:<12.6g}'.format('sprd_factor',
                                                     fit['sprd_factor']))
@@ -323,18 +628,19 @@ def map_cli_params(overrides=()):
 
 
 def main(argv=None, device=None):
-    """CLI like the reference ``python Bayes_MAP.py --MAP``
+    """CLI like the reference ``python Bayes_MAP.py --MAP | --norm``
     (Bayes_MAP.py:572-651): coarser domain, n_periods fixed, Kalbar
     pre-spread factor fit.  ``device`` given here wins over ``--device``.
-    Returns the fit."""
+    Returns the fit, with ``--norm`` its Laplace approximation under
+    ``'laplace'``."""
     parser = argparse.ArgumentParser(
         prog='parasitoids_tpu_torch.bayes.map_fit')
     g = parser.add_mutually_exclusive_group(required=True)
     g.add_argument('--MAP', action='store_true',
                    help='find the posterior mode')
     g.add_argument('--norm', action='store_true',
-                   help='MAP + Laplace normal approximation (' + _NOT_PORTED
-                   + ')')
+                   help='MAP + Laplace normal approximation (the Hessian on '
+                        'the plain path, in f64 on the card)')
     parser.add_argument('--device', choices=('cpu', 'cuda'), default='cuda',
                         help='where to run (default cuda; no CPU fallback)')
     parser.add_argument('-o', '--outname', default='map_fit.txt')
@@ -352,8 +658,6 @@ def main(argv=None, device=None):
                              'Queue 1 item 16)')
     parser.add_argument('overrides', nargs='*')
     args = parser.parse_args(argv)
-    if args.norm:
-        parser.error('--norm (Laplace) is ' + _NOT_PORTED)
     if args.shard_forward:
         parser.error('--shard-forward is not ported (ROADMAP Queue 1 item '
                      '16)')
@@ -386,7 +690,17 @@ def main(argv=None, device=None):
         print('L-BFGS polish: logp {:.4f} -> {:.4f} ({} steps, {:.1f} s; '
               'each step may take several line-search evaluations)'.format(
                   pre, fit['logp'], args.polish, time.time() - tic))
-    report = map_report(setup, fit, out=args.outname)
+    lap = None
+    if args.norm:
+        lap = laplace_approximation(setup, fit)
+        print('laplace: Hessian on the plain path in {}, {} columns in '
+              '{:.1f} s ({:.2f} s a column){}'.format(
+                  lap['precision'], lap['hess_z'].shape[0], lap['seconds'],
+                  lap['seconds'] / lap['hess_z'].shape[0],
+                  '' if lap['peak_bytes'] is None else
+                  ', peak {} bytes on the card'.format(lap['peak_bytes'])))
+        fit['laplace'] = lap
+    report = map_report(setup, fit, lap, out=args.outname)
     print(report)
     print('written to', args.outname)
     return fit

@@ -19,10 +19,12 @@ chains of a run advance in turn on the one card; the AM trace store is an
 npz with exact sampler-state resume instead of a PyMC HDF5 database, and a
 NUTS run keeps a transition checkpoint (``<db>.ckpt.npz``, mirrored to
 ``<db>.ckpt_durable.npz``) that a ``--resume`` continues bit for bit;
-Gelman–Rubin is printed automatically when >= 2 chains.  The argument
+Gelman–Rubin is printed automatically when >= 2 chains.  NUTS's ``--mass
+laplace`` fixes a dense metric from the Laplace covariance at a MAP fit
+and ``--mass ridge`` samples in that covariance's eigenbasis, the map kept
+in a ``<db>.whiten.npz`` sidecar that a ``--resume`` reads.  The argument
 parser is the JAX module's, so ``--help`` reads the same, but ``pt``,
-``smc``, ``vi``, NUTS's ``--mass laplace|ridge`` and ``--shard-forward``
-exit naming their ROADMAP item.
+``smc``, ``vi`` and ``--shard-forward`` exit naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -431,10 +433,12 @@ def run_nuts(args, setup):
     result with the run's seconds under ``'seconds'``."""
     from ..utils.durable import commit_artifacts
     from .nuts import (NUTSConfig, make_transformed_logpdf,
-                       nuts_sample_stepwise)
+                       nuts_sample_stepwise, whiten_logpdf, whiten_transform)
     from .sampler import chain_generator
 
     dev = setup.setup.wind_flat.device
+    to_z = None          # ridge mode: the u-space -> z-space sample map
+    init_inv_mass = None
     resume = args.new is None
     if resume:
         # --resume <db> <iters>: continue an interrupted run from its
@@ -464,24 +468,90 @@ def run_nuts(args, setup):
                          fixed_mass=bool(sig[8]) if len(sig) > 8 else False)
         args.chains = nch
         logpdf, constrain, z0 = make_transformed_logpdf(setup)
+        wh_path = db.removesuffix('.npz') + '.whiten.npz'
+        if os.path.exists(wh_path):
+            # a --mass ridge run: the checkpointed states live in u-space;
+            # rebuild the same whitening map from the sidecar
+            with np.load(wh_path) as wz:
+                L, center = wz['L'], wz['center']
+                anchor = wz['anchor'] if 'anchor' in wz.files else None
+            print('NUTS resume: ridge reparameterization from {}'.format(
+                wh_path))
+            logpdf = whiten_logpdf(logpdf, L, center, anchor=anchor,
+                                   device=dev)
+            to_z = lambda u: (np.asarray(u, np.float64) @ L.T
+                              + center).astype(np.float32)
     else:
         n_samples, burn, db = int(args.new[0]), int(args.new[1]), args.new[2]
         ckpt = db.removesuffix('.npz') + '.ckpt.npz'
         twin = db.removesuffix('.npz') + '.ckpt_durable.npz'
         gibbs = args.gibbs_n
         logpdf, constrain, z0 = make_transformed_logpdf(setup)
-        z0 = _nuts_init_point(args, setup, z0)
+        if args.mass in ('laplace', 'ridge'):
+            # warm start: MAP fit -> the prior-blended, floored Laplace
+            # covariance (map_fit.laplace_warm_mass)
+            from .map_fit import laplace_warm_mass
+            print('NUTS init: MAP fit ({} steps) + Laplace metric...'
+                  .format(args.init_map_steps), flush=True)
+            fit, inv0 = laplace_warm_mass(setup,
+                                          n_steps=args.init_map_steps)
+            lap = fit['laplace']
+            print('NUTS init: MAP logp = {:.2f}; Laplace Hessian on the '
+                  'plain path in {}, {} columns in {:.1f} s'.format(
+                      fit['logp'], lap['precision'],
+                      lap['hess_z'].shape[0], lap['seconds']), flush=True)
+            if args.init == 'map':
+                z0 = torch.as_tensor(fit['z']).to(dev)
+            else:
+                z0 = _nuts_init_point(args, setup, z0)
+        if args.mass == 'ridge':
+            # ridge-aligned reparameterization: z = center + L u with
+            # L Lᵀ the regularized Laplace covariance; NUTS runs in u-space
+            # from an identity metric with dense Welford adaptation on top
+            _to_z64, _, L, anchor = whiten_transform(fit['cov_z_reg'],
+                                                     fit['z'])
+            center = np.asarray(fit['z'], np.float64)
+            wh_path = db.removesuffix('.npz') + '.whiten.npz'
+            os.makedirs(os.path.dirname(os.path.abspath(wh_path)),
+                        exist_ok=True)
+            np.savez(wh_path, L=L, center=center, anchor=anchor)
+            # commit the sidecar now: a resume without it would read the
+            # u-space checkpoint as z-space (the map derives from this
+            # run's MAP fit and cannot be rebuilt)
+            commit_artifacts([wh_path],
+                             'Record ridge whitening sidecar ({})'.format(
+                                 os.path.basename(db)))
+            logpdf = whiten_logpdf(logpdf, L, center, anchor=anchor,
+                                   device=dev)
+            to_z = lambda u: _to_z64(u).astype(np.float32)
+            z0 = torch.zeros_like(z0)                     # u(MAP) = 0
+        elif args.mass == 'laplace':
+            init_inv_mass = np.repeat(inv0[None], args.chains, axis=0)
+        else:
+            z0 = _nuts_init_point(args, setup, z0)
         cfg = NUTSConfig(num_warmup=max(burn, 10), num_samples=n_samples,
-                         max_depth=args.max_depth, dense_mass=args.dense_mass,
-                         n_step=args.n_step)
+                         max_depth=args.max_depth,
+                         dense_mass=(args.dense_mass
+                                     or args.mass in ('laplace', 'ridge')),
+                         n_step=args.n_step,
+                         fixed_mass=args.mass == 'laplace')
     logpdf_n = (make_transformed_logpdf(setup, free_n=True)[0]
                 if gibbs else None)
+    if gibbs and to_z is not None:
+        with np.load(db.removesuffix('.npz') + '.whiten.npz') as wz:
+            logpdf_n = whiten_logpdf(
+                logpdf_n, wz['L'], wz['center'], gibbs=True,
+                anchor=wz['anchor'] if 'anchor' in wz.files else None,
+                device=dev)
     gens = [chain_generator(args.seed, i, dev) for i in range(args.chains)]
-    # per-chain start jitter in z-space, drawn on the host
+    # per-chain start jitter, drawn on the host: in ridge mode u is
+    # posterior-whitened, so 0.5 u-units is about half a posterior sd per
+    # coordinate; in z-space the scales are unknown, so 0.01
+    jit_sd = 0.5 if to_z is not None else 0.01
     jitter = torch.randn((args.chains,) + tuple(z0.shape),
                          generator=torch.Generator().manual_seed(
                              args.seed + 1), dtype=z0.dtype)
-    z0s = z0[None] + 0.01 * jitter.to(dev)
+    z0s = z0[None] + jit_sd * jitter.to(dev)
 
     print('NUTS: {} chains, {} warmup + {} samples, max depth {}{}...'.format(
         args.chains, cfg.num_warmup, n_samples, cfg.max_depth,
@@ -513,11 +583,13 @@ def run_nuts(args, setup):
         logpdf, z0s, gens, cfg, progress=progress, checkpoint_path=ckpt,
         checkpoint_every=max(1, min(args.checkpoint_every, 25)),
         resume=resume, gibbs_n=logpdf_n, steps_per_call=args.steps_per_call,
-        on_checkpoint=on_ckpt)
+        init_inv_mass=init_inv_mass, on_checkpoint=on_ckpt)
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
     dt = time.time() - tic
-    samples = out['samples']                 # (chains, n, dim) z-space
+    samples = out['samples']                 # (chains, n, dim) u/z-space
+    if to_z is not None:
+        samples = to_z(samples)              # ridge mode: back to z-space
     print('NUTS finished: {:.1f} s ({:.3f} s/sample/chain); accept {:.2f}, '
           '{} divergences; {:.1f} leapfrogs per draw'.format(
               dt, dt / max(1, n_samples), float(np.mean(out['accept_rate'])),
@@ -544,8 +616,11 @@ def run_nuts(args, setup):
     print('Saved to {}.npz'.format(db.removesuffix('.npz')))
     if os.path.exists(twin):
         os.remove(twin)   # superseded by the final committed trace
-    commit_artifacts([db.removesuffix('.npz') + '.npz'],
-                     'Record NUTS trace {}'.format(os.path.basename(db)))
+    final = [db.removesuffix('.npz') + '.npz']
+    if to_z is not None:
+        final.append(db.removesuffix('.npz') + '.whiten.npz')
+    commit_artifacts(final, 'Record NUTS trace {}'.format(
+        os.path.basename(db)))
     _report(traces, setup)
     return dict(out, seconds=dt)
 
@@ -567,10 +642,6 @@ def main(argv=None, device=None):
         parser.error('--sampler {} is not ported to torch yet (ROADMAP Queue '
                      '1 item {}); --sampler am and nuts run here'.format(
                          args.sampler, _NOT_PORTED[args.sampler]))
-    if args.sampler == 'nuts' and args.mass != 'adapt':
-        parser.error('--mass {} needs the Laplace approximation, which is not '
-                     'ported to torch yet (ROADMAP Queue 1 item 13b)'.format(
-                         args.mass))
     if args.shard_forward:
         parser.error('--shard-forward is not ported (ROADMAP Queue 1 item '
                      '16)')

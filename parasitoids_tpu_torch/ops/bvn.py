@@ -15,8 +15,12 @@ for a ρ on a CUDA device waits on the card.
 The gradient is the JAX op's closed-form rule, not autograd through the
 quadrature: :class:`_CellMasses` saves the inputs and the clamped output,
 and its backward (:func:`cell_masses_vjp`) contracts the cotangent with
-the closed-form CDF derivative lattices.  The plain day-accumulate
-backward (``ops/day_kernel.py``) shares that rule.
+the closed-form CDF derivative lattices.  That backward is written in
+differentiable torch ops, so autograd differentiates it once more: the
+second derivative is the derivative of the closed-form rule, as JAX takes
+it through the op's ``custom_jvp`` (the Laplace Hessian, reverse over
+reverse).  The plain day-accumulate backward (``ops/day_kernel.py``)
+shares that rule.
 
 Everything is batched over leading dimensions of ``mu``: ``(2,)`` gives
 one ``(n, n)`` block, ``(C, 2)`` gives ``(C, n, n)``.
@@ -29,7 +33,6 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from ..device import scalar
 
@@ -213,7 +216,8 @@ class _CellMasses(torch.autograd.Function):
     """Corner-CDF cell masses on sanitized inputs, with the closed-form
     backward (the JAX op's ``custom_jvp``): the quadrature evaluates only
     the value, and the graph keeps the inputs and the clamped output, not
-    the per-node lattices."""
+    the per-node lattices.  The backward is twice differentiable: under
+    ``create_graph`` autograd records it against the saved inputs."""
 
     @staticmethod
     def forward(ctx, mu, sig_x, sig_y, rho, cell, K, branch):
@@ -224,7 +228,6 @@ class _CellMasses(torch.autograd.Function):
         return out
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
         mu, sig_x, sig_y, rho, cell, out = ctx.saved_tensors
         # the primal clamps tail differencing noise at 0: no cotangent there

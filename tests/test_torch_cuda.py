@@ -479,3 +479,24 @@ def test_nuts_transition_kernels_vs_plain(cuda_device):
         assert abs(float(lpk) - float(lpp)) <= 1e-5 * abs(float(lpp))
         assert abs(float(ak) - float(ap)) <= 1e-4
     assert compared >= 2
+
+
+def test_laplace_hessian_at_401_repeats_in_its_precision(cuda_device):
+    # the Laplace Hessian at the MAP CLI default (401², 18 days, K = 22,
+    # Kl = 10, sprd_factor) on the f64 plain twin, twice: no kernel launch,
+    # and the two runs agree to f64 roundoff (the plain accumulate's
+    # index_add adds atomically on the card, so they need not be equal)
+    from parasitoids_tpu_torch.bayes import map_fit
+    from parasitoids_tpu_torch.bayes.model import BayesSetup
+    setup = BayesSetup(map_fit.map_cli_params(), device=cuda_device)
+    assert map_fit.hessian_dtype(setup) == torch.float64
+    twin = map_fit.plain_twin(setup, torch.float64)
+    neg, _, _ = map_fit._make_objective(twin, True)
+    z = map_fit.initial_z(setup, True).double()
+    before = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+    H1, H2 = (map_fit.hessian_columns(neg, z) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD) == before
+    assert H1.dtype == torch.float64 and H1.shape == (26, 26)
+    assert bool(torch.isfinite(H1).all())
+    assert float((H1 - H2).abs().max()) <= 1e-10 * float(H1.abs().max())

@@ -172,8 +172,10 @@ def test_port_does_not_import_jax():
 
 def test_port_has_no_import_of_the_jax_package():
     # no line of the port, its smoke run or its profile scripts imports
-    # parasitoids_tpu or a module of it
-    pattern = re.compile(r'^\s*(from|import)\s+parasitoids_tpu(\.|\s|$)')
+    # jax, parasitoids_tpu or a module of either; every module of the
+    # curvature and analysis layers is among the files read
+    pattern = re.compile(
+        r'^\s*(from|import)\s+(parasitoids_tpu|jax)(\.|\s|$)')
     files = [os.path.join(d, f)
              for d, _, fs in os.walk(os.path.join(ROOT,
                                                   'parasitoids_tpu_torch'))
@@ -182,7 +184,12 @@ def test_port_has_no_import_of_the_jax_package():
         os.path.join(ROOT, 'scripts', f)
         for f in os.listdir(os.path.join(ROOT, 'scripts'))
         if f.startswith(('profile_torch', 'time_day_kernel'))]
-    assert len(files) > 38
+    assert len(files) > 46
+    for mod in ('bayes/identify', 'bayes/loo', 'bayes/map_fit',
+                'bayes/predictive', 'bayes/sensitivity', 'bayes/spread',
+                'bayes/summary', 'bayes/vi', 'parallel/ensemble'):
+        assert os.path.join(ROOT, 'parasitoids_tpu_torch',
+                            mod + '.py') in files, mod
     hits = ['{}:{}'.format(os.path.relpath(f, ROOT), i + 1)
             for f in files for i, line in enumerate(open(f))
             if pattern.match(line)]

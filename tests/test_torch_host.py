@@ -1,8 +1,9 @@
 """The port's own host layer against the JAX package's: ``Params``, the
 wind loader, ``LocInfo``, the saved-run format, the MCMC diagnostics, the
-durable commit and the diagnostic plots are copies, and must give the same
-values; and the port's device policy (the card by default, no CPU
-fallback)."""
+durable commit, the diagnostic plots and the NumPy parts of the curvature
+and analysis layers (the Laplace metric's floors, PSIS, WAIC, PSIS-LOO,
+power-scaling) are copies, and must give the same values; and the port's
+device policy (the card by default, no CPU fallback)."""
 
 import os
 import subprocess
@@ -251,3 +252,92 @@ def test_am_cli_runs_on_the_cpu_with_device_flag(monkeypatch, tmp_path):
     with np.load(db + '.npz') as npz:
         assert npz['traces'].shape == (1, 2, 26)
         assert np.isfinite(npz['traces']).all()
+
+
+@pytest.mark.parametrize('prog', ['identify', 'summary', 'predictive', 'loo',
+                                  'spread', 'sensitivity'])
+def test_analysis_clis_raise_without_a_card(prog, monkeypatch):
+    # the curvature and analysis command lines take the card unless told
+    # --device cpu, as the others do
+    import importlib
+    _no_card(monkeypatch)
+    mod = importlib.import_module('parasitoids_tpu_torch.bayes.' + prog)
+    argv = [] if prog == 'identify' else ['unused.npz']
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mod.main(argv + ['ndays=2'])
+
+
+# ---------------------------------------------------------------------------
+# host NumPy copies of the curvature and analysis layers
+# ---------------------------------------------------------------------------
+
+def _host_cases():
+    """name -> (JAX function, port function, arguments made from a seed)."""
+    from parasitoids_tpu.bayes import loo as jloo
+    from parasitoids_tpu.bayes import map_fit as jmap
+    from parasitoids_tpu.bayes import sensitivity as jsens
+    from parasitoids_tpu.bayes import vi as jvi
+    from parasitoids_tpu_torch.bayes import loo as tloo
+    from parasitoids_tpu_torch.bayes import sensitivity as tsens
+    from parasitoids_tpu_torch.bayes import vi as tvi
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((6, 6))
+    cov = A @ A.T * np.logspace(-8, 2, 6) + 1e-9 * np.eye(6)
+    pv = np.abs(rng.standard_normal(6)) * [1, 0, 1, 1, 1, 1]
+    B = rng.standard_normal((6, 6))
+    H_raw = A @ A.T * 1e4 + B + B.T
+    H_np = np.diag(np.abs(rng.standard_normal(6)))
+    H_T = H_np + 0.1 * np.eye(6)
+    ll = rng.standard_normal((60, 9)) - 3.0 * rng.random(9)
+    ll[:, 0] -= 20.0 * rng.random(60) ** 4        # a heavy-tailed column
+    other = {'elpd_pointwise': rng.standard_normal(9)}
+    x = np.sort(rng.pareto(2.0, 40) + 1e-3)
+    draws = rng.standard_normal((80, 3))
+    return {
+        'regularize_cov_z': (jmap.regularize_cov_z,
+                             map_fit.regularize_cov_z, (cov, pv)),
+        'blend_prior_metric': (jmap.blend_prior_metric,
+                               map_fit.blend_prior_metric,
+                               (H_raw, H_np, H_T, pv)),
+        'gpd_fit': (jvi.gpd_fit, tvi.gpd_fit, (x,)),
+        'psis': (jvi.psis, tvi.psis, (-ll[:, 0],)),
+        'waic': (jloo.waic, tloo.waic, (ll,)),
+        'psis_loo': (jloo.psis_loo, tloo.psis_loo, (ll,)),
+        'loo_compare': (lambda a: jloo.loo_compare(jloo.psis_loo(ll), a),
+                        lambda a: tloo.loo_compare(tloo.psis_loo(ll), a),
+                        (other,)),
+        'cjs_dist': (jsens.cjs_dist, tsens.cjs_dist,
+                     (draws[:, 0], 0.3 * draws[:, 1])),
+        'powerscale_logweights': (jsens.powerscale_logweights,
+                                  tsens.powerscale_logweights,
+                                  (ll.sum(axis=1), 1.5)),
+        'powerscale_sensitivity': (
+            jsens.powerscale_sensitivity, tsens.powerscale_sensitivity,
+            (draws, 0.2 * draws[:, 0], np.resize(ll.sum(axis=1), 80),
+             ['a', 'b', 'c'])),
+    }
+
+
+def _close(a, b, path):
+    """Equal to 1e-12 of each value, recursively over the results'
+    dicts, tuples and lists (strings and ints exactly)."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _close(a[k], b[k], '{}[{!r}]'.format(path, k))
+    elif isinstance(a, (list, tuple)) and a and isinstance(a[0], str):
+        assert a == b, path
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, '{}[{}]'.format(path, i))
+    else:
+        np.testing.assert_allclose(np.asarray(a, np.float64),
+                                   np.asarray(b, np.float64), rtol=1e-12,
+                                   atol=0, err_msg=path)
+
+
+@pytest.mark.parametrize('name', list(_host_cases()))
+def test_curvature_and_analysis_host_copies_match(name):
+    jax_fn, port_fn, args = _host_cases()[name]
+    _close(port_fn(*args), jax_fn(*args), name)

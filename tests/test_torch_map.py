@@ -262,18 +262,38 @@ def test_cli_writes_the_report(tmp_path, capsys):
         assert '{} = '.format(name) in report
 
 
-@pytest.mark.parametrize('flags', [['--norm'], ['--norm', '--polish', '2'],
-                                   ['--norm', '--starts', '2'],
-                                   ['--MAP', '--shard-forward']])
+@pytest.mark.parametrize('flags', [['--MAP', '--shard-forward']])
 def test_cli_refuses_what_is_not_ported(flags, capsys):
-    # the Laplace approximation waits for item 13b, the sharded forward
-    # for item 16; --polish, --starts and --seed run (below)
+    # the sharded forward waits for item 16; --norm, --polish, --starts
+    # and --seed run (below)
     with pytest.raises(SystemExit) as exc:
         tm.main(flags + list(MAP_SMALL), device='cpu')
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert 'ROADMAP' in err
-    assert ('item 16' if '--shard-forward' in flags else 'item 13b') in err
+    assert 'ROADMAP' in err and 'item 16' in err
+
+
+@pytest.mark.parametrize('flags', [['--norm'], ['--norm', '--polish', '2'],
+                                   ['--norm', '--starts', '2']])
+def test_cli_norm_runs_the_laplace_approximation(flags, tmp_path, capsys):
+    # --norm: MAP (alone, polished or multi-start), then the Laplace
+    # approximation on the plain path; the report adds the log evidence
+    # and each parameter's sd
+    out = str(tmp_path / 'map_fit.txt')
+    fit = tm.main(flags + ['--steps', '2', '-o', out, *MAP_SMALL],
+                  device='cpu')
+    printed = capsys.readouterr().out
+    assert ('laplace: Hessian on the plain path in float32, 26 columns'
+            in printed)
+    lap = fit['laplace']
+    assert lap['hess_z'].shape == (26, 26) and lap['precision'] == 'float32'
+    assert np.isfinite(lap['sd_theta']).all() and lap['sd_theta'].shape == (
+        25,)
+    with open(out) as f:
+        lines = f.read().splitlines()
+    assert lines[1].startswith('Laplace log-evidence (n_periods fixed): ')
+    assert all('(sd ' in line for line in lines[2:-1])
+    assert lines[-1].strip().startswith('sprd_factor = ')
 
 
 # ---------------------------------------------------------------------------

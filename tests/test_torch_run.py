@@ -128,7 +128,6 @@ def test_burn_in_checkpoint_holds_no_samples_yet(tmp_path, capsys):
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--sampler', 'nuts', '--mass', 'laplace'], 'item 13b'),
     (['--sampler', 'pt'], 'item 18'),
     (['--sampler', 'smc'], 'item 18'), (['--sampler', 'vi'], 'item 18'),
     (['--shard-forward'], 'item 16')])
@@ -256,6 +255,65 @@ def test_nuts_cli_resume_writes_the_uninterrupted_traces(tmp_path, at,
         assert not os.path.exists(db + suffix)
 
 
+@pytest.mark.parametrize('mass', ['laplace', 'ridge'])
+def test_nuts_cli_laplace_and_ridge_metrics(mass, tmp_path, capsys):
+    # --mass laplace: a dense metric fixed at the blended Laplace
+    # covariance of a MAP fit; --mass ridge: NUTS in that covariance's
+    # eigenbasis, the map kept in the <db>.whiten.npz sidecar
+    db = str(tmp_path / mass)
+    trun.main(CPU + NUTS + ['--mass', mass, '--new', '2', '10', db,
+                            '--chains', '2'] + TINY)
+    out = capsys.readouterr().out
+    assert 'NUTS init: MAP fit (3 steps) + Laplace metric...' in out
+    assert 'Laplace Hessian on the plain path in float32, 25 columns' in out
+    with np.load(db + '.npz') as npz:
+        traces, inv_mass = npz['traces'], npz['inv_mass']
+        z = npz['z_samples']
+    assert traces.shape == (2, 2, 26) and np.isfinite(traces).all()
+    assert inv_mass.shape == (2, 25, 25) and np.isfinite(z).all()
+    if mass == 'laplace':
+        # warm-up adapted the step size only: the metric is the warm start
+        np.testing.assert_array_equal(inv_mass[0], inv_mass[1])
+        assert np.linalg.eigvalsh(inv_mass[0].astype(np.float64)).min() > 0
+        assert not os.path.exists(db + '.whiten.npz')
+    else:
+        with np.load(db + '.whiten.npz') as wz:
+            assert set(wz.files) == {'L', 'center', 'anchor'}
+            L, center = wz['L'], wz['center']
+        assert L.shape == (25, 25) and center.shape == (25,)
+        # the pinned n_periods slot is the one anchored direction
+        assert float(np.load(db + '.whiten.npz')['anchor'].sum()) == 1.0
+        assert np.all(traces[..., 13] == 30.0)
+
+
+def test_nuts_cli_ridge_resumes_through_the_sidecar(tmp_path, monkeypatch,
+                                                   capsys):
+    # an interrupted --mass ridge run resumes in u-space from its
+    # checkpoint and sidecar, and writes the traces of the run that never
+    # stopped, bit for bit
+    ridge = NUTS + ['--mass', 'ridge']
+    whole = str(tmp_path / 'whole')
+    trun.main(CPU + ridge + ['--new', '3', '10', whole,
+                             '--checkpoint-every', '2'] + TINY)
+    db = str(tmp_path / 'cut')
+    stop = _interrupt_nuts(monkeypatch, ('sample', 2))
+    with pytest.raises(stop):
+        trun.main(CPU + ridge + ['--new', '3', '10', db,
+                                 '--checkpoint-every', '2'] + TINY)
+    monkeypatch.undo()
+    capsys.readouterr()
+    trun.main(CPU + ['--sampler', 'nuts', '--resume', db, '0'] + TINY)
+    assert ('NUTS resume: ridge reparameterization from ' + db +
+            '.whiten.npz') in capsys.readouterr().out
+    with np.load(whole + '.npz') as a, np.load(db + '.npz') as b:
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    with np.load(whole + '.whiten.npz') as a, \
+            np.load(db + '.whiten.npz') as b:
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
 def test_nuts_cli_gibbs_dense_and_analyze(tmp_path, monkeypatch, capsys):
     db = str(tmp_path / 'gibbs')
     trun.main(CPU + NUTS + ['--new', '3', '10', db, '--gibbs-n',
@@ -280,8 +338,7 @@ def test_nuts_cli_gibbs_dense_and_analyze(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize('flags,msg', [
-    (['--sampler', 'nuts', '--obs-sweeps', '2'], 'only applies to the am'),
-    (['--sampler', 'nuts', '--mass', 'ridge'], 'item 13b')])
+    (['--sampler', 'nuts', '--obs-sweeps', '2'], 'only applies to the am')])
 def test_nuts_cli_refusals(flags, msg, capsys):
     with pytest.raises(SystemExit) as exc:
         trun.main(CPU + ['--new', '2', '1', 'unused'] + flags + TINY)
