@@ -26,8 +26,16 @@ Then the curvature and analysis paths: the MAP CLI with ``--norm`` at
 rows against central differences of the f64 gradient), the NUTS CLI with
 ``--mass ridge`` at 801² (the whitening sidecar, a run resumed through it
 bit for bit), and ``bayes.summary`` over the AM store (18 forward
-launches per ensemble member, every section of the JAX report).  Any
-failed phase exits non-zero.  ``--only 11,12`` runs some phases alone,
+launches per ensemble member, every section of the JAX report).  Then the
+tempered and evidence samplers at the Bayes default: the PT command line
+(four replicas, a checkpoint, a resume, one more swap round from the
+reloaded store bitwise), ``run_smc`` stopped after stage 3 and resumed
+from the command line's store bitwise at stage 5, the ADVI command line
+(a fit and a resume from the stored q) with K3 = 18 per value+gradient
+and K1 = K3 + 18 per evaluation without a graph, and ``bayes.sbc`` (AM arm)
+stopped and resumed through its checkpoint; then a complete SMC anneal and
+``bayes.cv`` on one fold at the MAP CLI's small depth.  Any failed phase
+exits non-zero.  ``--only 11,12`` runs some phases alone,
 without the result line (a development run).  The last line is a JSON
 object with ``"ok": true`` and the device; the line before it lists the
 kernels with their launches, errors, times (the forward's three passes and
@@ -1501,12 +1509,360 @@ def phase_summary_cli(dev, card, work):
     return launches[0], members, sec_member, sec
 
 
+# the MAP CLI's small configuration (tests/_torch_parity.py MAP_SMALL): the
+# depth at which [17] runs its two complete anneals through the kernels
+MAP_SMALL = ['ndays=3', 'domain_info=(10000.0,50)', 'interp_num=2',
+             'kernel_rad=6', 'kernel_rad_local=3']
+
+
+def zero_counts():
+    """Every launch and evaluation count of the port set to 0."""
+    from parasitoids_tpu_torch.bayes import model, nuts, sampler, vi
+    from parasitoids_tpu_torch.ops import day_kernel
+    day_kernel.LAUNCHES = day_kernel.LAUNCHES_BWD = 0
+    sampler.FORWARDS = nuts.VALUE_AND_GRADS = model.SKIPPED_FORWARDS = 0
+    vi.VALUE_AND_GRADS = vi.VALUES = 0
+
+
+def launch_counts():
+    """(K1 launches, K3 launches) after the card has finished."""
+    from parasitoids_tpu_torch.ops import day_kernel
+    torch.cuda.synchronize()
+    return day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD
+
+
+def phase_pt_cli(dev, card, work):
+    """The PT CLI at the Bayes default (801², 18 days, K = 44, Kl = 20):
+    four replicas, a new run with a checkpoint, then a resume, every count
+    zeroed just before and read just after; the store; a reloaded state
+    and one more swap round bitwise the state that never stopped; swap
+    acceptance, the evidence and seconds per replica step.  Returns (K1
+    launches, forwards, seconds per replica step, the phase's seconds)."""
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.bayes import sampler, tempering
+    from parasitoids_tpu_torch.bayes.store import load_chain, load_extras
+    print('[14] PT CLI at the Bayes default (801^2, 18 days, K = 44, '
+          'Kl = 20, 4 replicas, swap every 5)')
+    tic_phase = time.perf_counter()
+    db = os.path.join(work, 'pt')
+    zero_counts()
+    new = bayes_run.main(['--sampler', 'pt', '--temps', '4', '--swap-every',
+                          '5', '--new', '20', '10', db, '--checkpoint-every',
+                          '15'], device=dev)
+    with np.load(db + '.npz') as npz:
+        first = npz['traces']
+    res = bayes_run.main(['--sampler', 'pt', '--resume', db, '10'],
+                         device=dev)
+    k1, k3 = launch_counts()
+    forwards = sampler.FORWARDS
+    with np.load(db + '.npz') as npz:
+        files = set(npz.files)
+        traces = npz['traces']
+    with open(db + '.meta.json') as fh:
+        meta = json.load(fh)
+    ex = load_extras(db)
+    check({'x_betas', 'x_loglik', 'x_swap_attempts', 'x_swap_accepts',
+           'traces', 'state_key', 'state_m'} <= files and
+          traces.shape == (1, 30, 26) and first.shape == (1, 20, 26) and
+          np.array_equal(traces[:, :20], first) and
+          bool(np.isfinite(traces).all()),
+          'store: traces {} (the cold chain after 10 burn-in steps, the '
+          'first 20 kept on resume), keys {}'.format(
+              traces.shape, sorted(k for k in files if k.startswith('x_'))))
+    check(np.array_equal(ex['betas'], tempering.power_ladder(4)) and
+          ex['loglik'].shape == (4, 40) and
+          bool(np.isfinite(ex['loglik']).all()) and
+          meta['rounds_done'] == 8 and meta['swap_every'] == 5 and
+          meta['sampler'] == 'pt',
+          'betas {} (power ladder), loglik {}, rounds_done {}'.format(
+              ex['betas'].tolist(), ex['loglik'].shape,
+              meta['rounds_done']))
+    # 4 replicas initialised, 4 reloaded, and every proposal of the
+    # 4 x 40 steps whose prior was finite
+    check(8 <= forwards <= 8 + 160 and k1 == 18 * forwards and k3 == 0,
+          '{} K1 launches = 18 x {} forwards (8 + {} of 160 proposals inside '
+          'the prior\'s support); no K3'.format(k1, forwards, forwards - 8))
+    # a reloaded state and one more swap round, against the state the
+    # resumed run left in memory
+    setup = bayes_run.build_setup(device=dev)
+    _, reloaded, _ = load_chain(db, setup)
+    check(states_equal(res['states'], reloaded),
+          'the reloaded replicas are the replicas in memory, bit for bit')
+    cfg = tempering.PTConfig(n_rounds=1, swap_every=5)
+    out = [tempering.run_pt(setup, s, ex['betas'], 2, cfg, round_offset=8)
+           for s in (res['states'], reloaded)]
+    torch.cuda.synchronize()
+    check(states_equal(out[0][0], out[1][0]) and
+          torch.equal(out[0][1], out[1][1]) and
+          torch.equal(out[0][2]['swap_accepts'], out[1][2]['swap_accepts']),
+          'one more swap round (4 x 5 steps) from the reloaded replicas '
+          'bitwise equal to one from memory')
+    ev = res['evidence']
+    steps = (new['rounds'] + res['rounds']) * 5 * 4
+    sec = (new['seconds'] + res['seconds']) / steps
+    print('  swap acceptance by rung {}; TI {:.2f}, stepping-stone {:.2f}, '
+          'equilibrated {} (40 steps: not asserted)'.format(
+              np.round(res['swap_rates'], 3).tolist(), ev['ti'], ev['ss'],
+              ev['equilibrated']))
+    sec_phase = time.perf_counter() - tic_phase
+    print('  {:.4f} s per replica step ({} replica steps in {:.2f} s, '
+          'checkpoints included; {})'.format(
+              sec, steps, new['seconds'] + res['seconds'], card))
+    print('  phase [14]: {:.1f} s'.format(sec_phase))
+    return k1, forwards, sec, sec_phase
+
+
+def phase_smc(dev, card, work):
+    """``run_smc`` at the Bayes default with 8 particles, one move a
+    stage: five stages uninterrupted, then a run stopped after stage 3
+    through its checkpoint callback, saved as the CLI saves it and resumed
+    from that store to stage 5, bitwise the uninterrupted run; resampled
+    clones with generators of their own; K1 = 18 × forwards and no K3.
+    Returns (K1 launches, forwards, seconds per particle move, the phase's
+    seconds)."""
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.bayes import sampler, smc
+    print('[15] SMC at the Bayes default (801^2, 18 days, 8 particles, one '
+          'move a stage, five stages)')
+    tic_phase = time.perf_counter()
+    setup = bayes_run.build_setup(device=dev)
+    cfg = smc.SMCConfig(n_particles=8, n_moves=1, min_accepts=0.0,
+                        max_move_rounds=1)
+    db = os.path.join(work, 'smc')
+
+    class Stop(Exception):
+        pass
+
+    def stop_at(stage, keep, save=False):
+        def cb(p):
+            if save:
+                bayes_run._save_smc(db, p, 0, cfg)
+            keep.update(p)
+            if p['stage'] == stage:
+                raise Stop
+        return cb
+
+    zero_counts()
+    mono, part, resumed = {}, {}, {}
+    tic = time.perf_counter()
+    try:
+        smc.run_smc(setup, 0, cfg, seed=0, checkpoint=stop_at(5, mono))
+    except Stop:
+        pass
+    torch.cuda.synchronize()
+    sec_mono = time.perf_counter() - tic
+    try:
+        smc.run_smc(setup, 0, cfg, seed=0,
+                    checkpoint=stop_at(3, part, save=True))
+    except Stop:
+        pass
+    payload, meta = bayes_run._smc_resume_payload(db, setup)
+    try:
+        smc.run_smc(setup, None, cfg, seed=0, resume=payload,
+                    checkpoint=stop_at(5, resumed))
+    except Stop:
+        pass
+    k1, k3 = launch_counts()
+    forwards = sampler.FORWARDS
+    check(meta['stage'] == 3 and mono['stage'] == resumed['stage'] == 5,
+          'stopped after stage 3 (store stage {}), resumed to stage 5'.format(
+              meta['stage']))
+    a, b = mono['states'], resumed['states']
+    same = (states_equal(a, b) and np.array_equal(mono['logw'],
+                                                  resumed['logw']) and
+            mono['logz'] == resumed['logz'] and
+            mono['log_scale'] == resumed['log_scale'] and
+            all(np.array_equal(mono['history'][k], resumed['history'][k])
+                for k in mono['history']))
+    check(same, 'the run resumed from the store is bitwise the uninterrupted '
+          'one at stage 5 (particles, generators, weights, logZ {:.6f}, '
+          'history)'.format(mono['logz']))
+    h = mono['history']
+    keys = {bytes(g.get_state().numpy()) for g in a.key}
+    check(bool(np.any(h['resampled'])) and len(keys) == 8,
+          'resampled at stages {}; the 8 particles hold 8 distinct '
+          'generators'.format((np.flatnonzero(h['resampled']) + 1).tolist()))
+    # 8 initial particles for each of the two runs from the prior, 8 in the
+    # reload, and every proposal inside the support: 40 + 24 + 16 moves
+    check(24 <= forwards <= 24 + 80 and k1 == 18 * forwards and k3 == 0,
+          '{} K1 launches = 18 x {} forwards (24 initial or reloaded + {} of '
+          '80 proposals inside the prior\'s support); no K3'.format(
+              k1, forwards, forwards - 24))
+    print('  beta by stage {}'.format(
+        ' '.join('{:.3g}'.format(v) for v in h['betas'])))
+    print('  ESS by stage {}'.format(
+        ' '.join('{:.2f}'.format(v) for v in h['ess'])))
+    sec = sec_mono / (8 + 5 * 8)
+    sec_phase = time.perf_counter() - tic_phase
+    print('  {:.4f} s per particle move (the uninterrupted run: 8 '
+          'initial forwards and 40 moves in {:.2f} s; {})'.format(
+              sec, sec_mono, card))
+    print('  phase [15]: {:.1f} s'.format(sec_phase))
+    return k1, forwards, sec, sec_phase
+
+
+def phase_vi_cli(dev, card, work):
+    """The ADVI CLI at the Bayes default: 5 Adam steps of MAP, 10 ELBO
+    steps of 2 draws, 32 importance draws, then a resume that appends 8
+    draws from the stored q; K3 = 18 × the value+gradients, K1 = K3 +
+    18 × the evaluations without a graph.  Returns (K1, K3, seconds per
+    ELBO step, the phase's seconds)."""
+    from parasitoids_tpu_torch.bayes import model, sampler, vi
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.bayes.store import load_chain
+    print('[16] ADVI CLI at the Bayes default (801^2, 18 days, 5 MAP '
+          'steps, 10 ELBO steps x 2 draws, 32 importance draws)')
+    tic_phase = time.perf_counter()
+    db = os.path.join(work, 'vi')
+    timing = []
+    real = vi.advi
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        timing.append(time.perf_counter() - tic)
+        return out
+
+    vi.advi = timed
+    try:
+        zero_counts()
+        ev = bayes_run.main(['--sampler', 'vi', '--new', '16', '10', db,
+                             '--vi-mc', '2', '--vi-is', '32',
+                             '--init-map-steps', '5'], device=dev)
+        ev2 = bayes_run.main(['--sampler', 'vi', '--resume', db, '8',
+                              '--vi-is', '32'], device=dev)
+        k1, k3 = launch_counts()
+    finally:
+        vi.advi = real
+    counts = dict(vg=vi.VALUE_AND_GRADS, values=vi.VALUES,
+                  forwards=sampler.FORWARDS, skipped=model.SKIPPED_FORWARDS)
+    # k-hat is inf where fewer than five weights exceed PSIS's cutoff (the
+    # JAX package's rule): after 10 ELBO steps the weights may span
+    # hundreds of nats, so it is held to be a number, not to be finite
+    check(all(np.isfinite([e['elbo'], e['logz_is']]).all() and
+              not np.isnan(e['khat']) for e in (ev, ev2)),
+          'ELBO {:.2f}, IS log Z {:.2f} finite, k-hat {:.3f}; after the '
+          'resume {:.2f}, {:.2f}, {:.3f}'.format(
+              ev['elbo'], ev['logz_is'], ev['khat'], ev2['elbo'],
+              ev2['logz_is'], ev2['khat']))
+    setup = bayes_run.build_setup(device=dev)
+    traces, _, meta = load_chain(db, setup)
+    check(traces.shape == (1, 24, 26) and bool(np.isfinite(traces).all())
+          and meta['sampler'] == 'vi' and meta['n_samples'] == 24,
+          'the store loads with load_chain: traces {} (16 + 8 drawn from '
+          'the stored q)'.format(traces.shape))
+    # K3: the 5 Adam steps and the 20 ELBO draws; K1 besides: the MAP
+    # fit's final value, the 2 x 32 importance draws, the chain states at
+    # the best draw (2) and the reload (1); skipped evaluations (prior not
+    # finite) launch nothing
+    s = counts['skipped']
+    s_grad = 5 + counts['vg'] - k3 // 18
+    check(counts['vg'] == 20 and counts['values'] == 64 and
+          counts['forwards'] == 3 and k3 % 18 == 0 and k1 % 18 == 0 and
+          0 <= s_grad <= s and
+          (k1 - k3) // 18 == 1 + 64 + 3 - (s - s_grad),
+          'K3 {} = 18 x (5 Adam + {} ELBO draws - {} skipped); K1 {} = K3 '
+          '+ 18 x (1 + {} importance draws + {} chain states - {} '
+          'skipped)'.format(k3, counts['vg'], s_grad, k1, counts['values'],
+                            counts['forwards'], s - s_grad))
+    sec = timing[0] / 10
+    sec_phase = time.perf_counter() - tic_phase
+    print('  {:.4f} s per ELBO step of 2 draws ({:.2f} s for 10; the fit '
+          'with its MAP init {:.2f} s; {})'.format(
+              sec, timing[0], ev['fit_seconds'], card))
+    print('  phase [16]: {:.1f} s'.format(sec_phase))
+    return k1, k3, sec, sec_phase
+
+
+def phase_sbc_and_anneals(dev, card, work):
+    """``bayes.sbc`` (AM arm) at the Bayes default, uninterrupted and
+    stopped after replicate 1 and resumed through its checkpoint, the ranks
+    bitwise equal, K1 only; then at the MAP CLI's small depth, through the
+    kernels, a complete SMC anneal by the CLI and ``bayes.cv`` on fold 0.
+    Returns (K1 launches of the SBC runs, K1 of the small runs, the SBC's
+    seconds, the phase's seconds)."""
+    from parasitoids_tpu_torch.bayes import cv, sbc, sampler
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    print('[17] bayes.sbc (AM arm, 801^2, 2 replicates x (5 + 10 steps)) '
+          'with a checkpoint; SMC to beta = 1 and bayes.cv fold 0 at the '
+          'small depth (101^2, 3 days, K = 6)')
+    tic_phase = time.perf_counter()
+    args = ['--replicates', '2', '--samples', '10', '--burn', '5',
+            '--thin', '1']
+    ck = os.path.join(work, 'sbc.ckpt.npz')
+    zero_counts()
+    tic = time.perf_counter()
+    full = sbc.main(args + ['-o', os.path.join(work, 'sbc_full')],
+                    device=dev)
+    torch.cuda.synchronize()
+    sec_sbc = time.perf_counter() - tic
+    args1 = list(args)
+    args1[1] = '1'
+    sbc.main(args1 + ['--checkpoint', ck, '-o', os.path.join(work, 'sbc1')],
+             device=dev)
+    resumed = sbc.main(args + ['--checkpoint', ck, '-o',
+                               os.path.join(work, 'sbc2')], device=dev)
+    k1, k3 = launch_counts()
+    forwards = sampler.FORWARDS
+    check(resumed['resumed_at'] == 1 and
+          np.array_equal(full['ranks'], resumed['ranks']) and
+          np.array_equal(full['truths'], resumed['truths']) and
+          full['L'] == 10,
+          'stopped after replicate 1 and resumed: ranks {} bitwise those of '
+          'the uninterrupted run'.format(full['ranks'].tolist()))
+    # 4 replicates run: one simulated dataset and one initial state each,
+    # then every proposal inside the support
+    check(k1 == 18 * (forwards + 4) and k3 == 0 and forwards >= 4,
+          '{} K1 launches = 18 x ({} chain forwards + 4 simulated datasets); '
+          'no K3'.format(k1, forwards))
+    print('  SBC at 801^2: {:.2f} s for 2 replicates ({})'.format(sec_sbc,
+                                                                card))
+
+    # the two complete anneals, at the small depth: at 801^2 the number of
+    # stages to beta = 1 is not known in advance
+    here = os.path.join(work, 'small')
+    os.makedirs(here)
+    zero_counts()
+    tic = time.perf_counter()
+    payload = bayes_run.main(['--sampler', 'smc', '--new', '8', '0',
+                              os.path.join(here, 'smc'), '--moves', '1',
+                              '--min-accepts', '0', '--max-move-rounds', '1']
+                             + MAP_SMALL, device=dev)
+    k1_smc, k3_smc = launch_counts()
+    sec_smc = time.perf_counter() - tic
+    check(payload['beta'] == 1.0 and np.isfinite(payload['logz']) and
+          k1_smc > 0 and k3_smc == 0,
+          'SMC CLI at the small depth: beta 1 after {} stages, log evidence '
+          '{:.2f}; {} K1 launches, no K3 ({:.1f} s)'.format(
+              payload['stage'], payload['logz'], k1_smc, sec_smc))
+    zero_counts()
+    tic = time.perf_counter()
+    res = cv.main(['--folds', '0', '--particles', '8', '--moves', '1',
+                   '--out', os.path.join(here, 'cv.json')] + MAP_SMALL,
+                  device=dev)
+    k1_cv, k3_cv = launch_counts()
+    sec_cv = time.perf_counter() - tic
+    check(len(res['elpd']) == 1 and np.isfinite(res['elpd_total']) and
+          np.isfinite(res['logz'][0]) and k1_cv > 0 and k3_cv == 0,
+          'bayes.cv fold 0 ({}) at the small depth: elpd {:.3f}, refit '
+          'log Z {:.2f}; {} K1 launches, no K3 ({:.1f} s)'.format(
+              res['labels'][0], res['elpd_total'], res['logz'][0], k1_cv,
+              sec_cv))
+    sec_phase = time.perf_counter() - tic_phase
+    print('  phase [17]: {:.1f} s'.format(sec_phase))
+    return k1, k1_smc + k1_cv, sec_sbc, sec_phase
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(prog='chip_smoke.py')
     ap.add_argument('--only', default=None, metavar='N,N',
                     help='run only these phases (1, 2 and the checks of '
-                         'imports always run; 13 needs 9); no result line')
+                         'imports always run; 13 needs 9), e.g. 14,15,16,17 '
+                         'for the tempered and evidence samplers; no result '
+                         'line')
     args = ap.parse_args(argv)
     only = (None if args.only is None else
             {int(v) for v in args.only.split(',')})
@@ -1563,12 +1919,19 @@ def run(only, work):
     ridge_k1, ridge_k3, lap801, ridge_sec = phase_ridge_cli(dev, card)
     sum_k1, members, sec_member, sec_report = phase_summary_cli(dev, card,
                                                                 work)
+    pt_k1, pt_forwards, pt_sec, pt_phase = phase_pt_cli(dev, card, work)
+    smc_k1, smc_forwards, smc_sec, smc_phase = phase_smc(dev, card, work)
+    vi_k1, vi_k3, vi_sec, vi_phase = phase_vi_cli(dev, card, work)
+    sbc_k1, small_k1, sbc_sec, p17_phase = phase_sbc_and_anneals(dev, card,
+                                                                 work)
     check(launches > 0 and min(map_launches) > 0 and am_launches > 0 and
           min(nuts_k1, nuts_k3) > 0 and min(lap_launches) > 0 and
-          min(ridge_k1, ridge_k3) > 0 and sum_k1 > 0,
+          min(ridge_k1, ridge_k3) > 0 and sum_k1 > 0 and
+          min(pt_k1, smc_k1, vi_k1, vi_k3, sbc_k1, small_k1) > 0,
           'both kernels launched on their main paths, the forward kernel on '
           'the AM path too, both on the NUTS, Laplace and ridge paths, the '
-          'forward kernel on the summary path')
+          'forward kernel on the summary, PT, SMC, SBC and CV paths, both '
+          'on the ADVI path')
     check_imports()
 
     k1, k2 = timing['K1'], timing['K2']
@@ -1578,8 +1941,16 @@ def run(only, work):
         'route': 'cuda',
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:157',
-        'launches': launches + nuts_k1 + lap_launches[0] + ridge_k1 + sum_k1,
+        'launches': (launches + nuts_k1 + lap_launches[0] + ridge_k1 +
+                     sum_k1 + pt_k1 + smc_k1 + vi_k1 + sbc_k1 + small_k1),
         'launches_main_path': launches, 'launches_nuts_cli': nuts_k1,
+        'launches_pt_cli': pt_k1, 'forwards_pt_cli': pt_forwards,
+        'sec_per_pt_replica_step_801': pt_sec, 'sec_phase_14': pt_phase,
+        'launches_smc': smc_k1, 'forwards_smc': smc_forwards,
+        'sec_per_smc_particle_move_801': smc_sec, 'sec_phase_15': smc_phase,
+        'launches_vi_cli': vi_k1, 'sec_phase_16': vi_phase,
+        'launches_sbc_cli': sbc_k1, 'sec_sbc_2_replicates_801': sbc_sec,
+        'launches_small_smc_and_cv': small_k1, 'sec_phase_17': p17_phase,
         'launches_laplace_cli': lap_launches[0],
         'launches_ridge_cli': ridge_k1, 'launches_summary_cli': sum_k1,
         'summary_ensemble_members': members,
@@ -1614,8 +1985,10 @@ def run(only, work):
         'route': 'cuda',
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:326',
-        'launches': map_launches[1] + nuts_k3 + lap_launches[1] + ridge_k3,
+        'launches': (map_launches[1] + nuts_k3 + lap_launches[1] +
+                     ridge_k3 + vi_k3),
         'launches_map_cli': map_launches[1], 'launches_nuts_cli': nuts_k3,
+        'launches_vi_cli': vi_k3, 'sec_per_elbo_step_801': vi_sec,
         'launches_laplace_cli': lap_launches[1],
         'launches_ridge_cli': ridge_k3,
         'hessian_precision': lap401['precision'],
@@ -1687,7 +2060,11 @@ def run_some(only, dev, card, rate, work):
         10: lambda: phase_nuts_cli(dev, card),
         11: lambda: phase_laplace_cli(dev, card),
         12: lambda: phase_ridge_cli(dev, card),
-        13: lambda: phase_summary_cli(dev, card, work)}
+        13: lambda: phase_summary_cli(dev, card, work),
+        14: lambda: phase_pt_cli(dev, card, work),
+        15: lambda: phase_smc(dev, card, work),
+        16: lambda: phase_vi_cli(dev, card, work),
+        17: lambda: phase_sbc_and_anneals(dev, card, work)}
     failed = []
     for n in sorted(only | ({9} if 13 in only else set())):
         tic = time.perf_counter()

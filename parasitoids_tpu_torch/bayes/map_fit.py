@@ -13,7 +13,7 @@ values or from several prior draws (in turn), optionally an L-BFGS polish,
 and with ``--norm`` the Laplace (normal) approximation around the mode
 (ref ``pm.NormApprox``, Bayes_MAP.py:521-569): the covariance is the
 inverse Hessian of the negative log posterior in the unconstrained space.
-The sharded forward (ROADMAP Queue 1 item 16) is not ported.
+The sharded forward (ROADMAP Queue 1 item 16b) is not ported.
 
 The Hessian never goes through the CUDA day kernels, whose backward is
 first order (in JAX too the Pallas ``custom_vjp`` admits no forward mode).
@@ -265,7 +265,7 @@ def map_fit_multistart(setup: BayesSetup, n_starts=8, seed=0, n_steps=300,
     from .priors import sample_prior_model, sample_prior_obs
     if mesh is not None:
         raise NotImplementedError('starts sharded over several devices are '
-                                  'not ported: ROADMAP Queue 1 item 16')
+                                  'not ported: ROADMAP Queue 1 item 16b')
     if use_sprd is None:
         use_sprd = default_use_sprd(setup.params)
     neg_logpost, _, unconstrain = _make_objective(setup, use_sprd)
@@ -655,7 +655,7 @@ def main(argv=None, device=None):
                         help='L-BFGS refinement steps after the Adam fit')
     parser.add_argument('--shard-forward', action='store_true',
                         help='minute-sharded forward (not ported: ROADMAP '
-                             'Queue 1 item 16)')
+                             'Queue 1 item 16b)')
     parser.add_argument('overrides', nargs='*')
     args = parser.parse_args(argv)
     if args.shard_forward:

@@ -254,7 +254,7 @@ class BayesSetup:
     def with_forward_mesh(self, mesh):
         raise NotImplementedError(
             'the minute-sharded forward (parallel/domain.py) is not ported: '
-            'ROADMAP Queue 1 item 16')
+            'ROADMAP Queue 1 item 16b')
 
     def with_batched_bvn(self):
         raise NotImplementedError(

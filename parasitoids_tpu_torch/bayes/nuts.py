@@ -53,7 +53,7 @@ __all__ = ['NUTSConfig', 'NUTSDraws', 'GibbsDraws', 'VALUE_AND_GRADS',
 VALUE_AND_GRADS = 0
 
 _NO_MESH = ('chains sharded over several devices are not ported: ROADMAP '
-            'Queue 1 item 16')
+            'Queue 1 item 16b')
 
 
 def inv_mass_from_hessian(H, lam_floor=1e-2, lam_ceil=1e12, prior_var=None,

@@ -1,5 +1,5 @@
-"""MCMC command line (L4/L5), PyTorch port of the adaptive-Metropolis and
-NUTS paths of ``parasitoids_tpu/bayes/run.py``.
+"""MCMC command line (L4/L5), PyTorch port of
+``parasitoids_tpu/bayes/run.py``.
 
 Reference entry point: ``python Bayes_Run.py --new <iters> <burn> <db>`` /
 ``--resume <db> <iters>`` (Bayes_Run.py:31-36,475-537).  Ours:
@@ -11,20 +11,24 @@ Reference entry point: ``python Bayes_Run.py --new <iters> <burn> <db>`` /
         runs/kalbar_nuts [--gibbs-n] [--dense-mass]
     python -m parasitoids_tpu_torch.bayes.run --sampler nuts \
         --resume runs/kalbar_nuts 0
+    python -m parasitoids_tpu_torch.bayes.run --sampler pt|smc|vi \
+        --new <iters> <burn> runs/kalbar_pt ... / --resume runs/kalbar_pt N
     # options: --chains N, --device cpu, plus key=value Params overrides
     # after the mode args
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback).  The
-chains of a run advance in turn on the one card; the AM trace store is an
-npz with exact sampler-state resume instead of a PyMC HDF5 database, and a
-NUTS run keeps a transition checkpoint (``<db>.ckpt.npz``, mirrored to
-``<db>.ckpt_durable.npz``) that a ``--resume`` continues bit for bit;
-Gelman–Rubin is printed automatically when >= 2 chains.  NUTS's ``--mass
-laplace`` fixes a dense metric from the Laplace covariance at a MAP fit
-and ``--mass ridge`` samples in that covariance's eigenbasis, the map kept
-in a ``<db>.whiten.npz`` sidecar that a ``--resume`` reads.  The argument
-parser is the JAX module's, so ``--help`` reads the same, but ``pt``,
-``smc``, ``vi`` and ``--shard-forward`` exit naming their ROADMAP item.
+chains of a run, the replicas of parallel tempering (``--sampler pt``) and
+the particles of SMC (``--sampler smc``) advance in turn on the one card;
+the AM, PT, SMC and VI trace stores are npz files with exact sampler-state
+resume instead of a PyMC HDF5 database, and a NUTS run keeps a transition
+checkpoint (``<db>.ckpt.npz``, mirrored to ``<db>.ckpt_durable.npz``) that
+a ``--resume`` continues bit for bit; Gelman–Rubin is printed
+automatically when >= 2 chains.  NUTS's ``--mass laplace`` fixes a dense
+metric from the Laplace covariance at a MAP fit and ``--mass ridge``
+samples in that covariance's eigenbasis, the map kept in a
+``<db>.whiten.npz`` sidecar that a ``--resume`` reads.  The argument
+parser is the JAX module's, so ``--help`` reads the same;
+``--shard-forward`` and ``PARA_SMC_BATCHED=1`` exit naming why.
 """
 
 from __future__ import annotations
@@ -43,10 +47,6 @@ from .model import BayesSetup
 from .priors import MODEL_PARAM_NAMES
 from .sampler import MCMCConfig
 from .store import append_traces, load_chain, load_extras, save_chain
-
-# the samplers that are not ported yet, by ROADMAP Queue 1 item
-_NOT_PORTED = {'pt': 18, 'smc': 18, 'vi': 18}
-
 
 def _positive_int(s):
     v = int(s)
@@ -366,9 +366,39 @@ def run_analyze(args):
                     f.write('{}: {:.4f}\n'.format(n, r))
             print('wrote', out_path)
         elif ans == 'e' and has_ev:
-            print('log-evidence estimates need the tempering and SMC '
-                  'modules, which are not ported (ROADMAP Queue 1 item 18); '
-                  'use parasitoids_tpu.bayes.run --analyze')
+            if extras.get('loglik') is not None \
+                    and extras['loglik'].ndim == 2:   # PT store: (T, steps)
+                from .tempering import log_evidence
+                n_steps = extras['loglik'].shape[1]
+                # a store checkpointed mid-burn-in has fewer steps than
+                # meta['burn']; clamp like the PT CLI reporting path does
+                burn = min(int(meta.get('burn', 0)), n_steps - 1)
+                ev = log_evidence(extras['betas'], extras['loglik'],
+                                  burn=max(burn, 0))
+                post = n_steps - max(burn, 0)
+                print('log Z (thermodynamic integration): {:.2f}'.format(
+                    ev['ti']))
+                print('log Z (stepping-stone):            {:.2f}'.format(
+                    ev['ss']))
+                if post < int(meta.get('n_samples', 0)):
+                    print('  ({} post-burn draws so far — run '
+                          'interrupted; estimates are preliminary)'
+                          .format(post))
+                if not ev.get('complete', True):
+                    print('  (ladder does not reach beta=0: values are '
+                          'relative to the hottest rung)')
+                if not ev.get('equilibrated', True):
+                    print('  WARNING: TI integrand not monotone — ladder '
+                          'may not be equilibrated')
+            elif 'logz_path' in extras:        # SMC store
+                beta = float(meta.get('beta', 1.0))
+                print('log Z (SMC): {:.2f}{}'.format(
+                    float(np.asarray(extras['logz_path'])[-1]),
+                    '' if beta >= 1.0 else
+                    '  (PARTIAL: anneal stopped at beta = {:.3f})'
+                    .format(beta)))
+            else:
+                print('no evidence data in this store')
         elif ans == 'r':
             print('continue this run with:\n  python -m '
                   'parasitoids_tpu_torch.bayes.run --resume {} <iterations>'
@@ -625,8 +655,430 @@ def run_nuts(args, setup):
     return dict(out, seconds=dt)
 
 
+def run_pt_cli(args, setup):
+    """Replica-exchange path (``--sampler pt``): a ladder of tempered AM
+    replicas with periodic state swaps; the cold chain is the posterior
+    sample and, when the ladder reaches beta = 0 (default), the per-replica
+    log-likelihood traces yield marginal-likelihood estimates
+    (thermodynamic integration + stepping-stone) — model-comparison
+    machinery the reference lacks entirely (its only such number is the
+    MAP AIC, Bayes_MAP.py:494-517).  The replicas advance in turn on the
+    one card.  Returns the final stacked states, the evidence dict, the
+    swap rates and the sampling seconds."""
+    from .tempering import (PTConfig, geometric_ladder, init_pt_states,
+                            log_evidence, power_ladder, run_pt, tune_ladder)
+
+    resume = args.new is None
+    if resume:
+        db, n_more = args.resume[0], int(args.resume[1])
+        print('Resuming PT from {}...'.format(db))
+        kept, states, meta = load_chain(db, setup)
+        if meta.get('sampler') != 'pt':
+            raise SystemExit('{} was not written by --sampler pt'.format(db))
+        if kept is not None and kept.shape[1] == 0:
+            # burn-in checkpoint placeholder (1, 0, 1): no post-burn draws
+            # yet — must be None so the first real cold-chain block isn't
+            # concatenated against the 1-wide dummy
+            kept = None
+        ex = load_extras(db)
+        betas = np.asarray(ex['betas'], np.float32)
+        se = int(meta['swap_every'])
+        burn = int(meta['burn'])
+        rounds_done = int(meta['rounds_done'])
+        seed = int(meta['seed'])
+        lls = np.asarray(ex['loglik'])
+        att = np.asarray(ex['swap_attempts'])
+        acc = np.asarray(ex['swap_accepts'])
+        n_tuned = int(meta.get('tuned', 0))
+        obs_sweeps = (args.obs_sweeps if args.obs_sweeps is not None
+                      else int(meta.get('obs_sweeps', 1)))
+        # 0 extra iterations is the evidence-recompute path: skip straight
+        # to the report from the stored loglik traces
+        rounds = -(-n_more // se)
+    else:
+        n_samples, burn, db = int(args.new[0]), int(args.new[1]), args.new[2]
+        se = args.swap_every
+        seed = args.seed
+        obs_sweeps = args.obs_sweeps or 1
+        if args.temps < 2:
+            raise SystemExit('--sampler pt needs --temps >= 2')
+        if not 0.0 <= args.beta_min < 1.0:
+            raise SystemExit('--beta-min must be in [0, 1)')
+        if args.beta_min > 0:
+            betas = geometric_ladder(args.temps, args.beta_min)
+        else:
+            betas = power_ladder(args.temps, args.ladder_power)
+        rounds = -(-(burn + n_samples) // se)
+        rounds_done = 0
+        print('Initializing {} replicas (beta {:.3g} .. {:.3g})...'.format(
+            args.temps, betas[0], betas[-1]))
+        states = init_pt_states(setup, seed, args.temps)
+        kept = None          # post-burn cold-chain traces (AM 'traces' key)
+        lls = None
+        att = acc = np.zeros(args.temps - 1)
+        n_tuned = 0
+    T = betas.shape[0]
+    swap_seed = seed + 2
+    # ladder-tuning swap stats accumulate across checkpoint chunks: swap
+    # parity alternates by global round, so a short chunk may attempt only
+    # even- or odd-parity pairs and tuning must wait until every adjacent
+    # pair has data (not persisted — a mid-burn resume restarts the window)
+    t_att = np.zeros(T - 1)
+    t_acc = np.zeros(T - 1)
+    print('PT: {} rungs, {} swap rounds x {} steps{}...'.format(
+        T, rounds, se, ' (resuming at round {})'.format(rounds_done)
+        if rounds_done else ''))
+
+    # two bounds on rounds per chunk, the JAX CLI's: the checkpoint
+    # cadence, and --max-program-steps replica-steps per chunk (a bound of
+    # that package's device programs, kept so that stores checkpoint where
+    # the JAX CLI's do)
+    chunk = (max(1, min(args.checkpoint_every // se,
+                        args.max_program_steps // (se * T), rounds))
+             if rounds else 1)
+    dev = setup.setup.wind_flat.device
+    tic = time.time()
+    done = 0
+    while done < rounds:
+        n = min(chunk, rounds - done)
+        cfg = PTConfig(n_rounds=n, swap_every=se, obs_sweeps=obs_sweeps)
+        states, tr, stats = run_pt(setup, states, betas, swap_seed, cfg,
+                                   round_offset=rounds_done + done)
+        # keep only the post-burn part of the cold chain, so the stored
+        # 'traces' mean the same thing as an AM store (posterior draws);
+        # the full-history loglik lives in the extras with meta['burn']
+        steps_before = (rounds_done + done) * se
+        cut = max(0, min(burn - steps_before, n * se))
+        cold = tr[:1, cut:].cpu().numpy()
+        ll_new = stats['loglik'].cpu().numpy()
+        if cold.shape[1]:
+            kept = cold if kept is None else append_traces(kept, cold)
+        lls = ll_new if lls is None else np.concatenate([lls, ll_new],
+                                                        axis=1)
+        c_att = stats['swap_attempts'].cpu().numpy()
+        c_acc = stats['swap_accepts'].cpu().numpy()
+        in_burn = steps_before + n * se <= burn
+        if args.tune_ladder and in_burn and T > 2:
+            t_att = t_att + c_att
+            t_acc = t_acc + c_acc
+            if (t_att > 0).all():
+                new_betas = tune_ladder(betas, t_acc / t_att,
+                                        kappa=0.6 / (1.0 + 0.5 * n_tuned))
+                n_tuned += 1
+                print('  ladder tuned ({}): beta = [{}]'.format(
+                    n_tuned, ' '.join('{:.3g}'.format(b)
+                                      for b in new_betas)))
+                betas = new_betas
+                t_att = np.zeros(T - 1)
+                t_acc = np.zeros(T - 1)
+        else:
+            # reported rates cover only the frozen-ladder phase
+            att = att + c_att
+            acc = acc + c_acc
+        done += n
+        save_chain(db, kept if kept is not None else np.zeros((1, 0, 1)),
+                   states,
+                   meta={'sampler': 'pt', 'swap_every': se, 'burn': burn,
+                         'rounds_done': rounds_done + done, 'seed': seed,
+                         'tuned': n_tuned, 'obs_sweeps': obs_sweeps,
+                         'n_samples': 0 if kept is None else kept.shape[-2]},
+                   extra={'betas': betas, 'loglik': lls,
+                          'swap_attempts': att, 'swap_accepts': acc})
+        _commit_store(db, 'PT checkpoint: {}/{} rounds'.format(done, rounds))
+        if done < rounds:
+            print('  checkpoint: {}/{} rounds done'.format(done, rounds))
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+    dt = time.time() - tic
+    if rounds:
+        print('PT finished: {:.1f} s ({:.3f} s/step across {} replicas)'
+              .format(dt, dt / (rounds * se), T))
+        print('Saved to {}.npz'.format(db.removesuffix('.npz')))
+
+    with np.errstate(invalid='ignore'):
+        rates = np.where(att > 0, acc / np.maximum(att, 1), np.nan)
+    print('swap acceptance by rung (beta_hi->beta_lo): ' +
+          ' '.join('{:.2f}'.format(r) for r in rates))
+    ev = log_evidence(betas, lls, burn=min(burn, lls.shape[1] - 1))
+    if not ev['equilibrated']:
+        print('WARNING: TI integrand E_beta[loglik] decreases across rung '
+              'pair(s) {} — some replica has not equilibrated; evidence '
+              'estimates are untrustworthy (run longer / more rungs)'
+              .format(np.asarray(ev['nonmonotone_at']).tolist()))
+    if ev['complete']:
+        print('log evidence: TI {:.2f}, stepping-stone {:.2f}'.format(
+            ev['ti'], ev['ss']))
+    else:
+        print('log Z(1) - log Z(beta={:.3g}): TI {:.2f}, stepping-stone '
+              '{:.2f} (ladder does not reach the prior; use --beta-min 0 '
+              'for absolute evidence)'.format(betas.min(), ev['ti'],
+                                              ev['ss']))
+    if kept is not None and kept.shape[1]:
+        _report(kept, setup)
+    else:
+        print('(no post-burn samples yet)')
+    return {'states': states, 'evidence': ev, 'swap_rates': rates,
+            'seconds': dt, 'rounds': rounds, 'swap_every': se}
+
+
+def _smc_posterior_traces(payload, seed):
+    """Unweighted posterior draws from the final weighted particles: one
+    systematic resample (stage-independent stream), stored as (1, N, dim)
+    so diagnostics/reporting treat them like a chain's samples."""
+    from .smc import systematic_resample
+    st = payload['states']
+    host = lambda t: t.cpu().numpy()
+    logw = np.asarray(payload['logw'], np.float64)
+    w = np.exp(logw - logw.max())
+    idx = systematic_resample(w / w.sum(),
+                              np.random.default_rng([seed, 10 ** 6]))
+    m = host(st.m)[idx]
+    o = host(st.o)[idx]
+    lp = (host(st.prior_m) + host(st.prior_o) + host(st.loglik))[idx]
+    return np.concatenate([m, o, lp[:, None]], axis=1)[None]
+
+
+def _save_smc(db, payload, seed, cfg):
+    """Persist the annealer state; posterior traces only once beta = 1."""
+    h = payload['history']
+    traces = (_smc_posterior_traces(payload, seed)
+              if payload['beta'] >= 1.0 else np.zeros((1, 0, 1)))
+    save_chain(db, traces, payload['states'],
+               meta={'sampler': 'smc', 'seed': seed,
+                     'n_moves': cfg.n_moves, 'ess_target': cfg.ess_target,
+                     'obs_scale': cfg.obs_scale,
+                     'obs_sweeps': cfg.obs_sweeps,
+                     'min_accepts': cfg.min_accepts,
+                     'max_move_rounds': cfg.max_move_rounds,
+                     'beta': payload['beta'], 'logz': payload['logz'],
+                     'log_scale': payload['log_scale'],
+                     'stage': payload['stage'],
+                     'n_samples': traces.shape[1]},
+               extra={'logw': payload['logw'], 'betas': h['betas'],
+                      'ess_path': h['ess'], 'accept_path': h['accept'],
+                      'resampled': h['resampled'], 'logz_path': h['logz'],
+                      'rounds_path': h.get('rounds', np.zeros(0))})
+    _commit_store(db, 'SMC checkpoint: stage {} (beta {:.4f})'.format(
+        payload['stage'], payload['beta']))
+    return traces
+
+
+def _smc_resume_payload(db, setup):
+    """An SMC store read back as ``run_smc``'s ``resume`` payload, with
+    its meta."""
+    _, states, meta = load_chain(db, setup)
+    if meta.get('sampler') != 'smc':
+        raise SystemExit('{} was not written by --sampler smc; pass '
+                         'the matching --sampler'.format(db))
+    ex = load_extras(db)
+    payload = {'states': states, 'logw': ex['logw'],
+               'beta': float(meta['beta']), 'logz': float(meta['logz']),
+               'log_scale': float(meta['log_scale']),
+               'stage': int(meta['stage']),
+               'history': {'betas': ex['betas'], 'ess': ex['ess_path'],
+                           'accept': ex['accept_path'],
+                           'resampled': ex['resampled'],
+                           'logz': ex['logz_path'],
+                           'rounds': ex.get('rounds_path', np.zeros(0))}}
+    return payload, meta
+
+
+def run_smc_cli(args, setup):
+    """Adaptive tempered SMC path (``--sampler smc``): a particle
+    population annealed from the exact prior to the posterior along a
+    data-driven temperature schedule, rejuvenated by the same AM kernel as
+    the reference-equivalent sampler; yields unweighted posterior draws
+    plus the SMC marginal-likelihood estimate — the third evidence
+    estimator next to PT's TI and stepping-stone (cross-checkable via
+    --sampler pt on the same data).  The particles advance in turn on the
+    one card.  Returns the final payload with the run's seconds under
+    ``'seconds'``."""
+    from .smc import _NO_BATCHED, SMCConfig, ess, run_smc
+
+    if os.environ.get('PARA_SMC_BATCHED', '0') not in ('', '0'):
+        raise NotImplementedError(_NO_BATCHED + ' (unset PARA_SMC_BATCHED)')
+    resume = args.new is None
+    if resume:
+        db = args.resume[0]
+        print('Resuming SMC from {}...'.format(db))
+        payload, meta = _smc_resume_payload(db, setup)
+        seed = int(meta['seed'])
+        # move-effort knobs: stored value unless explicitly re-given — the
+        # anneal end-game raises rejuvenation effort as beta -> 1 instead
+        # of letting acceptance sag
+        cfg = SMCConfig(n_particles=int(payload['states'].m.shape[0]),
+                        n_moves=(args.moves if args.moves is not None
+                                 else int(meta['n_moves'])),
+                        ess_target=float(meta['ess_target']),
+                        obs_scale=float(meta.get('obs_scale', 0.05)),
+                        obs_sweeps=(args.obs_sweeps
+                                    if args.obs_sweeps is not None
+                                    else int(meta.get('obs_sweeps', 1))),
+                        max_stages=args.max_stages,
+                        min_accepts=(args.min_accepts
+                                     if args.min_accepts is not None
+                                     else float(meta.get('min_accepts',
+                                                         2.0))),
+                        max_move_rounds=(
+                            args.max_move_rounds
+                            if args.max_move_rounds is not None
+                            else int(meta.get('max_move_rounds', 10))))
+    else:
+        n_samples, _burn, db = (int(args.new[0]), int(args.new[1]),
+                                args.new[2])
+        n_part = args.particles or (n_samples if n_samples > 0 else 64)
+        seed = args.seed
+        cfg = SMCConfig(n_particles=n_part,
+                        n_moves=(5 if args.moves is None else args.moves),
+                        ess_target=args.ess_target,
+                        max_stages=args.max_stages,
+                        min_accepts=(2.0 if args.min_accepts is None
+                                     else args.min_accepts),
+                        max_move_rounds=(10 if args.max_move_rounds is None
+                                         else args.max_move_rounds),
+                        obs_sweeps=args.obs_sweeps or 1)
+        payload = None
+
+    dev = setup.setup.wind_flat.device
+    tic = time.time()
+    if payload is None or payload['beta'] < 1.0:
+        if payload is None:
+            print('SMC: {} particles from the prior, {} moves/stage, '
+                  'ESS target {:.0%}...'.format(
+                      cfg.n_particles, cfg.n_moves, cfg.ess_target))
+        else:
+            print('SMC: continuing at beta={:.5f} (stage {})...'.format(
+                payload['beta'], payload['stage']))
+        payload = run_smc(setup, seed, cfg, seed=seed, verbose=True,
+                          resume=payload,
+                          checkpoint=lambda p: _save_smc(db, p, seed, cfg))
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        print('SMC finished: {:.1f} s, {} stages'.format(
+            time.time() - tic, payload['stage']))
+    dt = time.time() - tic
+    traces = _save_smc(db, payload, seed, cfg)
+    print('Saved to {}.npz'.format(db.removesuffix('.npz')))
+    print('final ESS {:.1f}/{}; resampled {} of {} stages'.format(
+        ess(payload['logw']), cfg.n_particles,
+        int(np.sum(payload['history']['resampled'])), payload['stage']))
+    print('log evidence (SMC): {:.2f}  (cross-check: --sampler pt '
+          'TI/stepping-stone)'.format(payload['logz']))
+    _report(traces, setup)
+    return dict(payload, seconds=dt)
+
+
+def run_vi_cli(args, setup):
+    """ADVI path (``--sampler vi``): fits a Gaussian q to the
+    transformed-space posterior by stochastic ELBO ascent (bayes/vi.py),
+    stores <iterations> posterior draws from q in the standard trace
+    format, and reports the ELBO, the PSIS k-hat proposal diagnostic, and
+    the importance-sampling logZ — a fourth evidence estimator next to PT
+    TI/stepping-stone and SMC.  The <burn-in> CLI slot is the number of
+    ELBO optimization steps (0 = default 600).  Returns the evidence dict
+    with the fit under ``'fit'`` and the fit's seconds under
+    ``'fit_seconds'`` (0 on a resume)."""
+    from .map_fit import _make_objective
+    from .sampler import chain_generator, init_chain_state
+    from .vi import fit_advi, vi_evidence
+
+    dev = setup.setup.wind_flat.device
+    resume = args.new is None
+    if resume:
+        db = args.resume[0]
+        n_draws = int(args.resume[1])
+        print('VI: drawing {} more samples from the stored q in {}...'
+              .format(n_draws, db))
+        old_traces, _states, meta = load_chain(db, setup)
+        if meta.get('sampler') != 'vi':
+            raise SystemExit('{} was not written by --sampler vi; pass '
+                             'the matching --sampler'.format(db))
+        ex = load_extras(db)
+        res = {'mu': ex['mu'], 'log_diag': ex['log_diag'],
+               'idx': ex['idx'], 'z0': ex['z0'],
+               'fullrank': bool(meta.get('fullrank', False)),
+               'elbo_trace': ex['elbo_trace'],
+               'use_sprd': bool(meta.get('use_sprd', False))}
+        if res['fullrank']:
+            res['offdiag'] = ex['offdiag']
+        seed = int(meta['seed']) + int(old_traces.shape[1]) + 1
+        n_steps = int(meta['steps'])
+    else:
+        n_draws, n_steps, db = (int(args.new[0]), int(args.new[1]),
+                                args.new[2])
+        if n_steps <= 0:
+            n_steps = 600
+        seed = args.seed
+        old_traces, meta, res = None, {}, None
+
+    tic = time.time()
+    fit_sec = 0.0
+    if res is None:
+        print('VI: {} ELBO steps ({} MC draws/step, {}, lr {})...'.format(
+            n_steps, args.vi_mc,
+            'full-rank' if args.vi_fullrank else 'mean-field', args.vi_lr))
+        res = fit_advi(setup, seed, n_steps=n_steps,
+                       n_mc=args.vi_mc, learning_rate=args.vi_lr,
+                       fullrank=args.vi_fullrank,
+                       init='prior' if args.init == 'prior' else 'map',
+                       init_map_steps=args.init_map_steps, verbose=True)
+        fit_sec = time.time() - tic
+        print('VI fit: {:.1f} s'.format(fit_sec))
+
+    # evidence diagnostics + posterior draws in one pass (each draw costs
+    # one forward simulation)
+    n_is = max(args.vi_is, n_draws)
+    print('VI: evidence check on {} q-draws...'.format(n_is))
+    ev = vi_evidence(setup, res, seed + 1, n=n_is)
+
+    # traces in the house format: (1, n_draws, m + o + logpost)
+    _, constrain, _ = _make_objective(setup, res.get('use_sprd', False))
+    with torch.no_grad():
+        parts = [constrain(z)[:2] for z in torch.as_tensor(
+            ev['zs'][:n_draws]).to(dev)]        # bijections only
+    m_all = torch.stack([m for m, _ in parts]).cpu().numpy()
+    o_all = torch.stack([o for _, o in parts]).cpu().numpy()
+    traces = np.concatenate([m_all, o_all,
+                             ev['logpost'][:n_draws, None]],
+                            axis=1)[None].astype(np.float32)
+    if old_traces is not None and old_traces.size:
+        traces = append_traces(old_traces, traces)
+
+    # sampler state at the best draw (lets AM/NUTS warm-start from a VI fit
+    # via --init / load_chain)
+    best = int(np.argmax(ev['logpost'][:n_draws]))
+    state = init_chain_state(setup, chain_generator(seed + 2, 0, dev),
+                             m0=m_all[best], o0=o_all[best])
+    extra = {'mu': res['mu'], 'log_diag': res['log_diag'],
+             'idx': res['idx'], 'z0': res['z0'],
+             'elbo_trace': res['elbo_trace'], 'logw': ev['logw']}
+    if res['fullrank']:
+        extra['offdiag'] = res['offdiag']
+    save_chain(db, traces, state,
+               meta={'sampler': 'vi', 'seed': args.seed, 'steps': n_steps,
+                     'fullrank': bool(res['fullrank']),
+                     'use_sprd': bool(res.get('use_sprd', False)),
+                     'n_mc': args.vi_mc, 'elbo': ev['elbo'],
+                     'logz_is': ev['logz_is'], 'khat': ev['khat'],
+                     'n_samples': int(traces.shape[1])},
+               extra=extra)
+    print('Saved to {}.npz ({:.1f} s total)'.format(
+        db.removesuffix('.npz'), time.time() - tic))
+    print('ELBO (evidence lower bound): {:.2f}'.format(ev['elbo']))
+    print('IS log evidence:             {:.2f}'.format(ev['logz_is']))
+    print('PSIS k-hat: {:.3f}  ({})'.format(
+        ev['khat'],
+        'q reliable as IS proposal' if ev['khat'] < 0.7 else
+        'heavy-tailed weights - treat IS logZ as approximate; '
+        'try --vi-fullrank / more steps'))
+    print('note: n_periods fixed at 30 (as MAP/NUTS) - this estimates the '
+          'conditional evidence; PT/SMC marginalize n_periods')
+    _report(traces, setup)
+    return dict(ev, fit=res, fit_seconds=fit_sec)
+
+
 def main(argv=None, device=None):
-    """The AM and NUTS command line.  ``device`` given here wins over
+    """The command line of every sampler.  ``device`` given here wins over
     ``--device``."""
     args = parser.parse_args(argv)
 
@@ -638,13 +1090,12 @@ def main(argv=None, device=None):
         # samplers, so there is no Metropolis-within-Gibbs sweep to repeat
         parser.error('--obs-sweeps only applies to the am/pt/smc samplers'
                      ' (nuts/vi update the observation block jointly)')
-    if args.sampler in _NOT_PORTED:
-        parser.error('--sampler {} is not ported to torch yet (ROADMAP Queue '
-                     '1 item {}); --sampler am and nuts run here'.format(
-                         args.sampler, _NOT_PORTED[args.sampler]))
     if args.shard_forward:
+        if args.sampler in ('pt', 'smc'):
+            parser.error('--shard-forward is incompatible with the '
+                         'population-sharded pt/smc samplers')
         parser.error('--shard-forward is not ported (ROADMAP Queue 1 item '
-                     '16)')
+                     '16b)')
     setup = build_setup(args.overrides,
                         device=args.device if device is None else device)
     dev = setup.setup.wind_flat.device
@@ -653,6 +1104,12 @@ def main(argv=None, device=None):
         else 'plain torch'))
     if args.sampler == 'nuts':
         return run_nuts(args, setup)
+    if args.sampler == 'pt':
+        return run_pt_cli(args, setup)
+    if args.sampler == 'smc':
+        return run_smc_cli(args, setup)
+    if args.sampler == 'vi':
+        return run_vi_cli(args, setup)
     from ..parallel.chains import init_chains
 
     def sync():

@@ -25,7 +25,7 @@ __all__ = ['chain_mesh', 'init_chains', 'shard_chain_states', 'run_chains']
 
 _N_PERIODS_SLOT = 13
 _NO_MESH = ('chains sharded over several devices are not ported: ROADMAP '
-            'Queue 1 item 16')
+            'Queue 1 item 16b')
 
 
 def chain_mesh(n_devices=None, devices=None):

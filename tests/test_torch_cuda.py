@@ -500,3 +500,76 @@ def test_laplace_hessian_at_401_repeats_in_its_precision(cuda_device):
     assert H1.dtype == torch.float64 and H1.shape == (26, 26)
     assert bool(torch.isfinite(H1).all())
     assert float((H1 - H2).abs().max()) <= 1e-10 * float(H1.abs().max())
+
+
+def _same_states(a, b):
+    """Two stacked chain states bitwise equal, generators included."""
+    tensors = all(torch.equal(getattr(a, f), getattr(b, f))
+                  for f in a._fields if f not in ('key', 'proj'))
+    return tensors and all(torch.equal(x.get_state(), y.get_state())
+                           for x, y in zip(a.key, b.key))
+
+
+def test_pt_swaps_are_bitwise_reproducible(cuda_device, tmp_path):
+    # parallel tempering at the small configuration through K1: two runs
+    # from the same seeds swap and move alike bit for bit, and a chunked
+    # run and a reloaded store continue as the monolithic run
+    from parasitoids_tpu_torch.bayes import tempering
+    from parasitoids_tpu_torch.bayes.store import load_chain, save_chain
+    setup = _am_setup(cuda_device)
+    betas = tempering.power_ladder(3, 1.0)
+    cfg = tempering.PTConfig(n_rounds=2, swap_every=2)
+    runs = [tempering.run_pt(setup, tempering.init_pt_states(setup, 3, 3),
+                             betas, 5, tempering.PTConfig(n_rounds=4,
+                                                          swap_every=2))
+            for _ in range(2)]
+    assert _same_states(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][2]['swap_accepts'], runs[1][2]['swap_accepts'])
+    st, tr1, _ = tempering.run_pt(setup, tempering.init_pt_states(setup, 3, 3),
+                                  betas, 5, cfg)
+    db = str(tmp_path / 'pt')
+    save_chain(db, tr1[:1], st)
+    _, st, _ = load_chain(db, setup)
+    st, tr2, _ = tempering.run_pt(setup, st, betas, 5, cfg, round_offset=2)
+    assert torch.equal(torch.cat([tr1, tr2], 1), runs[0][1])
+    assert _same_states(st, runs[0][0])
+
+
+def test_smc_resume_is_bitwise(cuda_device, tmp_path):
+    # SMC at the small configuration through K1: stopped after stage 2,
+    # saved as the command line saves it, reloaded and resumed to stage 4,
+    # bitwise the run that never stopped; clones hold distinct generators
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.bayes import smc
+    setup = _am_setup(cuda_device)
+    cfg = smc.SMCConfig(n_particles=6, n_moves=1, resample_ess=1.0,
+                        min_accepts=0.0, max_move_rounds=1)
+    db = str(tmp_path / 'smc')
+
+    class Stop(Exception):
+        pass
+
+    def stop_at(stage, keep, save=False):
+        def cb(p):
+            if save:
+                bayes_run._save_smc(db, p, 0, cfg)
+            keep.update(p)
+            if p['stage'] == stage:
+                raise Stop
+        return cb
+
+    mono, part, resumed = {}, {}, {}
+    for keep, stage, save in ((mono, 4, False), (part, 2, True)):
+        with pytest.raises(Stop):
+            smc.run_smc(setup, 1, cfg, seed=2,
+                        checkpoint=stop_at(stage, keep, save))
+    payload, _ = bayes_run._smc_resume_payload(db, setup)
+    with pytest.raises(Stop):
+        smc.run_smc(setup, None, cfg, seed=2, resume=payload,
+                    checkpoint=stop_at(4, resumed))
+    assert _same_states(mono['states'], resumed['states'])
+    assert mono['logz'] == resumed['logz']
+    np.testing.assert_array_equal(mono['logw'], resumed['logw'])
+    keys = {bytes(g.get_state().numpy()) for g in mono['states'].key}
+    assert all(mono['history']['resampled']) and len(keys) == 6

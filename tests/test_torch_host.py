@@ -255,16 +255,25 @@ def test_am_cli_runs_on_the_cpu_with_device_flag(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize('prog', ['identify', 'summary', 'predictive', 'loo',
-                                  'spread', 'sensitivity'])
+                                  'spread', 'sensitivity', 'sbc', 'cv'])
 def test_analysis_clis_raise_without_a_card(prog, monkeypatch):
-    # the curvature and analysis command lines take the card unless told
-    # --device cpu, as the others do
+    # the curvature, analysis and validation command lines take the card
+    # unless told --device cpu, as the others do
     import importlib
     _no_card(monkeypatch)
     mod = importlib.import_module('parasitoids_tpu_torch.bayes.' + prog)
-    argv = [] if prog == 'identify' else ['unused.npz']
+    argv = ([] if prog in ('identify', 'sbc', 'cv') else ['unused.npz'])
     with pytest.raises(RuntimeError, match='no CUDA device'):
         mod.main(argv + ['ndays=2'])
+
+
+@pytest.mark.parametrize('sampler', ['pt', 'smc', 'vi'])
+def test_tempered_and_variational_samplers_raise_without_a_card(
+        sampler, monkeypatch):
+    _no_card(monkeypatch)
+    for mode in (['--new', '1', '0', 'unused'], ['--resume', 'unused', '1']):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            bayes_run.main(['--sampler', sampler] + mode + ['ndays=2'])
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""The port's AM and NUTS command line (``parasitoids_tpu_torch.bayes.run``)
-on the CPU at the small configuration: ``--new`` / ``--resume`` write the
-meta keys and write ``obs_sweeps`` back (test_obs_sweeps_meta.py:19-47),
+"""The port's command line (``parasitoids_tpu_torch.bayes.run``) on the
+CPU at the small configuration: ``--new`` / ``--resume`` write the meta
+keys and write ``obs_sweeps`` back (test_obs_sweeps_meta.py:19-47),
 checkpoints and a resume change no sample, the result is read by the JAX
-package's consumers, the unported samplers exit naming their ROADMAP item,
-and the ``--analyze`` menu answers from stdin.  A NUTS run interrupted and
+package's consumers, ``--sampler pt|smc|vi`` run, what stays unported
+exits naming its ROADMAP item, and the ``--analyze`` menu answers from
+stdin, its ``[e]`` entry with the evidence of a PT or SMC store.  A NUTS run interrupted and
 resumed from its transition checkpoint writes the traces of the run that
 never stopped."""
 
@@ -127,16 +128,36 @@ def test_burn_in_checkpoint_holds_no_samples_yet(tmp_path, capsys):
     assert _meta(db)['n_samples'] == 0
 
 
-@pytest.mark.parametrize('flags,item', [
-    (['--sampler', 'pt'], 'item 18'),
-    (['--sampler', 'smc'], 'item 18'), (['--sampler', 'vi'], 'item 18'),
-    (['--shard-forward'], 'item 16')])
-def test_cli_refuses_what_is_not_ported(flags, item, capsys):
+@pytest.mark.parametrize('flags,words', [
+    (['--shard-forward'], ('ROADMAP', 'item 16b')),
+    (['--sampler', 'nuts', '--shard-forward'], ('ROADMAP', 'item 16b')),
+    (['--sampler', 'vi', '--shard-forward'], ('ROADMAP', 'item 16b')),
+    (['--sampler', 'pt', '--shard-forward'], ('incompatible',)),
+    (['--sampler', 'smc', '--shard-forward'], ('incompatible',))])
+def test_cli_refuses_what_is_not_ported(flags, words, capsys):
+    # the minute-sharded forward stays unported (ROADMAP item 16b); the
+    # population samplers refuse it as the JAX CLI does
     with pytest.raises(SystemExit) as exc:
         trun.main(CPU + ['--new', '2', '1', 'unused'] + flags + TINY)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert 'ROADMAP' in err and item in err
+    assert all(w in err for w in words)
+
+
+@pytest.mark.parametrize('sampler,flags', [
+    ('pt', ['--temps', '2', '--swap-every', '1']),
+    ('smc', ['--ess-target', '0.01', '--moves', '1', '--min-accepts', '0',
+             '--max-move-rounds', '1']),
+    ('vi', ['--vi-mc', '1', '--vi-is', '4', '--init', 'prior'])])
+def test_cli_runs_the_tempered_and_variational_samplers(sampler, flags,
+                                                        tmp_path, capsys):
+    # --sampler pt|smc|vi are no longer refused: each writes its store
+    db = str(tmp_path / sampler)
+    trun.main(CPU + ['--sampler', sampler, '--new', '2', '1', db] + flags
+              + TINY)
+    assert _meta(db)['sampler'] == sampler
+    assert np.isfinite(_traces(db)).all()
+    assert 'ROADMAP' not in capsys.readouterr().err
 
 
 def test_obs_sweeps_rejects_nonpositive():
@@ -177,7 +198,7 @@ def test_analyze_menu(store, tmp_path, monkeypatch, capsys):
 def test_analyze_plots_and_evidence_entry(store, tmp_path, monkeypatch,
                                           capsys):
     # [p] and [t] go through the port's own copy of viz/bayes_plot.py; a
-    # store with tempering extras offers [e], which says what is missing
+    # store with tempering extras offers [e], which gives their evidence
     db, _ = store
     with np.load(db + '.npz') as npz:
         payload = {k: npz[k] for k in npz.files}
@@ -192,7 +213,10 @@ def test_analyze_plots_and_evidence_entry(store, tmp_path, monkeypatch,
     assert 'diagnostics written to ./diagnostics/' in out
     assert 'wrote 2 plot(s) to ./diagnostics/' in out
     assert "unknown parameter name(s) ['nope']" in out
-    assert '[e] log-evidence' in out and 'item 18' in out
+    assert '[e] log-evidence' in out and 'item 18' not in out
+    # a flat log likelihood over a ladder from 0 to 1: log Z = 0
+    assert 'log Z (thermodynamic integration): 0.00' in out
+    assert 'log Z (stepping-stone):            0.00' in out
     made = os.listdir(tmp_path / 'diagnostics')
     assert {'trace_xi.png', 'trace_mu_r.png', 'posterior_f_g.png',
             'posterior_sprd.png', 'posterior_sent_obs.png'} <= set(made)
@@ -365,3 +389,70 @@ def test_nuts_cli_starts_from_an_am_store(store, tmp_path, capsys):
     with pytest.raises(SystemExit, match='obs params'):
         trun.main(CPU + ['--sampler', 'nuts', '--init', bad, '--new', '1',
                          '10', db] + TINY)
+
+
+def _store_with(tmp_path, store, name, meta, **extras):
+    """A copy of the AM store with tempering or SMC extras and a meta."""
+    db, _ = store
+    with np.load(db + '.npz') as npz:
+        payload = {k: npz[k] for k in npz.files}
+    path = str(tmp_path / name)
+    np.savez(path + '.npz', **payload,
+             **{'x_' + k: v for k, v in extras.items()})
+    with open(path + '.meta.json', 'w') as fh:
+        json.dump(meta, fh)
+    return path
+
+
+@pytest.mark.parametrize('case', ['pt', 'pt_interrupted', 'pt_geometric',
+                                  'smc', 'smc_partial'])
+def test_analyze_evidence_entry(case, store, tmp_path, monkeypatch, capsys):
+    # [e] reads a PT store's (T, steps) log likelihoods through
+    # tempering.log_evidence and an SMC store's logZ path, as the JAX menu
+    # does (parasitoids_tpu/bayes/run.py:1032-1063), and prints the same
+    from parasitoids_tpu.bayes.tempering import log_evidence
+    rng = np.random.default_rng(0)
+    lls = np.stack([rng.normal(mu, 1.0, 12) for mu in (-2.0, -5.0, -9.0)])
+    if case.startswith('pt'):
+        betas = (np.array([1.0, 0.3, 0.1], np.float32)
+                 if case == 'pt_geometric'
+                 else np.array([1.0, 0.3, 0.0], np.float32))
+        meta = {'sampler': 'pt', 'burn': 4,
+                'n_samples': 20 if case == 'pt_interrupted' else 8}
+        path = _store_with(tmp_path, store, case, meta, betas=betas,
+                           loglik=lls)
+    else:
+        meta = {'sampler': 'smc',
+                'beta': 0.25 if case == 'smc_partial' else 1.0}
+        path = _store_with(tmp_path, store, case, meta,
+                           logz_path=np.array([0.0, -3.5, -7.25]),
+                           betas=np.array([0.0, 0.1, 0.25]))
+    monkeypatch.setattr('sys.stdin', io.StringIO('e\nq\n'))
+    trun.main(['--analyze', path])
+    out = capsys.readouterr().out
+    assert '[e] log-evidence' in out
+    if case.startswith('pt'):
+        ev = log_evidence(betas, lls, burn=4)
+        assert 'log Z (thermodynamic integration): {:.2f}'.format(
+            ev['ti']) in out
+        assert 'log Z (stepping-stone):            {:.2f}'.format(
+            ev['ss']) in out
+        assert ('run interrupted' in out) == (case == 'pt_interrupted')
+        assert ('does not reach beta=0' in out) == (case == 'pt_geometric')
+    else:
+        assert 'log Z (SMC): -7.25' in out
+        assert ('PARTIAL: anneal stopped at beta = 0.250' in out) == (
+            case == 'smc_partial')
+
+
+def test_analyze_offers_no_evidence_for_a_vi_store(store, tmp_path,
+                                                   monkeypatch, capsys):
+    # a VI store holds neither a (T, steps) loglik nor a logZ path: no [e],
+    # as in the JAX menu
+    path = _store_with(tmp_path, store, 'vi', {'sampler': 'vi'},
+                       mu=np.zeros(24), log_diag=np.zeros(24),
+                       logw=np.zeros(8))
+    monkeypatch.setattr('sys.stdin', io.StringIO('e\nq\n'))
+    trun.main(['--analyze', path])
+    out = capsys.readouterr().out
+    assert '[e] log-evidence' not in out and "unrecognized option 'e'" in out
