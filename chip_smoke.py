@@ -34,7 +34,14 @@ from the command line's store bitwise at stage 5, the ADVI command line
 (a fit and a resume from the stored q) with K3 = 18 per value+gradient
 and K1 = K3 + 18 per evaluation without a graph, and ``bayes.sbc`` (AM arm)
 stopped and resumed through its checkpoint; then a complete SMC anneal and
-``bayes.cv`` on one fold at the MAP CLI's small depth.  Any failed phase
+``bayes.cv`` on one fold at the MAP CLI's small depth.  Then SMC with
+batched moves at the Bayes default: the particle-batched kernel against
+its plain twin, each particle's batched forward against its in-turn one,
+one batched launch a day per move round and no host read in it, a resume
+bitwise, and seconds per particle move batched and in turn; and the
+forward variants: the CLI with ``ref_trunc=true`` (no kernel launch),
+the log-depth propagation against the sequential one, and the
+model-vs-data statistics and figures from card tensors.  Any failed phase
 exits non-zero.  ``--only 11,12`` runs some phases alone,
 without the result line (a development run).  The last line is a JSON
 object with ``"ok": true`` and the device; the line before it lists the
@@ -170,20 +177,22 @@ def sfu_rate():
     return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
-def lattice_exps(mu, Dp, cell, K):
+def lattice_exps(mu, Dp, cell, K, select=False):
     """The exps (an erfc counted as one) that the forward's corner lattices
     of these minutes need, counted from this run's data: every corner's
     G-node quadrature on the low-|rho| branch; on the high branch the
     series terms and tail nodes that pass their -80 cut-offs.  Plus Phi of
-    each minute's 2 (2K + 2) edge coordinates.  Returns (exps, corners,
-    whether the high branch ran)."""
+    each minute's 2 (2K + 2) edge coordinates.  ``select``: the batched
+    ensemble's node rule (20 nodes to |rho| 0.925).  Returns (exps,
+    corners, whether the high branch ran)."""
     from parasitoids_tpu_torch.ops.bvn import genz_branch
     from parasitoids_tpu_torch.ops.day_kernel import _pack_constants
     dev = mu.device
     q = _pack_constants(Dp, cell, dev)
     m, T = 2 * K + 2, mu.shape[0]
     corners = T * m * m
-    branch = genz_branch(abs(float(q[3])))
+    ar = abs(float(q[3]))
+    branch = (2 if ar <= 0.925 else 3) if select else genz_branch(ar)
     if branch < 3:
         return corners * (6, 12, 20)[branch] + 2 * m * T, corners, False
     sig_x, sig_y, sgn, a_sq = (float(q[i]) for i in (0, 1, 4, 6))
@@ -217,17 +226,22 @@ def bound(exps, flops, nbytes, rate):
             'operations' if ops_s >= bytes_s else 'bytes', what)
 
 
-def forward_bound(h, mu, Dp, cell, K, buf_len, rate):
-    """Least time of one day's forward accumulate: its exps, about 10 f32
-    operations per exp (and on the high branch 4 per tail node of every
-    corner for its cut-off test), the four-corner differences and the
-    scaled add (5 per cell), each input read once and the buffer written
-    once."""
-    exps, corners, hi = lattice_exps(mu, Dp, cell, K)
+def forward_counts(h, mu, Dp, cell, K, buf_len, select=False):
+    """(exps, f32 operations, bytes) of one day's forward accumulate: its
+    exps, about 10 f32 operations per exp (and on the high branch 4 per
+    tail node of every corner for its cut-off test), the four-corner
+    differences and the scaled add (5 per cell), each input read once and
+    the buffer written once."""
+    exps, corners, hi = lattice_exps(mu, Dp, cell, K, select)
     T, n = h.shape[0], 2 * K + 1
     flops = 10 * exps + 5 * T * n * n + (80 * corners if hi else 0)
     nbytes = T * (4 + 8 + 8 + 4) + 4 * buf_len * buf_len
-    return bound(exps, flops, nbytes, rate)
+    return exps, flops, nbytes
+
+
+def forward_bound(h, mu, Dp, cell, K, buf_len, rate):
+    """Least time of one day's forward accumulate (see forward_counts)."""
+    return bound(*forward_counts(h, mu, Dp, cell, K, buf_len), rate)
 
 
 def backward_bound(h, mu, Dp, cell, K, buf_len, rate):
@@ -1520,6 +1534,7 @@ def zero_counts():
     from parasitoids_tpu_torch.bayes import model, nuts, sampler, vi
     from parasitoids_tpu_torch.ops import day_kernel
     day_kernel.LAUNCHES = day_kernel.LAUNCHES_BWD = 0
+    day_kernel.LAUNCHES_BATCHED = sampler.BATCHED_FORWARDS = 0
     sampler.FORWARDS = nuts.VALUE_AND_GRADS = model.SKIPPED_FORWARDS = 0
     vi.VALUE_AND_GRADS = vi.VALUES = 0
 
@@ -1855,14 +1870,355 @@ def phase_sbc_and_anneals(dev, card, work):
     return k1, k1_smc + k1_cv, sec_sbc, sec_phase
 
 
+# the batched ensemble against its in-turn forward: the two node rules
+# differ by at most 20-node against 6/12-node quadrature roundoff, held at
+# the JAX package's own tolerance for the two schemes
+# (tests/test_smc.py:356-375)
+SCHEME_RTOL, SCHEME_ATOL = 2e-4, 2e-3
+BATCHED_RHOS = (0.253, 0.9, 0.93, -0.99)   # straddling the 0.925 rule
+
+
+def batched_day(setup, m_vecs, day):
+    """Day ``day``'s accumulate inputs for the particles ``m_vecs`` (N, 15)
+    of a BayesSetup, as its batched forward builds them: (h, mu, idx,
+    clip, Dp (N, 3), cell, K, buf_len)."""
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    from parasitoids_tpu_torch.ops.daily_kernel import day_scatter_inputs
+    s = setup.setup
+    m = _as_model(m_vecs)
+    n_per = torch.round(m.n_periods).to(torch.int64)
+    h, mu, idx, clip, _ = day_scatter_inputs(
+        s.wind_flat, s.wind_cumsum, day,
+        tuple(v.reshape(-1, 1) for v in m.hparams()), m.mu_r.reshape(-1, 1),
+        n_per.reshape(-1, 1), s.start_idx if day == 0 else 0, s.kcfg,
+        s.rad_dist)
+    Dp = torch.stack(m.Dparams(), dim=-1)
+    cell = s.rad_dist / s.kcfg.rad_res
+    return (h, mu, idx, clip, Dp, cell, s.kcfg.K,
+            s.scfg.dom_len + 4 * s.kcfg.K)
+
+
+def phase_smc_batched(dev, card, rate, work, smc_sec=None):
+    """Batched SMC at the Bayes default with [15]'s configuration (8
+    particles, one move a stage, five stages, a stop after stage 3 and a
+    resume from the command line's store), ``batched=True``: the
+    particle-batched kernel against its plain twin on days 0, 9 and 17
+    (four particles whose rho straddles 0.925, two launches bitwise
+    equal), each particle's batched projections against its own in-turn
+    K1 forward, 18 batched launches a move round and no single one, no
+    host read inside a move round, the resume bitwise, seconds per
+    particle move batched and in turn, and device busy time a round.
+    Returns the kernels line's numbers of the batched entry."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.bayes import sampler, smc
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    from parasitoids_tpu_torch.bayes.priors import (initial_model_params,
+                                                    sample_prior_model)
+    from parasitoids_tpu_torch.ops import day_kernel
+    print('[18] batched SMC at the Bayes default (801^2, 18 days, 8 '
+          'particles, one move a stage, five stages, batched=True)')
+    tic_phase = time.perf_counter()
+    setup = bayes_run.build_setup(device=dev)
+    bsetup = setup.with_batched_bvn()
+    check(bsetup.setup.kcfg.pallas and bsetup.setup.kcfg.K == 44,
+          'the batched setup takes the CUDA kernel at K = 44')
+
+    # 1. the batched launch against its plain twin
+    m8 = sample_prior_model(torch.Generator().manual_seed(18), 8).to(dev)
+    # the checked particles: the model block's initial values, with the
+    # flight diffusion varied and rho straddling the select rule
+    m4 = torch.as_tensor(np.tile(initial_model_params(), (4, 1)),
+                         dtype=torch.float32).to(dev)
+    m4[:, 6] += torch.tensor([0.0, 20.0, -15.0, 40.0], device=dev)
+    m4[:, 8] = (torch.tensor(BATCHED_RHOS, device=dev) + 1.0) / 2.0
+    err = {'K1': 0.0, 'K2': 0.0, 'rel': 0.0}
+    for day in (0, 9, 17):
+        args = batched_day(setup, m4, day)
+        buf, loss = day_kernel.accumulate_day_batched(*args)
+        again, loss_again = day_kernel.accumulate_day_batched(*args)
+        want_buf, want_loss = day_kernel.accumulate_day_batched_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(buf, again) and torch.equal(loss, loss_again),
+              'day {:2d}: two batched launches bitwise equal'.format(day))
+        for i, rho in enumerate(BATCHED_RHOS):
+            branch = 'K2' if abs(rho) > 0.925 else 'K1'
+            be = float((buf[i] - want_buf[i]).abs().max())
+            le = abs(float(loss[i]) - float(want_loss[i]))
+            peak = float(want_buf[i].max())
+            e, rel = max(be, le), be / peak
+            tol = min(ABS_LIMIT, HI_TOL if branch == 'K2' else BUF_TOL)
+            check(np.isfinite(e) and e <= tol and peak > 0 and
+                  rel <= REL_LIMIT,
+                  'day {:2d} particle {} rho {:+.3f} ({} by the select '
+                  'rule): max |kernel - plain| = {:.3e} <= {:.0e}; / peak '
+                  '{:.3e} <= {:.0e}'.format(day, i, rho, branch, e, tol, rel,
+                                            REL_LIMIT))
+            err[branch] = max(err[branch], e)
+            err['rel'] = max(err['rel'], rel)
+
+    # the launch timed at the main path's shapes: 8 prior particles, day 9
+    args = batched_day(setup, m8, 9)
+    passes = day_kernel.pass_ms(*args, reps=10)
+    timing = dict(ms=median_ms(lambda: day_kernel.accumulate_day_batched(
+        *args), 10), plain_ms=median_ms(
+            lambda: day_kernel.accumulate_day_batched_plain(*args), 2),
+        passes=np.median(passes, axis=0).tolist(),
+        kernel_ms=float(np.median(passes.sum(axis=1))))
+    h, mu, idx, clip, Dp, cell, K, buf_len = args
+    counts = np.sum([forward_counts(h[i], mu[i], tuple(Dp[i]), cell, K,
+                                    buf_len, select=True)
+                     for i in range(8)], axis=0)
+    timing['bound_ms'], timing['bound_by'], what = bound(*counts, rate)
+    # the single-particle K1 launch on the same days, for the ratio
+    one = tuple(a[0] for a in args[:4]) + (tuple(args[4][0]),) + args[5:]
+    timing['k1_ms'] = median_ms(lambda: day_kernel.accumulate_day(*one), 10)
+    print('  day 9, 8 particles: kernels {:.4f} ms (block_build {:.4f}, '
+          'gather {:.4f}, reduce {:.4f}; CUDA events around the kernels '
+          'alone, median of 10); wrapper {:.4f} ms ({:.4f} a particle; one '
+          'particle\'s K1 launch {:.4f} ms); plain twin {:.4f} ms; bound '
+          '{:.4f} ms by {} ({}); bound / kernels {:.3f} ({})'.format(
+              timing['kernel_ms'], *timing['passes'], timing['ms'],
+              timing['ms'] / 8, timing['k1_ms'], timing['plain_ms'],
+              timing['bound_ms'], timing['bound_by'], what,
+              timing['bound_ms'] / timing['kernel_ms'], card))
+
+    # 2. each particle's batched forward against its own in-turn K1 one
+    with torch.no_grad():
+        got = bsetup.forward_projections(_as_model(m8))
+        worst = 0.0
+        for i in range(8):
+            g = torch.cat([t[i].reshape(-1)
+                           for t in (*got[0], *got[1], got[2])])
+            w = flat_proj(setup.forward_projections(_as_model(m8[i])))
+            d = (g - w).abs() - SCHEME_RTOL * w.abs()
+            worst = max(worst, float(d.max()))
+    check(worst <= SCHEME_ATOL,
+          'each particle\'s batched projections within rtol {:.0e} / atol '
+          '{:.0e} of its in-turn K1 forward (worst excess over the rtol '
+          '{:.3e})'.format(SCHEME_RTOL, SCHEME_ATOL, worst))
+
+    # 3.-5. the anneal: launches a move round, host reads, resume bitwise
+    cfg = smc.SMCConfig(n_particles=8, n_moves=1, min_accepts=0.0,
+                        max_move_rounds=1)
+    db = os.path.join(work, 'smc_batched')
+    rounds = []
+    real_move = smc._move_prog
+
+    def counted_move(*a, **k):
+        before = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BATCHED)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        out = real_move(*a, **k)
+        torch.cuda.synchronize()
+        rounds.append((day_kernel.LAUNCHES - before[0],
+                       day_kernel.LAUNCHES_BATCHED - before[1],
+                       time.perf_counter() - tic))
+        return out
+
+    class Stop(Exception):
+        pass
+
+    def stop_at(stage, keep, save=False):
+        def cb(p):
+            if save:
+                bayes_run._save_smc(db, p, 0, cfg)
+            keep.update(p)
+            if p['stage'] == stage:
+                raise Stop
+        return cb
+
+    zero_counts()
+    mono, part, resumed = {}, {}, {}
+    smc._move_prog = counted_move
+    try:
+        for keep, stage, save in ((mono, 5, False), (part, 3, True)):
+            try:
+                smc.run_smc(setup, 0, cfg, seed=0, batched=True,
+                            checkpoint=stop_at(stage, keep, save))
+            except Stop:
+                pass
+        payload, meta = bayes_run._smc_resume_payload(db, setup)
+        try:
+            smc.run_smc(setup, None, cfg, seed=0, resume=payload,
+                        batched=True, checkpoint=stop_at(5, resumed))
+        except Stop:
+            pass
+    finally:
+        smc._move_prog = real_move
+    launches, k1_anneal = day_kernel.LAUNCHES_BATCHED, day_kernel.LAUNCHES
+    check(len(rounds) == 10 and all(r[:2] == (0, 18) for r in rounds),
+          '{} move rounds, each {} batched launches and {} single ones'
+          .format(len(rounds), sorted({r[1] for r in rounds}),
+                  sorted({r[0] for r in rounds})))
+    check(launches == 18 * 10 == 18 * sampler.BATCHED_FORWARDS,
+          '{} batched launches = 18 x {} batched forwards; [15] needs 18 x '
+          '8 single launches a round'.format(launches,
+                                              sampler.BATCHED_FORWARDS))
+    check(mono['stage'] == resumed['stage'] == 5 and meta['stage'] == 3 and
+          states_equal(mono['states'], resumed['states']) and
+          np.array_equal(mono['logw'], resumed['logw']) and
+          mono['logz'] == resumed['logz'] and
+          all(np.array_equal(mono['history'][k], resumed['history'][k])
+              for k in mono['history']),
+          'stopped after stage 3, resumed from the store to stage 5: bitwise '
+          'the uninterrupted batched run (logZ {:.6f})'.format(mono['logz']))
+    print('  beta by stage {}; acceptance {}'.format(
+        ' '.join('{:.3g}'.format(v) for v in mono['history']['betas']),
+        np.round(mono['history']['accept'], 3).tolist()))
+
+    # 4. host reads of a move round, then 6. seconds per particle move in
+    # turn and batched from the same states, and device busy time a round
+    states = mono['states']
+    beta = float(np.float32(mono['beta']))
+    move = dict(
+        batched=lambda st: smc._move_prog(bsetup, st, beta, 1, cfg.obs_scale,
+                                          cfg.obs_sweeps, None, None, True),
+        inturn=lambda st: smc._move_prog(setup, st, beta, 1, cfg.obs_scale,
+                                         cfg.obs_sweeps))
+    states = move['batched'](states)
+    states, reads = count_host_reads(lambda: move['batched'](states))
+    for r in reads:
+        print('    host read: ' + r)
+    check(not reads, 'a batched move round reads the card {} times'.format(
+        len(reads)))
+    sec = {'batched': [], 'inturn': []}
+    for kind in ('inturn', 'batched', 'batched', 'inturn'):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        states = move[kind](states)
+        torch.cuda.synchronize()
+        sec[kind].append((time.perf_counter() - tic) / 8)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        states = move['batched'](states)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) * 1e-6
+    n_dev = sum(e.count for e in events)
+    check(busy > 0, 'the profiler saw the card')
+    per_move = {k: float(np.mean(v)) for k, v in sec.items()}
+    round_sec = [r[2] for r in rounds]
+    print('  {:.4f} s per particle move batched, {:.4f} in turn (the same '
+          'states, rounds in turns in-turn/batched/batched/in-turn, host '
+          'clock); the anneal\'s batched rounds {:.3f}-{:.3f} s for 8 '
+          'particles; [15]\'s in-turn figure {} ({})'.format(
+              per_move['batched'], per_move['inturn'], min(round_sec),
+              max(round_sec), 'not run' if smc_sec is None else
+              '{:.4f} s'.format(smc_sec), card))
+    print('  a batched move round: {} device launches, device busy {:.4f} s '
+          '(idle share {:.3f})'.format(n_dev, busy,
+                                       1.0 - busy / (8 * per_move['batched'])))
+    sec_phase = time.perf_counter() - tic_phase
+    print('  phase [18]: {:.1f} s'.format(sec_phase))
+    return dict(launches=launches, k1=k1_anneal, err=err, timing=timing,
+                sec_batched=per_move['batched'], sec_inturn=per_move['inturn'],
+                busy=busy, device_launches=n_dev, sec_phase=sec_phase)
+
+
+def phase_variants(dev, card, work):
+    """The remaining forward variants and figures on the card: the forward
+    CLI with ``ref_trunc=true`` at 801² (population model; day sums as in
+    [5], no kernel launch), ``propagate_prob_logdepth`` with segment 1 and
+    3 against ``propagate_prob`` on the Kalbar probability model's
+    kernels (tests/test_solver.py's atol 3e-5), and the model-vs-data
+    figures and the daily-kernel explorer from card tensors.  Returns
+    (the ref_trunc CLI's seconds, the phase's seconds)."""
+    from parasitoids_tpu_torch import cli
+    from parasitoids_tpu_torch.io.locinfo import LocInfo
+    from parasitoids_tpu_torch.models.forward import (build_all_kernels,
+                                                      setup_forward)
+    from parasitoids_tpu_torch.models.solver import (propagate_prob,
+                                                     propagate_prob_logdepth)
+    from parasitoids_tpu_torch.ops import day_kernel
+    from parasitoids_tpu_torch.viz import compare, explore
+    print('[19] ref_trunc CLI, log-depth propagation and figures on the '
+          'card (801^2, 18 days)')
+    tic_phase = time.perf_counter()
+    zero_counts()
+    tic = time.perf_counter()
+    fields, days = cli.main(argv=['--pop', '--no_plot', '--no_output',
+                                  'ref_trunc=True'], device=dev)
+    torch.cuda.synchronize()
+    sec_trunc = time.perf_counter() - tic
+    check(day_kernel.LAUNCHES == 0 and day_kernel.LAUNCHES_BATCHED == 0,
+          'ref_trunc CLI: no kernel launch ({} days on the plain accumulate '
+          'in {:.2f} s; {})'.format(len(days), sec_trunc, card))
+    check(tuple(fields.shape) == (18, 801, 801), 'ref_trunc CLI: fields {}'
+          .format(tuple(fields.shape)))
+    check_pop_sums(fields.sum(dim=(1, 2)).double().cpu().numpy(), 130000,
+                   'ref_trunc CLI')
+
+    pp = kalbar_params(pop=False)
+    s = setup_forward(pp, device=dev)
+    hp = (pp.lam, *pp.g_params, *pp.f_params)
+    kernels, _ = build_all_kernels(
+        s.wind_flat, s.wind_cumsum, hp, pp.Dparams, pp.Dlparams, pp.mu_r,
+        pp.n_periods, s.rad_dist, 0, s.kcfg, s.ndays)
+    seq = propagate_prob(kernels, s.scfg)
+    for segment in (1, 3):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        got = propagate_prob_logdepth(kernels, s.scfg, segment=segment)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - tic
+        e = float((got - seq).abs().max())
+        check(e <= 3e-5, 'propagate_prob_logdepth segment {}: max |d| '
+              'against propagate_prob {:.3e} <= 3e-5 ({:.3f} s)'.format(
+                  segment, e, dt))
+
+    p = kalbar_params()
+    locinfo = LocInfo(p.dataset, p.coord, p.domain_info)
+    dlist = list(range(1, len(days) + 1))
+    r2 = compare.grid_r_squared(fields, dlist, p, locinfo)
+    check(set(r2['per_day']) and np.isfinite(r2['pooled']),
+          'grid_r_squared from the card\'s fields: pooled {:.4f}, by day {}'
+          .format(r2['pooled'], {k: round(v, 4)
+                                 for k, v in r2['per_day'].items()}))
+    before = day_kernel.LAUNCHES
+    pmf, loss, _, _ = explore.daily_kernel_field(day_index=9, device=dev)
+    torch.cuda.synchronize()
+    check(pmf.device.type == 'cuda' and day_kernel.LAUNCHES == before + 1
+          and abs(float(pmf.sum()) - 1.0) <= 1e-4,
+          'the explorer\'s daily kernel built on the card through one K1 '
+          'launch (sum {:.6f}, loss {:.3e})'.format(float(pmf.sum()),
+                                                     float(loss)))
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print('  figures: matplotlib is not installed on this machine, so '
+              'compare_emergence, assess_fit and plot_daily_kernel draw '
+              'nothing here (the CPU tests write them)')
+    else:
+        here = os.path.join(work, 'figures')
+        os.makedirs(here, exist_ok=True)
+        outs = [compare.compare_emergence(fields, dlist, p, locinfo,
+                                          os.path.join(here, 'ce.png')),
+                compare.assess_fit(fields, dlist, p, locinfo,
+                                   os.path.join(here, 'af.png')),
+                explore.plot_daily_kernel(day_index=9, device=dev,
+                                          outfile=os.path.join(here,
+                                                               'dk.png'))]
+        check(all(os.path.getsize(o) > 0 for o in outs),
+              'figures written from card tensors: {}'.format(
+                  [os.path.basename(o) for o in outs]))
+    sec_phase = time.perf_counter() - tic_phase
+    print('  phase [19]: {:.1f} s'.format(sec_phase))
+    return sec_trunc, day_kernel.LAUNCHES, sec_phase
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(prog='chip_smoke.py')
     ap.add_argument('--only', default=None, metavar='N,N',
                     help='run only these phases (1, 2 and the checks of '
                          'imports always run; 13 needs 9), e.g. 14,15,16,17 '
-                         'for the tempered and evidence samplers; no result '
-                         'line')
+                         'for the tempered and evidence samplers, 18,19 for '
+                         'the batched SMC moves and the forward variants; '
+                         'no result line')
     args = ap.parse_args(argv)
     only = (None if args.only is None else
             {int(v) for v in args.only.split(',')})
@@ -1924,14 +2280,17 @@ def run(only, work):
     vi_k1, vi_k3, vi_sec, vi_phase = phase_vi_cli(dev, card, work)
     sbc_k1, small_k1, sbc_sec, p17_phase = phase_sbc_and_anneals(dev, card,
                                                                  work)
+    bat = phase_smc_batched(dev, card, rate, work, smc_sec)
+    trunc_sec, var_k1, p19_phase = phase_variants(dev, card, work)
     check(launches > 0 and min(map_launches) > 0 and am_launches > 0 and
           min(nuts_k1, nuts_k3) > 0 and min(lap_launches) > 0 and
           min(ridge_k1, ridge_k3) > 0 and sum_k1 > 0 and
-          min(pt_k1, smc_k1, vi_k1, vi_k3, sbc_k1, small_k1) > 0,
+          min(pt_k1, smc_k1, vi_k1, vi_k3, sbc_k1, small_k1) > 0 and
+          bat['launches'] > 0 and var_k1 > 0,
           'both kernels launched on their main paths, the forward kernel on '
           'the AM path too, both on the NUTS, Laplace and ridge paths, the '
           'forward kernel on the summary, PT, SMC, SBC and CV paths, both '
-          'on the ADVI path')
+          'on the ADVI path, the batched forward on the batched SMC path')
     check_imports()
 
     k1, k2 = timing['K1'], timing['K2']
@@ -1942,7 +2301,10 @@ def run(only, work):
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:157',
         'launches': (launches + nuts_k1 + lap_launches[0] + ridge_k1 +
-                     sum_k1 + pt_k1 + smc_k1 + vi_k1 + sbc_k1 + small_k1),
+                     sum_k1 + pt_k1 + smc_k1 + vi_k1 + sbc_k1 + small_k1 +
+                     bat['k1'] + var_k1),
+        'launches_smc_batched_init': bat['k1'],
+        'launches_explorer': var_k1,
         'launches_main_path': launches, 'launches_nuts_cli': nuts_k1,
         'launches_pt_cli': pt_k1, 'forwards_pt_cli': pt_forwards,
         'sec_per_pt_replica_step_801': pt_sec, 'sec_phase_14': pt_phase,
@@ -2030,6 +2392,32 @@ def run(only, work):
         'sec_nuts_cli_801': nuts_sec,
         'device_launches_per_nuts_leapfrog_801': nuts_launches,
         'device_busy_sec_per_nuts_leapfrog_801': nuts_busy,
+    }, {
+        'name': 'day_accumulate particle-batched (K1/K2 by the select rule, '
+                'one launch a day for the population)',
+        'route': 'cuda',
+        'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
+        'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:157',
+        'launches': bat['launches'], 'particles': 8,
+        'max_abs_err': max(bat['err']['K1'], bat['err']['K2']),
+        'max_abs_err_k1': bat['err']['K1'],
+        'max_abs_err_k2': bat['err']['K2'],
+        'max_err_over_peak': bat['err']['rel'],
+        'ms': bat['timing']['ms'], 'plain_ms': bat['timing']['plain_ms'],
+        'kernel_ms': bat['timing']['kernel_ms'],
+        'block_build_ms': bat['timing']['passes'][0],
+        'gather_ms': bat['timing']['passes'][1],
+        'reduce_ms': bat['timing']['passes'][2],
+        'single_particle_k1_ms': bat['timing']['k1_ms'],
+        'bound_ms': bat['timing']['bound_ms'],
+        'bound_by': bat['timing']['bound_by'],
+        'library_ms': None,
+        'sec_per_particle_move_batched_801': bat['sec_batched'],
+        'sec_per_particle_move_in_turn_801': bat['sec_inturn'],
+        'device_busy_sec_per_batched_round_801': bat['busy'],
+        'device_launches_per_batched_round_801': bat['device_launches'],
+        'sec_phase_18': bat['sec_phase'],
+        'sec_ref_trunc_cli_801': trunc_sec, 'sec_phase_19': p19_phase,
     }]
     print(smi)
     print(json.dumps({'kernels': kernels}))
@@ -2064,7 +2452,9 @@ def run_some(only, dev, card, rate, work):
         14: lambda: phase_pt_cli(dev, card, work),
         15: lambda: phase_smc(dev, card, work),
         16: lambda: phase_vi_cli(dev, card, work),
-        17: lambda: phase_sbc_and_anneals(dev, card, work)}
+        17: lambda: phase_sbc_and_anneals(dev, card, work),
+        18: lambda: phase_smc_batched(dev, card, rate, work),
+        19: lambda: phase_variants(dev, card, work)}
     failed = []
     for n in sorted(only | ({9} if 13 in only else set())):
         tic = time.perf_counter()

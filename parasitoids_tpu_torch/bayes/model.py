@@ -35,10 +35,11 @@ from ..config import Params
 from ..device import scalar
 from ..io.locinfo import LocInfo
 from ..models.forward import (ForwardSetup, build_all_kernels,
+                              build_all_kernels_batched,
                               prior_coverage_windows, setup_forward)
 from ..models.observe import ObservationOps
 from ..models.solver import propagate_pop
-from ..ops.bvn import bvn_cell_masses, genz_branch
+from ..ops.bvn import bvn_cell_masses, bvn_cell_masses_batched, genz_branch
 from .priors import ModelParams, ObsParams, log_prior_model, log_prior_obs
 
 __all__ = ['BayesSetup', 'poisson_logpmf', 'poisson_loglik',
@@ -92,15 +93,25 @@ def zip_logpmf(obs, rate, pi):
 
 
 def _as_model(vec) -> ModelParams:
-    """A packed 15-vector as :class:`ModelParams` of 0-d tensors."""
-    return ModelParams(*[vec[i] for i in range(_N_MODEL)])
+    """A packed 15-vector as :class:`ModelParams` of 0-d tensors; an
+    ``(N, 15)`` matrix gives ``(N,)`` tensors, one value per particle."""
+    return ModelParams(*[vec[..., i] for i in range(_N_MODEL)])
 
 
 def _as_obs(vec, n_sent) -> ObsParams:
     """A packed obs vector as :class:`ObsParams`; a variant's vector carries
-    one extra trailing slot (the NB dispersion or ZIP probability)."""
-    od = vec[4 + n_sent] if vec.shape[0] > 4 + n_sent else 0.0
-    return ObsParams(vec[0], vec[1], vec[2], vec[3], vec[4:4 + n_sent], od)
+    one extra trailing slot (the NB dispersion or ZIP probability).  An
+    ``(N, n_obs)`` matrix gives a leading particle axis on every field."""
+    od = vec[..., 4 + n_sent] if vec.shape[-1] > 4 + n_sent else 0.0
+    return ObsParams(vec[..., 0], vec[..., 1], vec[..., 2], vec[..., 3],
+                     vec[..., 4:4 + n_sent], od)
+
+
+def _per(v):
+    """An observation parameter shaped to broadcast against a particle's
+    ``(rows, cols)`` block: ``(N,)`` becomes ``(N, 1, 1)``; a 0-d tensor
+    or a number stays as it is."""
+    return v[..., None, None] if torch.is_tensor(v) and v.ndim else v
 
 
 def _kalbar_default_params():
@@ -257,9 +268,15 @@ class BayesSetup:
             'ROADMAP Queue 1 item 16b')
 
     def with_batched_bvn(self):
-        raise NotImplementedError(
-            'the ensemble-batched BVN scheme is left unported (ROADMAP '
-            '"Leave unported"); use the JAX package')
+        """Shallow copy whose forward simulations take N parameter sets at
+        once with the ensemble's select node rule (the JAX method's
+        ``kcfg._replace(batched_bvn=True)``): on the card one launch of
+        the particle-batched day kernel a day for the whole population, so
+        no host read of any ρ (``forward_projections``)."""
+        new = copy.copy(self)
+        new.setup = self.setup._replace(
+            kcfg=self.setup.kcfg._replace(batched_bvn=True))
+        return new
 
     # ------------------------------------------------------------------
     def _branches(self, m: ModelParams, prior=None, gate=None):
@@ -287,7 +304,9 @@ class BayesSetup:
         ``sprd_factor`` of the population drifts with the flight covariance
         around a fixed mean wind displacement, the rest spreads locally.
         Built out of place, so it is differentiable in every parameter.
-        ``branches``: see :meth:`_branches`."""
+        ``branches``: see :meth:`_branches`.  With ``batched_bvn`` the
+        parameters may be ``(N,)`` tensors (and ``sprd_factor`` too): the
+        select node rule, ``(N, D, D)``."""
         res = self.cell_res
         kcfg = self.setup.kcfg
         dtype = self.setup.wind_flat.dtype
@@ -297,13 +316,21 @@ class BayesSetup:
         dint = np.floor(drift / res).astype(int)        # cell offsets (x, y)
         drem = drift - dint * res                        # sub-cell remainder
         K, Kl = kcfg.K, kcfg.K_local
-        long_spread = bvn_cell_masses(
-            torch.as_tensor(drem, dtype=dtype, device=device),
-            m.sig_x, m.sig_y, m.corr, res, K, branches[0])
-        short_spread = bvn_cell_masses(
-            torch.zeros(2, dtype=dtype, device=device), m.sig_xl, m.sig_yl,
-            m.corr_l, res, Kl, branches[1])
-        sprd = scalar(sprd_factor, dtype, device)
+        drem_t = torch.as_tensor(drem, dtype=dtype, device=device)
+        if kcfg.batched_bvn:
+            lead = tuple(torch.as_tensor(m.sig_x).shape)
+            long_spread = bvn_cell_masses_batched(
+                drem_t.expand(lead + (2,)), m.sig_x, m.sig_y, m.corr, res, K)
+            short_spread = bvn_cell_masses_batched(
+                torch.zeros(lead + (2,), dtype=dtype, device=device),
+                m.sig_xl, m.sig_yl, m.corr_l, res, Kl)
+        else:
+            long_spread = bvn_cell_masses(drem_t, m.sig_x, m.sig_y, m.corr,
+                                          res, K, branches[0])
+            short_spread = bvn_cell_masses(
+                torch.zeros(2, dtype=dtype, device=device), m.sig_xl,
+                m.sig_yl, m.corr_l, res, Kl, branches[1])
+        sprd = _per(scalar(sprd_factor, dtype, device))
         c = kcfg.rad_res
 
         def place(block, row, col):
@@ -317,6 +344,10 @@ class BayesSetup:
         field = place(sprd * long_spread, c - int(dint[1]) - K,
                       c + int(dint[0]) - K)
         field = field + place((1.0 - sprd) * short_spread, c - Kl, c - Kl)
+        if field.ndim > 2:
+            rest = torch.clamp(1.0 - field.sum(dim=(-2, -1)), min=0.0)
+            return field + F.pad(rest[:, None, None],
+                                 (c, D - c - 1, c, D - c - 1))
         centre = torch.tensor([c], device=device)
         return field.index_put(
             (centre, centre),
@@ -329,8 +360,16 @@ class BayesSetup:
         to observables (the reference ``pop_model``).  ``n_periods`` is
         rounded to the nearest integer before the forward, as the JAX model
         does: a θ of 29.9999 runs a 30-period window.  ``branches``: from
-        :meth:`_branches`, which is called here when they are not given."""
+        :meth:`_branches`, which is called here when they are not given.
+
+        On a :meth:`with_batched_bvn` copy every field of ``m`` is an
+        ``(N,)`` tensor (``sprd_factor`` a number or ``(N,)``): N
+        parameter sets go through one batched forward, every day one
+        launch of the particle-batched kernel on the card, with no host
+        read, and each projection gains a leading particle axis."""
         s = self.setup
+        if s.kcfg.batched_bvn:
+            return self._forward_projections_batched(m, sprd_factor)
         if branches is None:
             branches, _ = self._branches(m)
         n_per = torch.round(scalar(m.n_periods, s.wind_flat.dtype,
@@ -351,22 +390,45 @@ class BayesSetup:
         grid = self.obs_ops.project_grid(fields)
         return tuple(rel), tuple(sent), grid
 
+    def _forward_projections_batched(self, m: ModelParams, sprd_factor):
+        s = self.setup
+        dtype, dev = s.wind_flat.dtype, s.wind_flat.device
+        n_per = torch.round(m.n_periods.to(dtype)).to(torch.int64)
+        kernels, _ = build_all_kernels_batched(
+            s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
+            m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
+            self.ndays)
+        if sprd_factor is not None:
+            pre = self._pre_spread_kernel(m, sprd_factor)
+            kernels = torch.cat([pre[:, None], kernels], dim=1)
+            fields = propagate_pop(kernels, self.r_dur, self.r_number,
+                                   self.dist_weights, s.scfg)[:, 1:]
+        else:
+            fields = propagate_pop(kernels, self.r_dur, self.r_number,
+                                   self.dist_weights, s.scfg)
+        rel, sent = self.obs_ops.project_emergence(fields)
+        grid = self.obs_ops.project_grid(fields)
+        return tuple(rel), tuple(sent), grid
+
     # ------------------------------------------------------------------
     def _obs_logpmf(self, data, rate, o: ObsParams):
         """Per-count observation log-pmf under the configured model."""
         if self.obs_model == 'negbin':
-            return negbin_logpmf(data, rate, o.od)
+            return negbin_logpmf(data, rate, _per(o.od))
         if self.obs_model == 'zip':
-            return zip_logpmf(data, rate, o.od)
+            return zip_logpmf(data, rate, _per(o.od))
         return poisson_logpmf(data, rate)
 
     def _rates(self, projections, o: ObsParams):
-        """(data, rate) pairs: release blocks, sentinel blocks, grid."""
+        """Rates of the release blocks, sentinel blocks and grid; with a
+        leading particle axis where ``o`` has one."""
         rel, sent, grid = projections
-        out = [(o.xi * model * (effort * o.em_obs_prob)[:, None])
+        out = [(_per(o.xi) * model *
+                (effort * o.em_obs_prob[..., None])[..., :, None])
                for model, effort in zip(rel, self.release_effort)]
-        out += [(o.xi * model * o.sent_obs_probs[:, None]) for model in sent]
-        out.append(o.grid_obs_prob * self.grid_samples * grid)
+        out += [(_per(o.xi) * model * o.sent_obs_probs[..., :, None])
+                for model in sent]
+        out.append(_per(o.grid_obs_prob) * self.grid_samples * grid)
         return out
 
     def log_likelihood(self, projections, o: ObsParams, obs_mask=None,
@@ -375,7 +437,8 @@ class BayesSetup:
         optional ``(rel, sent, grid)`` 0/1 weights (``split_point_mask``),
         else the setup's own mask (``with_held_out``); ``obs``: optional
         ``(rel, sent, grid)`` observed data (``obs_pytree``) in place of
-        the setup's."""
+        the setup's.  Projections and ``o`` with a leading particle axis
+        give one log likelihood per particle, ``(N,)``."""
         mask = obs_mask if obs_mask is not None else self.obs_mask
         data_rel, data_sent, data_grid = (
             obs if obs is not None
@@ -383,10 +446,12 @@ class BayesSetup:
         data = list(data_rel) + list(data_sent) + [data_grid]
         weights = ([None] * len(data) if mask is None else
                    list(mask[0]) + list(mask[1]) + [mask[2]])
+        dims = (-2, -1) if torch.is_tensor(o.xi) and o.xi.ndim else None
         lp = 0.0
         for d, rate, w in zip(data, self._rates(projections, o), weights):
             ll = self._obs_logpmf(d, rate, o)
-            lp = lp + torch.sum(ll if w is None else ll * w)
+            ll = ll if w is None else ll * w
+            lp = lp + (torch.sum(ll) if dims is None else ll.sum(dim=dims))
         return lp
 
     def pointwise_loglik(self, projections, o: ObsParams):

@@ -344,17 +344,20 @@ def log_prior_obs(o: ObsParams, field_areas, min_field_area,
     ``field_areas``: sentinel field areas in m² (a tensor);
     ``min_field_area``: truncation upper bound for A_collected.
     ``obs_model``: adds the variant extra-parameter prior (negbin
-    r ~ Gamma(2, 0.1); zip pi ~ Beta(1, 3)) over ``o.od``.
+    r ~ Gamma(2, 0.1); zip pi ~ Beta(1, 3)) over ``o.od``.  Parameters
+    with a leading particle axis (``(N,)``, the sentinel probabilities
+    ``(N, n_sent)``) give ``(N,)`` densities, as ``log_prior_model``
+    does elementwise.
     """
     lp = _gamma_logpdf(o.xi, 1.0, 1.0)
     lp = lp + _beta_logpdf(o.em_obs_prob, 1.0, 1.0)
     lp = lp + _beta_logpdf(o.grid_obs_prob, 1.0, 1.0)
     lp = lp + _truncnorm_logpdf(o.A_collected, 2500.0, 1.0 / 2500.0, 0.0,
                                 min_field_area)
-    alpha = sent_obs_prior_alpha(o.A_collected, field_areas)
+    alpha = sent_obs_prior_alpha(o.A_collected[..., None], field_areas)
     # hierarchical: invalid whenever A_collected >= a field's area
-    valid = torch.all(alpha > 0)
-    sent = torch.sum(_beta_logpdf(o.sent_obs_probs, alpha, 40.0))
+    valid = torch.all(alpha > 0, dim=-1)
+    sent = torch.sum(_beta_logpdf(o.sent_obs_probs, alpha, 40.0), dim=-1)
     lp = lp + torch.where(valid, sent, _neg_inf(sent))
     if obs_model == 'negbin':
         lp = lp + _gamma_logpdf(o.od, 2.0, 0.1)

@@ -18,7 +18,8 @@ Reference entry point: ``python Bayes_Run.py --new <iters> <burn> <db>`` /
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback).  The
 chains of a run, the replicas of parallel tempering (``--sampler pt``) and
-the particles of SMC (``--sampler smc``) advance in turn on the one card;
+the particles of SMC (``--sampler smc``) advance in turn on the one card
+(SMC's particles all at once for each move with ``PARA_SMC_BATCHED=1``);
 the AM, PT, SMC and VI trace stores are npz files with exact sampler-state
 resume instead of a PyMC HDF5 database, and a NUTS run keeps a transition
 checkpoint (``<db>.ckpt.npz``, mirrored to ``<db>.ckpt_durable.npz``) that
@@ -28,7 +29,7 @@ metric from the Laplace covariance at a MAP fit and ``--mass ridge``
 samples in that covariance's eigenbasis, the map kept in a
 ``<db>.whiten.npz`` sidecar that a ``--resume`` reads.  The argument
 parser is the JAX module's, so ``--help`` reads the same;
-``--shard-forward`` and ``PARA_SMC_BATCHED=1`` exit naming why.
+``--shard-forward`` exits naming why.
 """
 
 from __future__ import annotations
@@ -857,20 +858,43 @@ def _save_smc(db, payload, seed, cfg):
                extra={'logw': payload['logw'], 'betas': h['betas'],
                       'ess_path': h['ess'], 'accept_path': h['accept'],
                       'resampled': h['resampled'], 'logz_path': h['logz'],
-                      'rounds_path': h.get('rounds', np.zeros(0))})
+                      'rounds_path': h.get('rounds', np.zeros(0)),
+                      'proj': _flat_proj(payload['states'].proj)})
     _commit_store(db, 'SMC checkpoint: stage {} (beta {:.4f})'.format(
         payload['stage'], payload['beta']))
     return traces
 
 
+def _flat_proj(proj):
+    """A stacked state's cached projections as one ``(N, P)`` host array."""
+    return torch.cat([t.reshape(t.shape[0], -1) for t in
+                      (*proj[0], *proj[1], proj[2])], 1).cpu().numpy()
+
+
+def _unflat_proj(flat, like):
+    """:func:`_flat_proj`'s array in the structure and device of ``like``."""
+    flat = torch.as_tensor(flat).to(like[2].device)
+    out, pos = [], 0
+    for t in (*like[0], *like[1], like[2]):
+        n = t[0].numel()
+        out.append(flat[:, pos:pos + n].reshape(t.shape))
+        pos += n
+    nr, ns = len(like[0]), len(like[1])
+    return tuple(out[:nr]), tuple(out[nr:nr + ns]), out[-1]
+
+
 def _smc_resume_payload(db, setup):
     """An SMC store read back as ``run_smc``'s ``resume`` payload, with
-    its meta."""
+    its meta.  The particles' cached projections are the stored ones, so a
+    resume continues bitwise whichever forward (in turn or batched) last
+    moved each particle."""
     _, states, meta = load_chain(db, setup)
     if meta.get('sampler') != 'smc':
         raise SystemExit('{} was not written by --sampler smc; pass '
                          'the matching --sampler'.format(db))
     ex = load_extras(db)
+    if 'proj' in ex:
+        states = states._replace(proj=_unflat_proj(ex['proj'], states.proj))
     payload = {'states': states, 'logw': ex['logw'],
                'beta': float(meta['beta']), 'logz': float(meta['logz']),
                'log_scale': float(meta['log_scale']),
@@ -891,12 +915,12 @@ def run_smc_cli(args, setup):
     plus the SMC marginal-likelihood estimate — the third evidence
     estimator next to PT's TI and stepping-stone (cross-checkable via
     --sampler pt on the same data).  The particles advance in turn on the
-    one card.  Returns the final payload with the run's seconds under
-    ``'seconds'``."""
-    from .smc import _NO_BATCHED, SMCConfig, ess, run_smc
+    one card: in turn, or with ``PARA_SMC_BATCHED=1`` all at once for
+    each move (one batched forward, the select node rule; the annealer
+    state is the same in both modes, so a resume may flip it).  Returns
+    the final payload with the run's seconds under ``'seconds'``."""
+    from .smc import SMCConfig, ess, run_smc
 
-    if os.environ.get('PARA_SMC_BATCHED', '0') not in ('', '0'):
-        raise NotImplementedError(_NO_BATCHED + ' (unset PARA_SMC_BATCHED)')
     resume = args.new is None
     if resume:
         db = args.resume[0]
@@ -949,9 +973,16 @@ def run_smc_cli(args, setup):
         else:
             print('SMC: continuing at beta={:.5f} (stage {})...'.format(
                 payload['beta'], payload['stage']))
+        # PARA_SMC_BATCHED=1: the whole population through one batched
+        # forward per move (bayes/smc._move_prog batched mode); the
+        # annealer state and checkpoints do not depend on the mode
+        batched = bool(int(os.environ.get('PARA_SMC_BATCHED', '0') or 0))
+        if batched:
+            print('  batched (vmap) rejuvenation enabled')
         payload = run_smc(setup, seed, cfg, seed=seed, verbose=True,
                           resume=payload,
-                          checkpoint=lambda p: _save_smc(db, p, seed, cfg))
+                          checkpoint=lambda p: _save_smc(db, p, seed, cfg),
+                          batched=batched)
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)
         print('SMC finished: {:.1f} s, {} stages'.format(

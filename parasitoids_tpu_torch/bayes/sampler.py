@@ -25,6 +25,11 @@ random numbers come from the chain's own ``torch.Generator`` in two
 launches, or from the caller (``draws``), so a test can replay another
 stream.  The generator is advanced in place: a :class:`ChainState` is
 used up by the step that takes it.
+
+:func:`mcmc_step_batched` is the same transition for N stacked states at
+once (the JAX step under ``vmap``): one batched forward for every
+particle's proposal on a ``with_batched_bvn`` setup, out-of-support
+proposals masked to −inf by a select, and no host read at all.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ from .priors import (STEP_SCALES, initial_model_params, initial_obs_params,
                      log_prior_model, log_prior_obs)
 
 __all__ = ['MCMCConfig', 'ChainState', 'StepDraws', 'FORWARDS',
-           'chain_generator', 'draw_step', 'init_chain_state', 'run_mcmc',
-           'mcmc_step', 'stack_states', 'unstack_states']
+           'BATCHED_FORWARDS', 'chain_generator', 'draw_step',
+           'init_chain_state', 'run_mcmc', 'mcmc_step', 'mcmc_step_batched',
+           'stack_states', 'unstack_states']
 
 _N_MODEL = 15
 _DISCRETE_IDX = 13        # n_periods position in the block
@@ -53,6 +59,10 @@ _OPT_SCALE = 2.38 ** 2 / _N_MODEL
 # (one per chain initialised or reloaded, one per block proposal whose prior
 # is finite); a run reads it beside ``ops.day_kernel.LAUNCHES``
 FORWARDS = 0
+# batched forwards run by ``mcmc_step_batched`` (each advances every
+# particle: N forward simulations, one batched launch a day); a run reads
+# it beside ``ops.day_kernel.LAUNCHES_BATCHED``
+BATCHED_FORWARDS = 0
 
 
 class MCMCConfig(NamedTuple):
@@ -185,11 +195,14 @@ def _proposal_chol(state, adapt_start):
     is rejected, where ``cholesky_ex``'s partly factored matrix would
     propose from a covariance nobody chose."""
     seed, jitter = _seed_cov(state.m.dtype, state.m.device)
-    emp = state.m2 / torch.clamp(state.count - 1.0, min=1.0)
-    adapted = _OPT_SCALE * torch.exp(state.log_scale) * emp + jitter
-    cov = torch.where(state.count >= adapt_start, adapted, seed)
+    count = state.count[..., None, None]       # stacked states: one each
+    emp = state.m2 / torch.clamp(count - 1.0, min=1.0)
+    adapted = (_OPT_SCALE * torch.exp(state.log_scale[..., None, None]) *
+               emp + jitter)
+    cov = torch.where(count >= adapt_start, adapted, seed)
     L, info = torch.linalg.cholesky_ex(cov, check_errors=False)
-    return torch.where(info == 0, L, torch.full_like(L, math.nan))
+    return torch.where(info[..., None, None] == 0, L,
+                       torch.full_like(L, math.nan))
 
 
 def _obs_move(setup: BayesSetup, j, z, o_vec, prior_o, ll_cur, proj, beta,
@@ -210,13 +223,14 @@ def _obs_move(setup: BayesSetup, j, z, o_vec, prior_o, ll_cur, proj, beta,
     masked to −inf where the proposal's prior is not finite: no branch
     reads the card.  A likelihood that is NaN there (the log of a negative
     rate or dispersion) is masked with it, and a NaN ratio compares false,
-    so neither can enter the chain.
+    so neither can enter the chain.  Stacked particles (``o_vec`` of
+    ``(N, n_obs)``, ``z`` of ``(N,)``) move together.
     """
-    s_fwd = torch.clamp(o_vec[j].abs(), min=1e-3) * cfg.obs_scale
+    s_fwd = torch.clamp(o_vec[..., j].abs(), min=1e-3) * cfg.obs_scale
     step = s_fwd * z
     o_prop = o_vec.clone()          # out of place: o_vec is chain state
-    o_prop[j] = o_vec[j] + step
-    s_rev = torch.clamp(o_prop[j].abs(), min=1e-3) * cfg.obs_scale
+    o_prop[..., j] = o_vec[..., j] + step
+    s_rev = torch.clamp(o_prop[..., j].abs(), min=1e-3) * cfg.obs_scale
     o_p = _as_obs(o_prop, setup.n_sent)
     prior_p = log_prior_obs(o_p, setup.field_areas, setup.min_field_area,
                             setup.obs_model)
@@ -240,15 +254,16 @@ def _obs_sweep(setup: BayesSetup, obs_eps, obs_log_u, o_vec, prior_o, ll_cur,
     recompute: PyMC's per-stochastic step methods, Bayes_Run.py:486-487).
     ``obs_eps`` and ``obs_log_u`` hold one normal and one log-uniform per
     coordinate move.  Nothing here reads the card.  Returns ``(o_vec,
-    prior_o, ll_cur, n_accepts)``."""
+    prior_o, ll_cur, n_accepts)``.  Stacked particles carry their draws
+    on the last axis, ``(N, n_moves)``."""
     n_obs = _n_obs(setup)
     acc_o = torch.zeros_like(prior_o)
     for i in range(n_obs * n_sweeps):
         o_prop, prior_p, ll_p, ratio = _obs_move(
-            setup, i % n_obs, obs_eps[i], o_vec, prior_o, ll_cur, proj, beta,
-            cfg, obs_mask, obs)
-        acc = obs_log_u[i] < ratio
-        o_vec = torch.where(acc, o_prop, o_vec)
+            setup, i % n_obs, obs_eps[..., i], o_vec, prior_o, ll_cur, proj,
+            beta, cfg, obs_mask, obs)
+        acc = obs_log_u[..., i] < ratio
+        o_vec = torch.where(acc[..., None], o_prop, o_vec)
         prior_o = torch.where(acc, prior_p, prior_o)
         ll_cur = torch.where(acc, ll_p, ll_cur)
         acc_o = acc_o + acc.to(acc_o.dtype)
@@ -280,9 +295,51 @@ def _model_proposal(setup: BayesSetup, state: ChainState, cfg: MCMCConfig,
 
 
 def _where_tree(cond, new, old):
+    """``torch.where`` over a projection tree; ``cond`` is 0-d, or one
+    value per stacked particle, ``(N,)``, against leaves ``(N, ...)``."""
     if torch.is_tensor(new):
-        return new if new is old else torch.where(cond, new, old)
+        if new is old:
+            return new
+        return torch.where(cond.reshape(cond.shape + (1,) *
+                                        (new.ndim - cond.ndim)), new, old)
     return tuple(_where_tree(cond, a, b) for a, b in zip(new, old))
+
+
+def _accept_and_sweep(setup, state, cfg, beta, draws, m_prop, prior_prop,
+                      ll_prop, proj_prop, log_ratio, obs_mask, obs):
+    """The rest of an AM transition once the block proposal is evaluated:
+    accept or reject it, update the streaming moments and the scale, and
+    sweep the observation block.  One state, or stacked particles (every
+    field with a leading axis).  Returns the new state."""
+    accept = draws.log_u < log_ratio
+    m_new = torch.where(accept[..., None], m_prop, state.m)
+    proj_new = _where_tree(accept, proj_prop, state.proj)
+    ll_new = torch.where(accept, ll_prop, state.loglik)
+    prior_m_new = torch.where(accept, prior_prop, state.prior_m)
+    accept = accept.to(state.m.dtype)
+
+    # streaming moments over the (post-update) chain position
+    count = state.count + 1.0
+    delta = m_new - state.mean
+    mean = state.mean + delta / count[..., None]
+    m2 = state.m2 + delta[..., :, None] * (m_new - mean)[..., None, :]
+    # proposal-scale adaptation toward 0.234 acceptance, active with the
+    # empirical covariance (diminishing Robbins–Monro steps)
+    gamma = torch.where(
+        count >= cfg.adapt_start,
+        1.0 / torch.sqrt(torch.clamp(count - cfg.adapt_start + 1.0, min=1.0)),
+        torch.zeros_like(count))
+    log_scale = state.log_scale + gamma * (accept - 0.234)
+
+    # ---- observation-parameter sweeps (cached projections) -----------
+    o_vec, prior_o, ll_cur, acc_sweeps = _obs_sweep(
+        setup, draws.obs_eps, draws.obs_log_u, state.o, state.prior_o,
+        ll_new, proj_new, beta, cfg, obs_mask, obs, n_sweeps=cfg.obs_sweeps)
+    return ChainState(
+        m=m_new, o=o_vec, loglik=ll_cur, prior_m=prior_m_new,
+        prior_o=prior_o, proj=proj_new, key=state.key, count=count,
+        mean=mean, m2=m2, accepts_m=state.accepts_m + accept,
+        accepts_o=state.accepts_o + acc_sweeps, log_scale=log_scale)
 
 
 @torch.no_grad()
@@ -302,47 +359,66 @@ def _mcmc_step(setup: BayesSetup, state: ChainState, cfg: MCMCConfig,
     n_moves = _n_obs(setup) * cfg.obs_sweeps
     if draws is None:
         draws = draw_step(state.key, n_moves, dtype, dev)
-
-    # ---- model block update (full forward simulation) ----------------
-    m_prop_vec, prior_prop, ll_prop, proj_prop, log_ratio = _model_proposal(
-        setup, state, cfg, beta, draws.eps, obs_mask, obs)
-    accept = draws.log_u < log_ratio
-    m_new = torch.where(accept, m_prop_vec, state.m)
-    proj_new = _where_tree(accept, proj_prop, state.proj)
-    ll_new = torch.where(accept, ll_prop, state.loglik)
-    prior_m_new = torch.where(accept, prior_prop, state.prior_m)
-    accept = accept.to(dtype)
-
-    # streaming moments over the (post-update) chain position
-    count = state.count + 1.0
-    delta = m_new - state.mean
-    mean = state.mean + delta / count
-    m2 = state.m2 + torch.outer(delta, m_new - mean)
-    # proposal-scale adaptation toward 0.234 acceptance, active with the
-    # empirical covariance (diminishing Robbins–Monro steps)
-    gamma = torch.where(
-        count >= cfg.adapt_start,
-        1.0 / torch.sqrt(torch.clamp(count - cfg.adapt_start + 1.0, min=1.0)),
-        torch.zeros_like(count))
-    log_scale = state.log_scale + gamma * (accept - 0.234)
-
-    # ---- observation-parameter sweeps (cached projections) -----------
-    o_vec, prior_o, ll_cur, acc_sweeps = _obs_sweep(
-        setup, draws.obs_eps, draws.obs_log_u, state.o, state.prior_o,
-        ll_new, proj_new, beta, cfg, obs_mask, obs, n_sweeps=cfg.obs_sweeps)
-
-    new_state = ChainState(
-        m=m_new, o=o_vec, loglik=ll_cur, prior_m=prior_m_new,
-        prior_o=prior_o, proj=proj_new, key=state.key, count=count,
-        mean=mean, m2=m2, accepts_m=state.accepts_m + accept,
-        accepts_o=state.accepts_o + acc_sweeps, log_scale=log_scale)
-    sample = torch.cat([m_new, o_vec,
-                        (prior_m_new + prior_o + ll_cur).reshape(1)])
+    new_state = _accept_and_sweep(
+        setup, state, cfg, beta, draws,
+        *_model_proposal(setup, state, cfg, beta, draws.eps, obs_mask, obs),
+        obs_mask, obs)
+    sample = torch.cat([new_state.m, new_state.o,
+                        (new_state.prior_m + new_state.prior_o +
+                         new_state.loglik).reshape(1)])
     return new_state, sample
 
 
 # public alias for a tempering layer (beta-parameterized transition)
 mcmc_step = _mcmc_step
+
+
+@torch.no_grad()
+def mcmc_step_batched(setup: BayesSetup, states: ChainState, cfg: MCMCConfig,
+                      beta=1.0, obs_mask=None, draws=None):
+    """One AM transition of N stacked particles (:func:`stack_states`) at
+    once, targeting ``prior + beta * loglik``: the JAX step under
+    ``vmap``.  ``setup`` must be a ``with_batched_bvn`` copy, whose
+    forward takes every particle's proposal in one batched forward (on
+    the card one launch of the particle-batched day kernel a day).
+
+    The forward runs for every particle: a proposal outside the prior's
+    support forwards its current position instead (so nothing it computes
+    is NaN), and its likelihood is −inf by a select, as JAX's ``lax.cond``
+    under ``vmap``.  Nothing here reads the card.  Each particle draws its
+    :class:`StepDraws` from its own generator, as in turn; ``draws``: the
+    ``(N, ...)``-stacked draws instead.  Returns the new stacked states;
+    the generators are advanced in place."""
+    global FORWARDS, BATCHED_FORWARDS
+    if not setup.setup.kcfg.batched_bvn:
+        raise ValueError('mcmc_step_batched needs a with_batched_bvn() '
+                         'setup')
+    dtype, dev = states.m.dtype, states.m.device
+    n = states.m.shape[0]
+    n_moves = _n_obs(setup) * cfg.obs_sweeps
+    if draws is None:
+        draws = StepDraws(*[torch.stack(x) for x in zip(*[
+            draw_step(g, n_moves, dtype, dev) for g in states.key])])
+
+    # ---- model block update: one batched forward ----------------------
+    m_prop = states.m + (_proposal_chol(states, cfg.adapt_start) @
+                         draws.eps[..., None])[..., 0]
+    m_prop[..., _DISCRETE_IDX] = torch.round(m_prop[..., _DISCRETE_IDX])
+    prior_prop = log_prior_model(_as_model(m_prop))
+    inside = torch.isfinite(prior_prop)
+    m_fwd = torch.where(inside[:, None], m_prop, states.m)
+    FORWARDS += n
+    BATCHED_FORWARDS += 1
+    proj_prop = setup.forward_projections(_as_model(m_fwd))
+    ll_prop = setup.log_likelihood(proj_prop, _as_obs(states.o, setup.n_sent),
+                                   obs_mask)
+    ll_prop = torch.where(inside, ll_prop, torch.full_like(ll_prop,
+                                                           -math.inf))
+    log_ratio = ((prior_prop + beta * ll_prop)
+                 - (states.prior_m + beta * states.loglik))
+    return _accept_and_sweep(setup, states, cfg, beta, draws, m_prop,
+                             prior_prop, ll_prop, proj_prop, log_ratio,
+                             obs_mask, None)
 
 
 @torch.no_grad()

@@ -23,17 +23,21 @@ the model evidence, a third marginal-likelihood estimator beside parallel
 tempering's thermodynamic-integration and stepping-stone estimates
 (tempering.py).
 
-Execution: the particles are stacked chain states that advance in turn on
-the one card (never batched: a particle-batched forward would evaluate
-every ρ branch of the BVN).  The between-stage logic (weights, schedule,
+Execution: the particles are stacked chain states on the one card.  By
+default they advance in turn; with ``batched=True`` (``PARA_SMC_BATCHED=1``
+on the command line) every move advances the whole population at once
+(``sampler.mcmc_step_batched`` on a ``with_batched_bvn`` setup: one
+batched forward, on the card one launch of the particle-batched day
+kernel a day, no host read), with the select node rule of the JAX
+package's batched path.  The between-stage logic (weights, schedule,
 resampling, covariance retune) is host numpy, a copy of the JAX
-package's; each stage reads the population's log likelihoods in one
-transfer and each move round its acceptance counts in one.  A resample
-gives every particle a generator of its own, derived from its ancestor's
-state and its index without advancing the ancestor, so clones move
-differently and a resumed run is bitwise a monolithic one.  Batched moves
-(``batched=True``, left unported) and a particle mesh (ROADMAP item 16b)
-raise.
+package's, and the same in both modes, so a resume may switch modes;
+each stage reads the population's log likelihoods in one transfer and
+each move round its acceptance counts in one.  A resample gives every
+particle a generator of its own, derived from its ancestor's state and
+its index without advancing the ancestor, so clones move differently and
+a resumed run is bitwise a monolithic one.  A particle mesh (ROADMAP
+item 16b) raises.
 """
 
 from __future__ import annotations
@@ -45,9 +49,9 @@ import torch
 
 from .model import BayesSetup
 from .priors import STEP_SCALES, sample_prior_model, sample_prior_obs
-from .sampler import (ChainState, MCMCConfig, chain_generator,
-                      init_chain_state, mcmc_step, stack_states,
-                      unstack_states)
+from .sampler import (ChainState, MCMCConfig, StepDraws, chain_generator,
+                      init_chain_state, mcmc_step, mcmc_step_batched,
+                      stack_states, unstack_states)
 
 __all__ = ['SMCConfig', 'ess', 'next_beta', 'systematic_resample',
            'init_smc_particles', 'run_smc', 'clone_generator']
@@ -62,8 +66,6 @@ _ADAPT_START = 500
 # when the population is small or momentarily degenerate
 _SHRINK = 0.1
 
-_NO_BATCHED = ('batched (vmapped) SMC rejuvenation is left unported (ROADMAP '
-               '"Leave unported"); the particles advance in turn')
 _NO_MESH = ('particles sharded over several devices are not ported: ROADMAP '
             'Queue 1 item 16b')
 
@@ -187,12 +189,23 @@ def init_smc_particles(setup: BayesSetup, key, n, mesh=None, obs_mask=None):
 
 
 def _move_prog(setup, states, beta, n_moves, obs_scale, obs_sweeps=1,
-               obs_mask=None, draws=None):
+               obs_mask=None, draws=None, batched=False):
     """``n_moves`` AM transitions at inverse temperature ``beta`` (a host
-    float) on every particle, the particles in turn.  ``draws(i, k)``:
-    optional ``StepDraws`` of particle ``i``'s move ``k``."""
+    float) on every particle: the particles in turn, or with ``batched``
+    (``setup`` a ``with_batched_bvn`` copy) all at once for each move.
+    ``draws(i, k)``: optional ``StepDraws`` of particle ``i``'s move
+    ``k``."""
     mcfg = MCMCConfig(n_samples=n_moves, adapt_start=_ADAPT_START,
                       obs_scale=obs_scale, obs_sweeps=obs_sweeps)
+    if batched:
+        n = states.m.shape[0]
+        for k in range(n_moves):
+            d = (None if draws is None else StepDraws(*[
+                torch.stack(x) for x in zip(*[draws(i, k)
+                                              for i in range(n)])]))
+            states = mcmc_step_batched(setup, states, mcfg, beta=beta,
+                                       obs_mask=obs_mask, draws=d)
+        return states
     out = []
     for i, s in enumerate(unstack_states(states)):
         for k in range(n_moves):
@@ -258,8 +271,11 @@ def run_smc(setup: BayesSetup, key, cfg: SMCConfig, mesh=None, seed=0,
     complete annealer state; ``resume`` is such a payload to continue from
     (``key`` is then unused).  ``obs_mask`` (model.py
     ``split_point_mask``) targets a masked likelihood — bayes/cv.py's
-    refit folds.  ``draws(stage, rnd, i, k)``: optional ``StepDraws`` of
-    particle ``i``'s move ``k`` in move round ``rnd`` of ``stage``.
+    refit folds.  ``batched``: the moves advance every particle at once
+    through ``setup.with_batched_bvn()`` (the select node rule; the anneal
+    is unchanged, so a resume may switch modes either way).
+    ``draws(stage, rnd, i, k)``: optional ``StepDraws`` of particle
+    ``i``'s move ``k`` in move round ``rnd`` of ``stage``.
 
     Returns a payload dict:
 
@@ -272,11 +288,12 @@ def run_smc(setup: BayesSetup, key, cfg: SMCConfig, mesh=None, seed=0,
     * ``'history'`` — dict of per-stage arrays (betas, ess, acceptance,
       resampled flags, logz path).
     """
-    if batched:
-        raise NotImplementedError(_NO_BATCHED)
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
     N = cfg.n_particles
+    # the initial particles take the in-turn forward, as JAX's do; the
+    # moves take the batched one when asked
+    move_setup = setup.with_batched_bvn() if batched else setup
 
     if resume is not None:
         states = resume['states']
@@ -341,10 +358,11 @@ def run_smc(setup: BayesSetup, key, cfg: SMCConfig, mesh=None, seed=0,
         rounds = 0
         while rounds < max(1, cfg.max_move_rounds):
             states = _move_prog(
-                setup, states, beta32, cfg.n_moves, cfg.obs_scale,
+                move_setup, states, beta32, cfg.n_moves, cfg.obs_scale,
                 cfg.obs_sweeps, obs_mask,
                 None if draws is None else
-                (lambda i, k, s=stage, r=rounds: draws(s, r, i, k)))
+                (lambda i, k, s=stage, r=rounds: draws(s, r, i, k)),
+                batched)
             rounds += 1
             per_particle = (float(_host(states.accepts_m).sum())
                             - acc0) / N

@@ -36,6 +36,8 @@ key=value overrides set any Params field, e.g.:
   ndays=5 'domain_info=(8000.0,320)' n_periods=20 outfile=output/run
   use_f64=True            float64 validation mode (plain accumulate)
   use_pallas=False        plain torch accumulate instead of the CUDA kernel
+  ref_trunc=True          the reference's 0.999-mass ring truncation of
+                          every block (a parity mode; plain accumulate)
 """
 
 
@@ -50,6 +52,8 @@ def split_device(argv):
 
 
 def _route(setup):
+    if setup.kcfg.ref_trunc:
+        return 'plain torch accumulate (ref_trunc)'
     if setup.kcfg.pallas:
         return 'CUDA day kernel'
     if setup.wind_flat.dtype == torch.float64:
@@ -79,6 +83,10 @@ def main(params: Params | None = None, argv=None, device=None):
               setup.scfg.dom_len,
               'probability' if params.PROB_MODEL else 'population',
               setup.wind_flat.device, _route(setup)))
+    if setup.kcfg.ref_trunc:
+        print('ref_trunc: every block and the local kernel are cut to the '
+              'reference\'s 0.999-mass ring (a mode of the reference), '
+              'accumulated by the plain torch path: no CUDA kernel launch')
 
     timing = {}
     fields, days = simulate(params, setup, timing=timing)

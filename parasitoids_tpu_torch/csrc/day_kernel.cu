@@ -18,6 +18,20 @@
 // the 1e-8 sparsity threshold then agree to f32 roundoff instead of
 // flipping across it (a 20-node tail differs from a 6-node one by ~10%).
 //
+// The same three launches take a particle axis (grid y of block_build and
+// reduce_tiles, grid z of gather_chunk; every array leads with it): one
+// launch a day advances a whole SMC population, each particle with its
+// own constants row.  The ensemble takes the node rule of the JAX
+// package's batched scheme (parasitoids_tpu/ops/bvn.py
+// bvn_upper_grid_select, the Pallas kernel's own rule: 20 nodes where
+// |rho| <= 0.925, the series elsewhere), read per particle from kSelect
+// and rho on the device: JAX runs that scheme on XLA, since a vmap of
+// the Pallas kernel's lax.cond would pay both branches, where a CTA here
+// reads only its own particle's.  The batched launch costs N times one
+// particle's work and scratch (46 MB and 90 MB of partials a particle at
+// K = 44), and its sums keep the single launch's order, so it is bitwise
+// reproducible too.
+//
 // Design (three launches, deterministic, no atomics):
 //   1. block_build: one CTA per minute.  The upper-orthant probabilities on
 //      the (2K+2)^2 corner lattice live in shared memory; the CTA differences
@@ -106,10 +120,11 @@
 namespace {
 
 // scalar slots; the backward also reads the raw (unclamped) parameters,
-// 1/s, 1/s^2 and the loss cotangent
+// 1/s, 1/s^2 and the loss cotangent; kSelect picks the node rule
 constexpr int kSigX = 0, kSigY = 1, kCell = 2, kRho = 3, kSgn = 4, kA = 5,
               kASq = 6, kAHalf = 7, kAsr = 8, kRawSigX = 9, kRawSigY = 10,
-              kRawRho = 11, kInvS = 12, kInvS2 = 13, kCtLoss = 14;
+              kRawRho = 11, kInvS = 12, kInvS2 = 13, kCtLoss = 14,
+              kSelect = 15;
 constexpr int kScalars = 16;
 // low-|rho| rows (sn, w, 1 - sn^2), each holding the 6-, 12- and 20-node
 // rules back to back; then high-|rho| rows (xs, rs, w) of the 20-node rule
@@ -193,9 +208,13 @@ __device__ __forceinline__ float upper_high(float h, float y,
 }
 
 // Genz's node count by |rho| (6 / 12 / 20 nodes, the series from 0.925),
-// taken on the device: K1/K3 are the low branches, K2/K4 the high one
+// taken on the device: K1/K3 are the low branches, K2/K4 the high one.
+// With kSelect set (the particle-batched ensemble, ops/bvn.py
+// bvn_upper_grid_select) the two-branch rule instead: 20 nodes where
+// |rho| <= 0.925, the series elsewhere.
 __device__ __forceinline__ int rho_branch(const float* q) {
   const float ar = fabsf(q[kRho]);
+  if (q[kSelect] != 0.f) return ar <= 0.925f ? 2 : 3;
   return (ar >= 0.3f) + (ar >= 0.75f) + (ar >= 0.925f);
 }
 
@@ -275,15 +294,24 @@ __host__ __device__ constexpr size_t build_smem_floats(int K) {
          kConsts + kBuildThreads / 32;
 }
 
+// One CTA per (minute, particle): blockIdx.x is the minute t of T =
+// gridDim.x, blockIdx.y the particle, whose constants, inputs and outputs
+// lie at its offset of each array.
 __global__ void __launch_bounds__(kBuildThreads)
-block_build_kernel(const float* __restrict__ consts,
-                   const float* __restrict__ h,
-                   const float* __restrict__ mu,     // (T, 2): mu_x, mu_y
-                   int K, float* __restrict__ scratch,  // (T, n, n)
-                   float* __restrict__ bsum) {        // (T,)
+block_build_kernel(const float* __restrict__ consts,  // (N, kConsts)
+                   const float* __restrict__ h,       // (N, T)
+                   const float* __restrict__ mu,      // (N, T, 2): mu_x, mu_y
+                   int K, float* __restrict__ scratch,  // (N, T, n, n)
+                   float* __restrict__ bsum) {        // (N, T)
   extern __shared__ float smem[];
   const int n = 2 * K + 1;
   const int m = n + 1;
+  const size_t p = blockIdx.y, T = gridDim.x;
+  consts += p * kConsts;
+  h += p * T;
+  mu += 2 * p * T;
+  scratch += p * T * n * n;
+  bsum += p * T;
   float* U = smem;               // [row][col], m * m
   float* xe = U + m * m;         // x edge, ascending with column
   float* ye = xe + m;            // y edge, descending with row
@@ -389,6 +417,15 @@ gather_chunk_kernel(const float* __restrict__ scratch,   // (T, n, n)
   const int ch = blockIdx.x, nchunks = gridDim.x;
   const int t0 = ch * chunk, cnt_t = min(chunk, T - t0);
   const int tid = threadIdx.x, tx = tid & (kTile - 1), ty = tid / kTile;
+  {
+    const size_t p = blockIdx.z, slots = (size_t)tiles_x * tiles_x * nchunks;
+    scratch += p * T * n * n;
+    h += p * T;
+    idx += 2 * p * T;
+    partial += p * slots * kTileCells;
+    flags += p * slots;
+    boxes += p * nchunks;
+  }
 
   // a minute with h = 0 (no take-off yet, or a block wholly off the
   // domain, parked at the buffer's centre) adds only zeros: it joins
@@ -455,6 +492,7 @@ gather_chunk_kernel(const float* __restrict__ scratch,   // (T, n, n)
 // is set; kUnroll chunks' loads in flight at a time) and writes the tile,
 // zeros where no minute meets it.  Every buffer cell is written once,
 // with no atomics, so the buffer is bitwise the same every launch.
+// blockIdx.y is the particle.
 __global__ void __launch_bounds__(kGatherThreads)
 reduce_tiles_kernel(const float* __restrict__ partial,
                     const int32_t* __restrict__ flags,
@@ -463,6 +501,13 @@ reduce_tiles_kernel(const float* __restrict__ partial,
   __shared__ int s_list[kMaxChunks];
   __shared__ int warp_cnt[kGatherThreads / 32];
   const int tiles_x = (buf_len + kTile - 1) / kTile;
+  {
+    const size_t p = blockIdx.y, slots = (size_t)tiles_x * tiles_x * nchunks;
+    partial += p * slots * kTileCells;
+    flags += p * slots;
+    boxes += p * nchunks;
+    buf += p * buf_len * buf_len;
+  }
   const int tile = blockIdx.x, tr = tile / tiles_x, tc = tile % tiles_x;
   const int R = tr * kTile, C = tc * kTile;
   const int tid = threadIdx.x, tx = tid & (kTile - 1), ty = tid / kTile;
@@ -754,11 +799,11 @@ bwd_reduce_kernel(const float* __restrict__ consts,
   }
 }
 
-// The three launches of one day's accumulate on `s`; when `ev` is not
-// null, ev[0..3] are recorded before block_build, between the passes and
-// after the reduce.
+// The three launches of one day's accumulate for N particles on `s` (the
+// particle on each grid's last axis); when `ev` is not null, ev[0..3] are
+// recorded before block_build, between the passes and after the reduce.
 cudaError_t launch_day(const float* consts, const float* h, const float* mu,
-                       const int32_t* idx, int T, int K, int buf_len,
+                       const int32_t* idx, int N, int T, int K, int buf_len,
                        int chunk, float* scratch, float* bsum, float* partial,
                        int32_t* flags, int4* boxes, float* buf,
                        cudaStream_t s, cudaEvent_t* ev) {
@@ -771,18 +816,19 @@ cudaError_t launch_day(const float* consts, const float* h, const float* mu,
   const int tiles_x = (buf_len + kTile - 1) / kTile;
   const int nchunks = (T + chunk - 1) / chunk;
   if (ev) cudaEventRecord(ev[0], s);
-  block_build_kernel<<<T, kBuildThreads, smem, s>>>(consts, h, mu, K,
-                                                    scratch, bsum);
+  block_build_kernel<<<dim3(T, N), kBuildThreads, smem, s>>>(consts, h, mu,
+                                                            K, scratch, bsum);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (ev) cudaEventRecord(ev[1], s);
   // a block meets at most span^2 tiles, so a chunk whose blocks barely
   // move has about one tile per CTA
   const int span = (n - 1 + kTile - 1) / kTile + 1;
-  gather_chunk_kernel<<<dim3(nchunks, span * span), kGatherThreads, 0, s>>>(
-      scratch, h, idx, T, n, buf_len, chunk, partial, flags, boxes);
+  gather_chunk_kernel<<<dim3(nchunks, span * span, N), kGatherThreads, 0,
+                        s>>>(scratch, h, idx, T, n, buf_len, chunk, partial,
+                             flags, boxes);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (ev) cudaEventRecord(ev[2], s);
-  reduce_tiles_kernel<<<tiles_x * tiles_x, kGatherThreads, 0, s>>>(
+  reduce_tiles_kernel<<<dim3(tiles_x * tiles_x, N), kGatherThreads, 0, s>>>(
       partial, flags, boxes, nchunks, buf_len, buf);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (ev) cudaEventRecord(ev[3], s);
@@ -851,21 +897,25 @@ int parasitoids_day_smem_bytes(int K) {
   return (int)(build_smem_floats(K) * sizeof(float));
 }
 
-// One day's accumulate on `stream`: block_build over T minutes, the
-// split-minute gather over (tile, chunk of `chunk` minutes), and the
-// chunk-order reduce into buf (buf_len x buf_len, fully overwritten).
-// Every pointer is device memory: scratch (T, n, n), bsum (T,), partial
-// (tiles, nchunks, 32, 32), flags (tiles, nchunks) and boxes (nchunks, 4),
-// 16-byte aligned, with tiles = ceil(buf_len / 32)^2 and nchunks =
-// ceil(T / chunk), 1 <= chunk <= 256 (one minute per gather thread) and
-// nchunks <= kMaxChunks.  idx rows must lie in [0, buf_len - (2K+1)].
-// Returns the cudaError_t of the launches (0 on success).
+// One day's accumulate for N particles (N = 1: one parameter set) on
+// `stream`: block_build over T minutes, the split-minute gather over
+// (tile, chunk of `chunk` minutes), and the chunk-order reduce into buf
+// (buf_len x buf_len a particle, fully overwritten).  Every pointer is
+// device memory, each array with a leading particle axis: consts (N,
+// kConsts), h (N, T), mu and idx (N, T, 2), scratch (N, T, n, n), bsum
+// (N, T), partial (N, tiles, nchunks, 32, 32), flags (N, tiles, nchunks)
+// and boxes (N, nchunks, 4), 16-byte aligned, with tiles = ceil(buf_len /
+// 32)^2 and nchunks = ceil(T / chunk), 1 <= chunk <= 256 (one minute per
+// gather thread) and nchunks <= kMaxChunks.  idx rows must lie in [0,
+// buf_len - (2K+1)].  Returns the cudaError_t of the launches (0 on
+// success).
 int parasitoids_day_accumulate(const float* consts, const float* h,
-                               const float* mu, const int32_t* idx, int T,
-                               int K, int buf_len, int chunk, float* scratch,
-                               float* bsum, float* partial, int32_t* flags,
-                               int32_t* boxes, float* buf, void* stream) {
-  return (int)launch_day(consts, h, mu, idx, T, K, buf_len, chunk, scratch,
+                               const float* mu, const int32_t* idx, int N,
+                               int T, int K, int buf_len, int chunk,
+                               float* scratch, float* bsum, float* partial,
+                               int32_t* flags, int32_t* boxes, float* buf,
+                               void* stream) {
+  return (int)launch_day(consts, h, mu, idx, N, T, K, buf_len, chunk, scratch,
                          bsum, partial, flags, (int4*)boxes, buf,
                          (cudaStream_t)stream, nullptr);
 }
@@ -877,16 +927,17 @@ int parasitoids_day_accumulate(const float* consts, const float* h,
 // ms[3 r .. 3 r + 2] (host memory).
 int parasitoids_day_accumulate_timed(const float* consts, const float* h,
                                      const float* mu, const int32_t* idx,
-                                     int T, int K, int buf_len, int chunk,
+                                     int N, int T, int K, int buf_len,
+                                     int chunk,
                                      float* scratch, float* bsum,
                                      float* partial, int32_t* flags,
                                      int32_t* boxes, float* buf, int reps,
                                      float* ms,
                                      void* stream) {
   return (int)time_passes(reps, 3, ms, [&](cudaEvent_t* ev) {
-    return launch_day(consts, h, mu, idx, T, K, buf_len, chunk, scratch, bsum,
-                      partial, flags, (int4*)boxes, buf, (cudaStream_t)stream,
-                      ev);
+    return launch_day(consts, h, mu, idx, N, T, K, buf_len, chunk, scratch,
+                      bsum, partial, flags, (int4*)boxes, buf,
+                      (cudaStream_t)stream, ev);
   });
 }
 

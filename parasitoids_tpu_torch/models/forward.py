@@ -20,13 +20,14 @@ import torch
 from ..config import Params
 from ..device import pick_device, pick_dtype, pin_full_f32
 from ..io import get_wind_data, pack_wind
-from ..ops.daily_kernel import KernelConfig, build_daily_kernel
+from ..ops.daily_kernel import (KernelConfig, build_daily_kernel,
+                                build_daily_kernel_batched)
 from ..utils.checks import warn_on_loss
 from .solver import SolverConfig, propagate_pop, propagate_prob
 
 __all__ = ['ForwardSetup', 'setup_forward', 'setup_from_numpy',
-           'build_all_kernels', 'forward_fields', 'simulate',
-           'prior_coverage_windows', 'wind_prefix_sum']
+           'build_all_kernels', 'build_all_kernels_batched', 'forward_fields',
+           'simulate', 'prior_coverage_windows', 'wind_prefix_sum']
 
 # Prior-coverage window radii of the Bayes likelihood (m), copied from
 # parasitoids_tpu/bayes/model.py:53-62 (that package loads JAX): >= 3.3 sigma
@@ -170,6 +171,23 @@ def build_all_kernels(wind_flat, wind_cumsum, hparams, Dparams, Dlparams,
     # no per-day checkpoint is needed)
     return (torch.stack([pmf for pmf, _ in days]),
             torch.stack([loss for _, loss in days]))
+
+
+def build_all_kernels_batched(wind_flat, wind_cumsum, hparams, Dparams,
+                              Dlparams, mu_r, n_periods, rad_dist, start_idx,
+                              kcfg: KernelConfig, ndays: int):
+    """Every day's dispersal kernel for N parameter sets at once (each
+    parameter an ``(N,)`` tensor; ``hparams``, ``Dparams`` and ``Dlparams``
+    tuples of them), with the select node rule: ``((N, ndays, D, D),
+    (N, ndays) losses)``.  On the card with ``kcfg.pallas`` every day is
+    one launch of the particle-batched day kernel; nothing reads the
+    card."""
+    days = [build_daily_kernel_batched(
+        wind_flat, wind_cumsum, d, hparams, Dparams, Dlparams, mu_r,
+        n_periods, rad_dist, start_idx if d == 0 else 0, kcfg)
+        for d in range(ndays)]
+    return (torch.stack([pmf for pmf, _ in days], dim=1),
+            torch.stack([loss for _, loss in days], dim=1))
 
 
 def forward_fields(wind_flat, wind_cumsum, hparams, Dparams, Dlparams, mu_r,

@@ -13,7 +13,10 @@ where ``W = M @ B`` combines the incubation-time distribution M
 (emergence day → observation date, Bayes_funcs.py:76-89).  The host
 precompute below is copied from the JAX module, which loads JAX and so
 cannot be imported here; the projections are torch, with products in full
-f32 (the JAX module pins ``Precision.HIGHEST``).
+f32 (the JAX module pins ``Precision.HIGHEST``), and take a leading
+particle axis on the fields, ``(N, ndays, D, D)``, as they come from a
+batched forward.  The ``*_np`` methods are the JAX module's host numpy
+variants, for the figures.
 """
 
 from __future__ import annotations
@@ -101,12 +104,12 @@ def _dedup_gather(index, dtype):
 
 
 def _gather(x, dim, g: _Gather):
-    """``x.index_select(dim, idx)`` (dim 0 or 1 of a 2-d ``x``) for the
-    :class:`_Gather` of ``idx``."""
+    """``x.index_select(dim, idx)`` (dim -1 or -2 of ``x``, which may lead
+    with a particle axis) for the :class:`_Gather` of ``idx``."""
     y = x.index_select(dim, g.index)
     if g.expand is None:
         return y
-    return y @ g.expand if dim == 1 else g.expand.T @ y
+    return y @ g.expand if dim == -1 else g.expand.T @ y
 
 
 class ObservationOps:
@@ -234,28 +237,58 @@ class ObservationOps:
     def project_emergence(self, fields):
         """fields (ndays, D, D) → (release_emerg list, sentinel_emerg list):
         rows = grid points / fields, cols = observation dates
-        (Bayes_funcs.py:145-152)."""
-        flat = fields.reshape(fields.shape[0], -1)       # (ndays, D*D)
-        release = [torch.matmul(_gather(flat, 1, g).T, p.weights)
+        (Bayes_funcs.py:145-152).  Fields (N, ndays, D, D) give each
+        array a leading particle axis."""
+        flat = fields.reshape(*fields.shape[:-2], -1)    # (ndays, D*D)
+        release = [torch.matmul(_gather(flat, -1, g).transpose(-1, -2),
+                                p.weights)
                    for p, g in zip(self.release_proj, self._rel_gathers)]
-        cell_vals = _gather(flat, 1, self._sent_gather)  # (ndays, cells)
+        cell_vals = _gather(flat, -1, self._sent_gather)  # (ndays, cells)
         # one reduction per field, not an index_add: on the card that adds
         # atomically, in an order that changes from run to run, and the
         # sampler's exact resume needs the same bits from the same state
-        field_tot = torch.stack([cell_vals[:, a:b].sum(dim=1) for a, b in
-                                 zip(self.sent_bounds, self.sent_bounds[1:])])
+        field_tot = torch.stack([cell_vals[..., a:b].sum(dim=-1) for a, b in
+                                 zip(self.sent_bounds, self.sent_bounds[1:])],
+                                dim=-2)
         sentinel = [torch.matmul(field_tot, W) for W in self.sentinel_W]
         return release, sentinel
 
     def project_grid(self, fields):
         """fields → (n_grid_points, n_obs_dates) expected counts
-        (ref Bayes_funcs.py:156-179)."""
-        flat = fields.reshape(fields.shape[0], -1)
-        pts = _gather(flat, 1, self._grid_gather)        # (ndays, n_grid)
-        return _gather(pts, 0, self._day_gather).T
+        (ref Bayes_funcs.py:156-179); a leading particle axis is kept."""
+        flat = fields.reshape(*fields.shape[:-2], -1)
+        pts = _gather(flat, -1, self._grid_gather)       # (ndays, n_grid)
+        return _gather(pts, -2, self._day_gather).transpose(-1, -2)
 
     def project_card(self, fields):
         """fields → list of (4, obslen) cardinal transect densities
-        (ref Bayes_funcs.py:183-221)."""
-        flat = fields.reshape(fields.shape[0], -1)
-        return [flat[day].take(idx) for day, idx in self.card_gathers]
+        (ref Bayes_funcs.py:183-221); a leading particle axis is kept."""
+        flat = fields.reshape(*fields.shape[:-2], -1)
+        return [flat[..., day, :][..., idx] for day, idx in self.card_gathers]
+
+    # --- host (numpy) variants for the figures: the JAX module's, the
+    # same arithmetic on numpy arrays, nothing on the device
+
+    def _np(self, t):
+        return t.cpu().numpy()
+
+    def project_emergence_np(self, fields):
+        flat = np.asarray(fields).reshape(len(fields), -1)
+        release = [flat[:, self._np(p.point_rows)].T @ self._np(p.weights)
+                   for p in self.release_proj]
+        cell_vals = flat[:, self._np(self.sent_cells)]   # (ndays, n_cells)
+        field_tot = np.zeros((self.n_sent, flat.shape[0]), cell_vals.dtype)
+        seg = np.repeat(np.arange(self.n_sent), np.diff(self.sent_bounds))
+        np.add.at(field_tot, seg, cell_vals.T)
+        sentinel = [field_tot @ self._np(W) for W in self.sentinel_W]
+        return release, sentinel
+
+    def project_grid_np(self, fields):
+        flat = np.asarray(fields).reshape(len(fields), -1)
+        days = np.clip(self._np(self.grid_days), 0, flat.shape[0] - 1)
+        return flat[:, self._np(self.grid_idx)][days].T
+
+    def project_card_np(self, fields):
+        flat = np.asarray(fields).reshape(len(fields), -1)
+        return [flat[min(day, flat.shape[0] - 1)][self._np(idx)]
+                for day, idx in self.card_gathers]

@@ -29,9 +29,9 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     'day_kernel': {
         'parasitoids_day_smem_bytes': [_INT],
-        'parasitoids_day_accumulate': [_VP] * 4 + [_INT] * 4 + [_VP] * 6 +
+        'parasitoids_day_accumulate': [_VP] * 4 + [_INT] * 5 + [_VP] * 6 +
                                       [_VP],
-        'parasitoids_day_accumulate_timed': [_VP] * 4 + [_INT] * 4 +
+        'parasitoids_day_accumulate_timed': [_VP] * 4 + [_INT] * 5 +
                                             [_VP] * 6 + [_INT, _VP, _VP],
         'parasitoids_day_bwd_smem_bytes': [_INT, _INT],
         'parasitoids_day_accumulate_bwd': [_VP] * 6 + [_INT] * 4 +

@@ -10,6 +10,15 @@ sparsify-and-renormalize of ``CalcSol.r_small_vals``.  The result is a
 dense ``(2*rad_res+1)²`` pmf.  Nothing here reads a device value on the
 host when the caller passes the Genz branches of its tensor ρ, so such a
 day loop on CUDA never waits on the card.
+
+Two modes of the JAX builder are kept: ``ref_trunc`` (the reference's
+adaptive ring-expansion stopping rule, :func:`ring_truncate`, a parity
+tool) and ``batched_bvn`` (the two-branch select node rule of an
+ensemble).  Both take the plain accumulate for one parameter set, as the
+JAX builder takes its XLA scatter path for them.
+:func:`build_daily_kernel_batched` builds one day for N parameter sets at
+once: one launch of the particle-batched CUDA day kernel on the card
+(``ops.day_kernel.accumulate_day_batched``), its plain twin on the CPU.
 """
 
 from __future__ import annotations
@@ -19,12 +28,14 @@ from typing import NamedTuple
 import torch
 
 from ..device import scalar
-from .bvn import bvn_cell_masses
-from .day_kernel import accumulate_day, accumulate_day_plain
+from .bvn import SELECT, bvn_cell_masses, bvn_cell_masses_batched
+from .day_kernel import (accumulate_day, accumulate_day_batched,
+                         accumulate_day_batched_plain, accumulate_day_plain)
 from .flight import h_flight_prob
 
-__all__ = ['KernelConfig', 'build_daily_kernel', 'day_scatter_inputs',
-           'finish_day', 'r_small_vals_dense']
+__all__ = ['KernelConfig', 'build_daily_kernel', 'build_daily_kernel_batched',
+           'day_scatter_inputs', 'finish_day', 'r_small_vals_dense',
+           'ring_truncate']
 
 _SECONDS_PER_DAY = 3600 * 24
 _NEGVAL = 1e-8  # sparsity threshold, ref CalcSol.py:112
@@ -38,32 +49,51 @@ class KernelConfig(NamedTuple):
     K_local: int          # local-diffusion window half-width (cells)
     chunk: int = 240      # minutes per plain block build (bounds memory)
     pallas: bool = False  # True: the CUDA day kernel (CUDA tensors only)
-    # carried over from the JAX config so configs load unchanged; neither
-    # is ported (ROADMAP "leave unported") and setting one raises
+    # the reference's adaptive ring-expansion stopping rule (cdf_eps =
+    # 0.001, ParasitoidModel.py:329,348) on every block and the local
+    # kernel: a parity tool, run through the plain accumulate
     ref_trunc: bool = False
+    # the ensemble's two-branch select node rule (ops/bvn.py
+    # bvn_cell_masses_batched); one parameter set takes the plain
+    # accumulate, N sets the particle-batched kernel
     batched_bvn: bool = False
-
-
-def _check_ported(config):
-    if config.ref_trunc or config.batched_bvn:
-        raise NotImplementedError(
-            'KernelConfig.ref_trunc and .batched_bvn are not ported to '
-            'torch (ROADMAP: leave unported); use the JAX package')
 
 
 def r_small_vals_dense(field, prob_model=False, negval=_NEGVAL):
     """Zero entries below ``negval``; in probability-model mode spread the
     removed mass uniformly over the surviving support (CalcSol.py:112-136).
-    A field with no surviving entry passes through unchanged."""
+    A field with no surviving entry passes through unchanged.  Leading
+    axes are separate fields: the sums run over the last two."""
     keep = field >= negval
     kept = torch.where(keep, field, torch.zeros_like(field))
     if prob_model:
-        n_keep = keep.sum()
+        n_keep = keep.sum(dim=(-2, -1), keepdim=True)
         n = torch.clamp(n_keep, min=1)
-        kept = kept + torch.where(keep, (1.0 - kept.sum()) / n,
-                                  torch.zeros_like(field))
+        kept = kept + torch.where(
+            keep, (1.0 - kept.sum(dim=(-2, -1), keepdim=True)) / n,
+            torch.zeros_like(field))
         kept = torch.where(n_keep > 0, kept, field)
     return kept
+
+
+def ring_truncate(block, K: int, cdf_eps: float = 0.001):
+    """Truncate ``(..., 2K+1, 2K+1)`` BVN blocks each to the smallest
+    centred square of cells whose cumulative mass exceeds ``1 − cdf_eps``:
+    the reference's adaptive ring expansion (ParasitoidModel.py:329-348,
+    ``while 1 - val_sum >= cdf_eps: h += 1``).  A block whose window never
+    reaches the threshold (one straddling the boundary) is kept whole."""
+    n = 2 * K + 1
+    i = torch.arange(n, device=block.device)
+    cheb = torch.maximum((i - K).abs()[:, None], (i - K).abs()[None, :])
+    # ring sums by a one-hot product, then their running sum outward
+    onehot = (cheb.reshape(-1)[:, None] ==
+              torch.arange(K + 1, device=block.device)).to(block.dtype)
+    rings = block.reshape(*block.shape[:-2], n * n) @ onehot
+    meets = torch.cumsum(rings, -1) > (1.0 - cdf_eps)
+    h_star = torch.where(meets.any(-1), meets.to(torch.int8).argmax(-1),
+                         torch.full_like(meets[..., 0], K, dtype=torch.int64))
+    keep = cheb <= h_star[..., None, None]
+    return torch.where(keep, block, torch.zeros_like(block))
 
 
 def _advection_means(wind_flat, wind_cumsum, day_idx, n_periods, periods,
@@ -78,16 +108,19 @@ def _advection_means(wind_flat, wind_cumsum, day_idx, n_periods, periods,
     starts = day_idx * periods + torch.arange(periods, device=dev)
     ends = torch.clamp(starts + n_periods, max=total)
     counts = (ends - starts).to(dtype)
-    sums = wind_cumsum[ends] - wind_cumsum[starts]          # (T, 2)
-    mu_v = sums / counts[:, None]                            # m/s
+    sums = wind_cumsum[ends] - wind_cumsum[starts]          # (..., T, 2)
+    mu_v = sums / counts[..., None]                          # m/s
     scale = _SECONDS_PER_DAY * (n_periods.to(dtype) / periods) * mu_r
-    return mu_v * scale
+    return mu_v * scale[..., None]
 
 
 def day_scatter_inputs(wind_flat, wind_cumsum, day_idx, hparams, mu_r,
                        n_periods, start_idx, config: KernelConfig, rad_dist):
     """Per-minute accumulate inputs ``(h_scat, cdf_mu, idx, clip_f,
-    outside_loss)`` for day ``day_idx`` (a Python int)."""
+    outside_loss)`` for day ``day_idx`` (a Python int).  Parameters given
+    as ``(N, 1)`` tensors (``n_periods`` and ``mu_r`` too) give a leading
+    particle axis on every output: ``(N, T)``, ``(N, T, 2)`` and ``(N,)``
+    for the loss."""
     T, K = config.periods, config.K
     rad_res = config.rad_res
     cell = rad_dist / rad_res
@@ -107,8 +140,8 @@ def day_scatter_inputs(wind_flat, wind_cumsum, day_idx, hparams, mu_r,
                             mu_r)                                  # (T, 2)
     grid_off = torch.round(mu_v / cell)
     cdf_mu = (mu_v - grid_off * cell).contiguous()                 # (T, 2)
-    col_off = grid_off[:, 0].to(torch.int32)
-    row_off = -grid_off[:, 1].to(torch.int32)   # +y decreases row index
+    col_off = grid_off[..., 0].to(torch.int32)
+    row_off = -grid_off[..., 1].to(torch.int32)  # +y decreases row index
 
     # blocks centred more than K cells beyond the edge miss the domain: all
     # their take-off probability is loss (ParasitoidModel.py:547-558); every
@@ -119,10 +152,10 @@ def day_scatter_inputs(wind_flat, wind_cumsum, day_idx, hparams, mu_r,
     idx = torch.stack(
         [torch.where(outside, rad_res, rad_res + K + row_off),
          torch.where(outside, rad_res, rad_res + K + col_off)],
-        dim=1).to(torch.int32).contiguous()
+        dim=-1).to(torch.int32).contiguous()
     h_scat = torch.where(outside, zero, h_eff)
     clip_f = clipped.to(dtype)
-    outside_loss = torch.where(outside, h_eff, zero).sum()
+    outside_loss = torch.where(outside, h_eff, zero).sum(-1)
     return h_scat, cdf_mu, idx, clip_f, outside_loss
 
 
@@ -132,27 +165,36 @@ def finish_day(buf, outside_loss, clip_loss, Dlparams, config: KernelConfig,
     local-diffusion remainder in place into the centre window, sparsify
     and renormalize.  ``branch``: the Genz branch of the local |ρ| when the
     caller has read it (see ``ops.bvn.genz_branch``).  Returns ``(pmf,
-    loss)``."""
-    _check_ported(config)
+    loss)``.  A ``(N, L, L)`` buffer is N particles: the losses are
+    ``(N,)`` and ``Dlparams`` one ``(N,)`` tensor each; ``batched_bvn``
+    builds the local kernel with the select node rule."""
     K, Kl = config.K, config.K_local
     rad_res = config.rad_res
     D = 2 * rad_res + 1
     cell = rad_dist / rad_res
+    lead = buf.shape[:-2]
 
-    pmf = buf[2 * K:2 * K + D, 2 * K:2 * K + D]
-    pad_mass = buf.sum() - pmf.sum()
+    pmf = buf[..., 2 * K:2 * K + D, 2 * K:2 * K + D]
+    pad_mass = buf.sum(dim=(-2, -1)) - pmf.sum(dim=(-2, -1))
     # mass scattered beyond the domain + truncation shortfall of
     # boundary-straddling blocks + blocks wholly off the domain
     loss = pad_mass + clip_loss + outside_loss
 
-    total_flight_prob = pmf.sum() + loss
+    total_flight_prob = pmf.sum(dim=(-2, -1)) + loss
     sl_x, sl_y, sl_rho = Dlparams
-    local = bvn_cell_masses(torch.zeros(2, dtype=buf.dtype, device=buf.device),
-                            sl_x, sl_y, sl_rho, cell, Kl, branch)
+    zero_mu = torch.zeros(lead + (2,), dtype=buf.dtype, device=buf.device)
+    if config.batched_bvn:
+        local = bvn_cell_masses_batched(zero_mu, sl_x, sl_y, sl_rho, cell, Kl)
+    else:
+        local = bvn_cell_masses(zero_mu, sl_x, sl_y, sl_rho, cell, Kl, branch)
+    if config.ref_trunc:
+        # the reference builds the local kernel with the same ring
+        # expansion (ParasitoidModel.py:581-584)
+        local = ring_truncate(local, Kl)
     stay = torch.where(total_flight_prob < 0.99999, 1.0 - total_flight_prob,
                        torch.zeros_like(total_flight_prob))
-    pmf[rad_res - Kl:rad_res + Kl + 1,
-        rad_res - Kl:rad_res + Kl + 1] += stay * local
+    pmf[..., rad_res - Kl:rad_res + Kl + 1,
+        rad_res - Kl:rad_res + Kl + 1] += stay[..., None, None] * local
     return r_small_vals_dense(pmf, prob_model=True), loss
 
 
@@ -179,9 +221,9 @@ def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
             ρ on the device and needs no branch).
 
     ``config.pallas`` selects the CUDA day kernel (CUDA tensors only);
-    otherwise the plain accumulate runs.
+    otherwise, and always with ``ref_trunc`` or ``batched_bvn``, the plain
+    accumulate runs.
     """
-    _check_ported(config)
     if config.pallas and wind_flat.device.type != 'cuda':
         raise ValueError('pallas=True needs CUDA tensors: the CUDA day '
                          'kernel has no CPU or interpret mode')
@@ -192,12 +234,51 @@ def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
     h_scat, cdf_mu, idx, clip_f, outside_loss = day_scatter_inputs(
         wind_flat, wind_cumsum, day_idx, hparams, mu_r, n_periods,
         start_idx, config, rad_dist)
-    if config.pallas:
+    if config.pallas and not config.ref_trunc and not config.batched_bvn:
         buf, clip_loss = accumulate_day(h_scat, cdf_mu, idx, clip_f, Dparams,
                                         cell, K, D + 4 * K)
     else:
         buf, clip_loss = accumulate_day_plain(
             h_scat, cdf_mu, idx, clip_f, Dparams, cell, K, D + 4 * K,
-            chunk=min(config.chunk, T), branch=branches[0])
+            chunk=min(config.chunk, T),
+            branch=SELECT if config.batched_bvn else branches[0],
+            ref_trunc=config.ref_trunc)
     return finish_day(buf, outside_loss, clip_loss, Dlparams, config,
                       rad_dist, branches[1])
+
+
+def build_daily_kernel_batched(wind_flat, wind_cumsum, day_idx, hparams,
+                               Dparams, Dlparams, mu_r, n_periods, rad_dist,
+                               start_idx, config: KernelConfig):
+    """One day's dispersal pmf for N parameter sets at once, ``(N, D, D)``,
+    and the ``(N,)`` losses, with the select node rule (the JAX builder
+    under ``vmap`` with ``batched_bvn``).  Every parameter is an ``(N,)``
+    tensor (``hparams``, ``Dparams`` and ``Dlparams`` tuples of them;
+    ``n_periods`` integer).  On the card with ``config.pallas`` the day
+    is one launch of the particle-batched CUDA kernel for the whole
+    population; otherwise the plain batched accumulate runs.  Nothing
+    here reads the card."""
+    if config.ref_trunc:
+        raise ValueError('ref_trunc is a parity tool of one parameter set: '
+                         'build_daily_kernel takes it')
+    T, K = config.periods, config.K
+    D = 2 * config.rad_res + 1
+    cell = rad_dist / config.rad_res
+
+    def col(v):
+        return v.reshape(-1, 1)
+
+    h_scat, cdf_mu, idx, clip_f, outside_loss = day_scatter_inputs(
+        wind_flat, wind_cumsum, day_idx, tuple(col(v) for v in hparams),
+        col(mu_r), col(n_periods), start_idx, config, rad_dist)
+    dp = torch.stack([scalar(v, wind_flat.dtype, wind_flat.device)
+                      for v in Dparams], dim=-1)
+    if config.pallas:
+        buf, clip_loss = accumulate_day_batched(h_scat, cdf_mu, idx, clip_f,
+                                                dp, cell, K, D + 4 * K)
+    else:
+        buf, clip_loss = accumulate_day_batched_plain(
+            h_scat, cdf_mu, idx, clip_f, dp, cell, K, D + 4 * K,
+            chunk=min(config.chunk, T))
+    return finish_day(buf, outside_loss, clip_loss, Dlparams,
+                      config._replace(batched_bvn=True), rad_dist)

@@ -32,6 +32,13 @@ Two implementations of one contract, forward and backward:
   ``parasitoids_tpu/ops/daily_kernel.py::xla_accumulate_day``; autograd
   through it (the ``pallas=False`` path) is that XLA path's gradient.
 
+The particle-batched forward, :func:`accumulate_day_batched`, takes N
+parameter sets' minutes at once (the ensemble's select node rule: 20
+nodes where |ρ| ≤ 0.925, the series elsewhere, read per particle on the
+device): the same three passes with the particle on the grid, one launch
+a day for the whole population; :func:`accumulate_day_batched_plain` is
+its plain twin.  It takes no gradient (SMC's moves take none).
+
 Every scatter start ``idx`` must lie in ``[0, buf_len − (2K+1)]`` (true
 by construction in ``day_scatter_inputs``), so no block is ever clamped.
 """
@@ -45,18 +52,20 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..device import scalar
-from .bvn import (bvn_cell_masses, cell_masses_vjp, corner_rect, genz_branch,
-                  gl_nodes)
+from .bvn import (SELECT, bvn_cell_masses, cell_masses_vjp, corner_rect,
+                  genz_branch, gl_nodes)
 
-__all__ = ['LAUNCHES', 'LAUNCHES_BWD', 'accumulate_day',
+__all__ = ['LAUNCHES', 'LAUNCHES_BATCHED', 'LAUNCHES_BWD', 'accumulate_day',
+           'accumulate_day_batched', 'accumulate_day_batched_plain',
            'accumulate_day_bwd', 'accumulate_day_bwd_plain',
            'accumulate_day_plain', 'pass_ms', 'pass_ms_bwd']
 
-# kernel launches so far (one per day accumulated on the card, and one per
-# day's backward); a run reads them to show that its main path went
-# through the kernels
+# kernel launches so far (one per day accumulated on the card, one per
+# day's backward, and one per day of a particle-batched population); a run
+# reads them to show that its main path went through the kernels
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+LAUNCHES_BATCHED = 0
 
 _G_NODES = 20
 _CHUNK = 64                          # minutes per gather chunk (C)
@@ -87,7 +96,7 @@ def _read_branch(rho):
 
 
 def accumulate_day_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
-                         buf_len, chunk=240, branch=None):
+                         buf_len, chunk=240, branch=None, ref_trunc=False):
     """Plain PyTorch accumulate (the kernel's reference and the CPU path).
     Differentiable: autograd through it uses the BVN op's closed-form
     backward.
@@ -103,7 +112,9 @@ def accumulate_day_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
         cell: cell side (m).  K: window half-width.  buf_len: buffer side.
         chunk: minutes per block build; bounds the corner lattice's memory.
         branch: ``genz_branch(|ρ|)`` when the caller has read ρ, else ρ is
-            read here once.
+            read here once; ``ops.bvn.SELECT`` takes the select node rule.
+        ref_trunc: truncate every block by ``daily_kernel.ring_truncate``
+            (the reference's stopping rule) before it is scattered.
 
     Returns:
         (buf, loss): the (buf_len, buf_len) buffer and the scalar loss.
@@ -121,6 +132,9 @@ def accumulate_day_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
         e = min(s + C, T)
         blocks = bvn_cell_masses(cdf_mu[s:e], sig_x, sig_y, rho, cell, K,
                                  branch)
+        if ref_trunc:
+            from .daily_kernel import ring_truncate
+            blocks = ring_truncate(blocks, K)
         b_total = blocks.sum(dim=(1, 2))
         h_c = h_scat[s:e]
         buf.view(-1).index_add_(0, flat_idx[s:e].reshape(-1),
@@ -129,9 +143,35 @@ def accumulate_day_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
     return buf, loss
 
 
+def accumulate_day_batched_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell,
+                                 K, buf_len, chunk=240):
+    """Plain twin of :func:`accumulate_day_batched`: N particles' days,
+    each by :func:`accumulate_day_plain` with the select node rule.
+
+    Args:
+        h_scat (N, T), cdf_mu (N, T, 2), idx (N, T, 2) int32,
+        clipped (N, T): each particle's minutes.
+        Dparams: (N, 3) tensor, each particle's (σx, σy, ρ).
+        cell, K, buf_len, chunk: as :func:`accumulate_day_plain`.
+
+    Returns:
+        (buf (N, buf_len, buf_len), loss (N,)).
+    """
+    outs = [accumulate_day_plain(h_scat[i], cdf_mu[i], idx[i], clipped[i],
+                                 tuple(Dparams[i]), cell, K, buf_len, chunk,
+                                 branch=SELECT)
+            for i in range(h_scat.shape[0])]
+    return (torch.stack([b for b, _ in outs]),
+            torch.stack([loss for _, loss in outs]))
+
+
 def _sanitize(Dparams, dtype, device):
-    """Raw (3,) diffusion tensor and the BVN op's clamped σx, σy, ρ."""
-    raw = torch.stack([scalar(v, dtype, device) for v in Dparams])
+    """Raw (3,) diffusion tensor and the BVN op's clamped σx, σy, ρ; an
+    ``(N, 3)`` tensor gives a ``(3, N)`` raw tensor and ``(N,)`` each."""
+    if torch.is_tensor(Dparams) and Dparams.ndim == 2:
+        raw = Dparams.to(device=device, dtype=dtype).T
+    else:
+        raw = torch.stack([scalar(v, dtype, device) for v in Dparams])
     return (raw, torch.clamp(raw[0], min=1e-8),
             torch.clamp(raw[1], min=1e-8),
             torch.clamp(raw[2], -_RHO_MAX, _RHO_MAX))
@@ -196,39 +236,43 @@ def accumulate_day_bwd_plain(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
     return dh, dmu, dclip, dD, dscal[3]
 
 
-def _pack_constants(Dparams, cell, device, ct_loss=None):
+def _pack_constants(Dparams, cell, device, ct_loss=None, select=False):
     """Kernel constants (csrc/day_kernel.cu kConst layout), computed on the
     device from the diffusion parameters with the plain twin's expressions
     (ops/bvn.py): the scalars, the ρ-only rows of the 6-, 12- and 20-node
     low-|ρ| rules, and those of the high-|ρ| series.  Every branch is
     packed, so no host read of ρ is needed.  The backward also reads the
     raw parameters (for the clamps' VJPs), 1/s and 1/s² with
-    s² = max(1 − ρ², 1e-12), and the loss cotangent ``ct_loss``."""
+    s² = max(1 − ρ², 1e-12), and the loss cotangent ``ct_loss``.
+    ``select``: the kernel takes the select node rule (kSelect = 1).  A
+    ``(N, 3)`` tensor of diffusion parameters gives ``(N, kConsts)``, one
+    row per particle."""
     f32 = torch.float32
     raw, sig_x, sig_y, rho = _sanitize(Dparams, f32, device)
-    asr = torch.asin(rho)
+    asr = torch.asin(rho)[..., None]             # nodes on the last axis
     sn, w, den = [], [], []
     for G in (6, 12, 20):
         x, wg = gl_nodes(G, f32, device)
         s = torch.sin(asr * 0.5 * (1.0 + x))
         sn.append(s)
-        w.append(wg)
+        w.append(wg.expand(s.shape))
         den.append(1.0 - s * s)
     a_sq = torch.clamp((1.0 - rho) * (1.0 + rho), min=1e-30)
     a = torch.sqrt(a_sq)
     a_half = a / 2.0
     x, wg = gl_nodes(_G_NODES, f32, device)
-    xs = (a_half * (1.0 + x)) ** 2
+    xs = (a_half[..., None] * (1.0 + x)) ** 2
     rs = torch.sqrt(1.0 - xs)
     s2 = torch.clamp(1.0 - rho * rho, min=1e-12)
-    ctl = (torch.zeros((), dtype=f32, device=device) if ct_loss is None
-           else scalar(ct_loss, f32, device))
-    scal = torch.stack([sig_x, sig_y, scalar(cell, f32, device), rho,
-                        torch.sign(rho), a, a_sq, a_half, asr, raw[0],
-                        raw[1], raw[2], 1.0 / torch.sqrt(s2), 1.0 / s2,
-                        ctl])
-    pad = torch.zeros(_N_SCALARS - scal.shape[0], dtype=f32, device=device)
-    return torch.cat([scal, pad, *sn, *w, *den, xs, rs, wg]).contiguous()
+    ctl = torch.zeros_like(rho) if ct_loss is None else \
+        scalar(ct_loss, f32, device).expand(rho.shape)
+    scal = torch.stack([sig_x, sig_y, scalar(cell, f32, device).expand(
+        rho.shape), rho, torch.sign(rho), a, a_sq, a_half, asr[..., 0],
+        raw[0], raw[1], raw[2], 1.0 / torch.sqrt(s2), 1.0 / s2, ctl,
+        torch.full_like(ctl, float(select))], dim=-1)
+    assert scal.shape[-1] == _N_SCALARS
+    return torch.cat([scal, *sn, *w, *den, xs, rs, wg.expand(xs.shape)],
+                     dim=-1).contiguous()
 
 
 def _cuda_call(lib, fn, smem, K, dev, *args):
@@ -247,16 +291,20 @@ def _cuda_call(lib, fn, smem, K, dev, *args):
         raise RuntimeError('{} failed: cudaError {}'.format(fn, err))
 
 
-def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk):
+def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk,
+                  select=False):
     """Packed constants, scratch and outputs of one forward launch, and the
     C arguments up to the stream (see ``parasitoids_day_accumulate``).  All
     come from the caching allocator, so a day loop reuses the same memory
     every day; the partials are sized from the shapes alone (tiles ×
     ⌈T / chunk⌉ × 32², about 90 MB at the headline shapes), of which the
     kernel writes and reads only those of the tiles in each chunk's box
-    that its blocks meet."""
+    that its blocks meet.  Inputs with a leading particle axis, ``(N, T)``
+    and so on, give every buffer that axis (N = 1 otherwise)."""
     dev = h_scat.device
-    T = h_scat.shape[0]
+    T = h_scat.shape[-1]
+    lead = tuple(h_scat.shape[:-1])
+    N = h_scat.shape[0] if lead else 1
     n = 2 * K + 1
     nchunks = -(-T // chunk)
     tiles = (-(-buf_len // _TILE)) ** 2
@@ -264,15 +312,16 @@ def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk):
         raise ValueError('chunk {} out of range for T = {}'.format(chunk, T))
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(
-        consts=_pack_constants(Dparams, cell, dev),
-        scratch=torch.empty((T, n, n), **f32),
-        bsum=torch.empty(T, **f32),
-        partial=torch.empty((tiles, nchunks, _TILE, _TILE), **f32),
-        flags=torch.empty((tiles, nchunks), dtype=torch.int32, device=dev),
-        boxes=torch.empty((nchunks, 4), dtype=torch.int32, device=dev),
-        buf=torch.empty((buf_len, buf_len), **f32))
+        consts=_pack_constants(Dparams, cell, dev, select=select),
+        scratch=torch.empty(lead + (T, n, n), **f32),
+        bsum=torch.empty(lead + (T,), **f32),
+        partial=torch.empty(lead + (tiles, nchunks, _TILE, _TILE), **f32),
+        flags=torch.empty(lead + (tiles, nchunks), dtype=torch.int32,
+                          device=dev),
+        boxes=torch.empty(lead + (nchunks, 4), dtype=torch.int32, device=dev),
+        buf=torch.empty(lead + (buf_len, buf_len), **f32))
     args = (out['consts'].data_ptr(), h_scat.data_ptr(), cdf_mu.data_ptr(),
-            idx.data_ptr(), T, K, buf_len, chunk,
+            idx.data_ptr(), N, T, K, buf_len, chunk,
             *(out[k].data_ptr() for k in ('scratch', 'bsum', 'partial',
                                           'flags', 'boxes', 'buf')))
     return out, args
@@ -291,29 +340,68 @@ def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
     return out['buf'], loss
 
 
+def accumulate_day_batched(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
+                           buf_len):
+    """N particles' day accumulates at once (the contract of
+    :func:`accumulate_day_batched_plain`) with the select node rule, read
+    per particle on the device: on CUDA tensors one launch of the CUDA
+    kernel for the whole population (the particle on its grid, no host
+    read), on CPU tensors the plain twin.  f32 only; no gradient (an input
+    that requires one raises)."""
+    global LAUNCHES_BATCHED
+    if h_scat.ndim != 2:
+        raise ValueError('h_scat must be (N, T), got {}'.format(
+            tuple(h_scat.shape)))
+    N = h_scat.shape[0]
+    _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
+    if not (torch.is_tensor(Dparams) and Dparams.shape == (N, 3)):
+        raise ValueError('Dparams must be an (N, 3) tensor, N = {}'.format(N))
+    if any(torch.is_tensor(t) and t.requires_grad
+           for t in (h_scat, cdf_mu, clipped, Dparams, cell)):
+        raise ValueError('accumulate_day_batched takes no gradient: give it '
+                         'inputs that do not require one')
+    if h_scat.device.type == 'cpu':
+        return accumulate_day_batched_plain(h_scat, cdf_mu, idx, clipped,
+                                            Dparams, cell, K, buf_len)
+    from ._build import load
+    lib = load('day_kernel')
+    out, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len,
+                              _CHUNK, select=True)
+    _cuda_call(lib, 'parasitoids_day_accumulate',
+               lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args)
+    LAUNCHES_BATCHED += 1
+    loss = torch.sum(clipped * h_scat * (1.0 - out['bsum']), dim=-1)
+    return out['buf'], loss
+
+
 def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
             reps=20, chunk=_CHUNK):
     """Device milliseconds of the forward kernel's three passes,
     ``(reps, 3)`` numpy (block_build, gather, reduce), from CUDA events
     recorded around the kernels alone, every rep queued before the first
     is waited on: the wrapper's checks and packing are outside them.  Takes
-    :func:`accumulate_day`'s inputs, on the card; each rep counts as one
-    launch."""
-    global LAUNCHES
+    :func:`accumulate_day`'s inputs, or :func:`accumulate_day_batched`'s
+    (then the select node rule and ``(N, 3)`` ``Dparams``), on the card;
+    each rep counts as one launch of its kind."""
+    global LAUNCHES, LAUNCHES_BATCHED
     from ._build import load
     _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
+    batched = h_scat.ndim == 2
     if h_scat.device.type != 'cuda':
         raise ValueError('pass_ms times the CUDA kernel: give it CUDA tensors')
     if reps < 1:
         raise ValueError('reps must be at least 1, got {}'.format(reps))
     lib = load('day_kernel')
     bufs, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K,
-                               buf_len, chunk)
+                               buf_len, chunk, select=batched)
     ms = (ctypes.c_float * (3 * reps))()
     _cuda_call(lib, 'parasitoids_day_accumulate_timed',
                lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args,
                reps, ctypes.addressof(ms))
-    LAUNCHES += reps
+    if batched:
+        LAUNCHES_BATCHED += reps
+    else:
+        LAUNCHES += reps
     del bufs                 # the call waited for the card: safe to free
     return np.frombuffer(ms, dtype=np.float32).reshape(reps, 3).copy()
 
@@ -402,7 +490,10 @@ def pass_ms_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams, cell,
 
 
 def _check(h_scat, cdf_mu, idx, clipped, K, buf_len):
-    T = h_scat.shape[0]
+    """The wrapper's checks of one day's inputs: ``(T,)``, ``(T, 2)``,
+    ``(T, 2)``, ``(T,)``, or the same with one leading particle axis."""
+    T = h_scat.shape[-1]
+    lead = tuple(h_scat.shape[:-1])
     n = 2 * K + 1
     dev = h_scat.device
     for name, t in (('h_scat', h_scat), ('cdf_mu', cdf_mu), ('idx', idx),
@@ -421,10 +512,11 @@ def _check(h_scat, cdf_mu, idx, clipped, K, buf_len):
                         'accumulate)')
     if idx.dtype != torch.int32:
         raise TypeError('idx must be int32, got {}'.format(idx.dtype))
-    if h_scat.shape != (T,) or clipped.shape != (T,) or \
-            cdf_mu.shape != (T, 2) or idx.shape != (T, 2):
+    if len(lead) > 1 or clipped.shape != lead + (T,) or \
+            cdf_mu.shape != lead + (T, 2) or idx.shape != lead + (T, 2):
         raise ValueError('shapes: h_scat {}, cdf_mu {}, idx {}, clipped {}; '
-                         'want (T,), (T, 2), (T, 2), (T,)'.format(
+                         'want (T,), (T, 2), (T, 2), (T,), or each with a '
+                         'leading particle axis'.format(
                              tuple(h_scat.shape), tuple(cdf_mu.shape),
                              tuple(idx.shape), tuple(clipped.shape)))
     if buf_len < n:

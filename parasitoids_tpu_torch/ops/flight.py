@@ -2,7 +2,9 @@
 ``parasitoids_tpu/ops/flight.py`` (reference ParasitoidModel.py:231-309).
 
 Scalars may be Python numbers or 0-d tensors; arrays follow the dtype and
-device of the wind trace they are applied to.
+device of the wind trace they are applied to.  Parameters given as
+``(N, 1)`` tensors (one value per particle) give ``(N, n)`` results: every
+reduction runs over the last axis.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def f_time_prob(n, a1, b1, a2, b2, device=None, dtype=torch.float32):
     likelihood = torch.clamp(
         torch.sigmoid(b1 * (t_tild - a1)) - torch.sigmoid(b2 * (t_tild - a2)),
         min=0.0)
-    total = likelihood.sum()
+    total = likelihood.sum(-1, keepdim=True)
     eps = 1e-6
     return torch.where(total > eps,
                        likelihood / torch.clamp(total, min=eps),
@@ -48,9 +50,9 @@ def h_flight_prob(day_windr, lam, aw, bw, a1, b1, a2, b2):
     t_vec = torch.linspace(1.0, n, n, device=day_windr.device,
                            dtype=day_windr.dtype)
     integral_avg = (f_func * g_func / t_vec /
-                    torch.clamp(f_func.max(), min=1e-12) *
-                    torch.cumsum((1.0 - torch.cumsum(f_func, 0)) *
-                                 (f_func - f_func * g_func), 0))
+                    torch.clamp(f_func.amax(-1, keepdim=True), min=1e-12) *
+                    torch.cumsum((1.0 - torch.cumsum(f_func, -1)) *
+                                 (f_func - f_func * g_func), -1))
     return lam * (f_func * g_func + integral_avg)
 
 

@@ -573,3 +573,94 @@ def test_smc_resume_is_bitwise(cuda_device, tmp_path):
     np.testing.assert_array_equal(mono['logw'], resumed['logw'])
     keys = {bytes(g.get_state().numpy()) for g in mono['states'].key}
     assert all(mono['history']['resampled']) and len(keys) == 6
+
+
+def _batched_inputs(device, rhos, K=44, day=9, rad_res=400):
+    """One Kalbar day for len(rhos) particles (the same minutes, one
+    diffusion per particle), as the batched forward gives them."""
+    flat, cs, T = wind(interp=30)
+    cfg = tdk.KernelConfig(rad_res=rad_res, periods=T, K=K, K_local=20)
+    n = len(rhos)
+    h, mu, idx, clip, _ = tdk.day_scatter_inputs(
+        torch.from_numpy(flat).to(device), torch.from_numpy(cs).to(device),
+        day, tuple(torch.full((n, 1), v, device=device) for v in HPARAMS),
+        torch.full((n, 1), 1.179, device=device),
+        torch.full((n, 1), 30, dtype=torch.int64, device=device), 0, cfg,
+        10000.0)
+    Dp = torch.tensor([[171.82 + 10 * i, 144.58 - 5 * i, r]
+                       for i, r in enumerate(rhos)], device=device)
+    return h, mu, idx, clip, Dp, 10000.0 / rad_res, K, 2 * rad_res + 1 + 4 * K
+
+
+@pytest.mark.parametrize('day', [0, 9, 17])
+def test_batched_kernel_matches_plain_on_card(cuda_device, day):
+    # four particles whose rho straddles 0.925: one launch against the
+    # plain twin (the select rule) at K1's limits (atol 2e-6, 3e-6 where
+    # the series runs), one launch counted, two launches bitwise equal
+    rhos = (0.253, 0.9, 0.93, -0.99)
+    args = _batched_inputs(cuda_device, rhos, day=day)
+    launches = day_kernel.LAUNCHES_BATCHED
+    buf, loss = day_kernel.accumulate_day_batched(*args)
+    torch.cuda.synchronize()
+    assert day_kernel.LAUNCHES_BATCHED == launches + 1
+    want_buf, want_loss = day_kernel.accumulate_day_batched_plain(*args)
+    for i, r in enumerate(rhos):
+        tol = 3e-6 if abs(r) > 0.925 else 2e-6
+        np.testing.assert_allclose(buf[i].cpu().numpy(),
+                                   want_buf[i].cpu().numpy(), atol=tol)
+        np.testing.assert_allclose(float(loss[i]), float(want_loss[i]),
+                                   atol=tol)
+    again = day_kernel.accumulate_day_batched(*args)
+    assert torch.equal(buf, again[0]) and torch.equal(loss, again[1])
+
+
+def test_batched_kernel_particle_is_its_own_launch(cuda_device):
+    # a particle of a batched launch is bitwise the launch of that particle
+    # alone (the same CTAs, the same order of every sum)
+    args = _batched_inputs(cuda_device, (0.253, -0.99, 0.6))
+    buf, loss = day_kernel.accumulate_day_batched(*args)
+    h, mu, idx, clip, Dp = args[:5]
+    for i in range(3):
+        one = day_kernel.accumulate_day_batched(
+            h[i:i + 1].contiguous(), mu[i:i + 1].contiguous(),
+            idx[i:i + 1].contiguous(), clip[i:i + 1].contiguous(),
+            Dp[i:i + 1], *args[5:])
+        assert torch.equal(one[0][0], buf[i]) and torch.equal(one[1][0],
+                                                              loss[i])
+
+
+def test_batched_smc_moves_launch_once_a_day(cuda_device):
+    # run_smc(batched=True) at the small configuration: every move round
+    # makes ndays batched launches and no single one, and resumes bitwise
+    from parasitoids_tpu_torch.bayes import smc
+    setup = _am_setup(cuda_device)
+    cfg = smc.SMCConfig(n_particles=4, n_moves=1, min_accepts=0.0,
+                        max_move_rounds=1)
+
+    class Stop(Exception):
+        pass
+
+    def stop_at(stage, keep):
+        def cb(p):
+            keep.update(p)
+            if p['stage'] == stage:
+                raise Stop
+        return cb
+
+    mono, part, resumed = {}, {}, {}
+    with pytest.raises(Stop):
+        smc.run_smc(setup, 1, cfg, seed=2, batched=True,
+                    checkpoint=stop_at(1, part))
+    single = day_kernel.LAUNCHES
+    batched = day_kernel.LAUNCHES_BATCHED
+    with pytest.raises(Stop):
+        smc.run_smc(setup, None, cfg, seed=2, batched=True, resume=part,
+                    checkpoint=stop_at(3, resumed))
+    torch.cuda.synchronize()
+    assert day_kernel.LAUNCHES == single
+    assert day_kernel.LAUNCHES_BATCHED - batched == 2 * setup.ndays
+    with pytest.raises(Stop):
+        smc.run_smc(setup, 1, cfg, seed=2, batched=True,
+                    checkpoint=stop_at(3, mono))
+    assert _same_states(mono['states'], resumed['states'])
+    assert mono['logz'] == resumed['logz']

@@ -84,12 +84,28 @@ def test_r_small_vals_dense_matches_jax():
 
 @pytest.mark.parametrize('flag', ['ref_trunc', 'batched_bvn'])
 def test_unported_config_flags_raise(flag):
+    # both flags once refused are ported: ref_trunc (the reference's ring
+    # truncation of every block and of the local kernel) and batched_bvn
+    # (the select node rule) each run the plain accumulate, held against
+    # JAX's XLA path with the same flag at test_pallas_kernel.py's limits
+    # (atol 2e-6, 3e-6 on the high-|rho| series), across the 0.925 rule
     flat, cs, T = wind()
-    cfg = tdk.KernelConfig(periods=T, **BASE, **{flag: True})
-    with pytest.raises(NotImplementedError):
-        tdk.build_daily_kernel(t32(flat), t32(cs), 0, HPARAMS,
-                               (21.1, 10.6, 0.3), DLP, 1.1, 10, 1500.0, 0,
-                               cfg)
+    hp32 = tuple(np.float32(v) for v in HPARAMS)
+    for rho, day in ((0.3, 0), (0.93, 1), (-0.99, 3)):
+        want = jdk.build_daily_kernel(
+            jnp.asarray(flat), jnp.asarray(cs), jnp.int32(day), hp32,
+            (21.1, 10.6, rho), DLP, jnp.float32(1.1), jnp.int32(10),
+            jnp.float32(1500.0), jnp.int32(0),
+            jdk.KernelConfig(periods=T, **BASE, **{flag: True}))
+        got = tdk.build_daily_kernel(
+            t32(flat), t32(cs), day, HPARAMS, (21.1, 10.6, rho), DLP, 1.1,
+            10, 1500.0, 0, tdk.KernelConfig(periods=T, **BASE,
+                                            **{flag: True}))
+        tol = 3e-6 if abs(rho) >= 0.925 else 2e-6
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   atol=tol)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   atol=tol)
 
 
 def test_pallas_flag_on_cpu_raises():

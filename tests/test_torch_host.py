@@ -267,6 +267,19 @@ def test_analysis_clis_raise_without_a_card(prog, monkeypatch):
         mod.main(argv + ['ndays=2'])
 
 
+@pytest.mark.parametrize('prog', ['viz.compare', 'viz.info_plots',
+                                  'viz.explore'])
+def test_figure_clis_raise_without_a_card(prog, monkeypatch):
+    # the figure command lines take --device as the others do, and the card
+    # unless told --device cpu
+    import importlib
+    _no_card(monkeypatch)
+    mod = importlib.import_module('parasitoids_tpu_torch.' + prog)
+    argv = ['unused_run'] if prog == 'viz.compare' else []
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mod.main(argv)
+
+
 @pytest.mark.parametrize('sampler', ['pt', 'smc', 'vi'])
 def test_tempered_and_variational_samplers_raise_without_a_card(
         sampler, monkeypatch):
@@ -350,3 +363,24 @@ def _close(a, b, path):
 def test_curvature_and_analysis_host_copies_match(name):
     jax_fn, port_fn, args = _host_cases()[name]
     _close(port_fn(*args), jax_fn(*args), name)
+
+
+@pytest.mark.parametrize('mod', ['viz.compare', 'viz.info_plots',
+                                 'viz.explore', 'io.legacy_hdf5'])
+def test_figure_and_migration_copies_keep_the_originals_interface(mod):
+    # the port's copies of the figure modules and of the trace migration
+    # offer every public function of the JAX module with its parameters
+    # (the explorer's daily kernel adds ``device``); their results are held
+    # to JAX's in tests/test_torch_variants.py
+    import importlib
+    import inspect
+    jmod = importlib.import_module('parasitoids_tpu.' + mod)
+    tmod = importlib.import_module('parasitoids_tpu_torch.' + mod)
+    for name in jmod.__all__:
+        want = inspect.signature(getattr(jmod, name)).parameters
+        got = dict(inspect.signature(getattr(tmod, name)).parameters)
+        if name == 'plot_daily_kernel':
+            assert got.pop('device').default is None
+        assert list(got) == list(want), name
+        assert [p.default for p in got.values()] == \
+            [p.default for p in want.values()], name

@@ -237,8 +237,13 @@ def test_observation_structures(setups):
         ts.split_point_mask(np.append(keep, True))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ts.with_forward_mesh(None)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ts.with_batched_bvn()
+    # the ensemble-batched copy (once refused): its kernel configuration is
+    # JAX's with_batched_bvn() one, and the original is untouched
+    tb, jb = ts.with_batched_bvn(), js.with_batched_bvn()
+    assert tb.setup.kcfg.batched_bvn and jb.setup.kcfg.batched_bvn
+    assert not ts.setup.kcfg.batched_bvn
+    assert (tb.setup.kcfg.K, tb.setup.kcfg.K_local) == (jb.setup.kcfg.K,
+                                                        jb.setup.kcfg.K_local)
     # the NUTS and SBC forms of the objective: n_periods and the dataset
     # as arguments, never both
     with pytest.raises(ValueError, match='exclusive'):

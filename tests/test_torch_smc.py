@@ -12,7 +12,8 @@ f32 roundoff rates that differ between the packages add nothing of note
 fitted to the particles' path.  The rest runs on the port alone: the
 annealed-importance evidence of a conjugate normal, resampled clones with
 generators of their own, a checkpoint resumed bit for bit, the command
-line's ``--new``/``--resume``, and the refused batched and sharded paths.
+line's ``--new``/``--resume``, the batched moves and the refused sharded
+paths.
 """
 
 import numpy as np
@@ -432,14 +433,32 @@ def test_smc_cli_new_and_resume(tmp_path, capsys):
 
 
 def test_batched_and_sharded_paths_raise(plain, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match='unported'):
-        tsmc.run_smc(plain, 0, CHEAP, batched=True)
+    # the sharded paths still raise (item 16b); the batched ones, once
+    # refused, run: run_smc(batched=True) to stage 1 against the in-turn
+    # run from the same particles and draws (the same acceptances; the
+    # positions differ by the select node rule's roundoff), and
+    # PARA_SMC_BATCHED=1 through the command line
     with pytest.raises(NotImplementedError, match='16b'):
         tsmc.run_smc(plain, 0, CHEAP, mesh=object())
     with pytest.raises(NotImplementedError, match='16b'):
         tsmc.init_smc_particles(plain, 0, 4, mesh=object())
+    keep = {}
+    for batched in (True, False):
+        keep[batched] = {}
+        with pytest.raises(_Stop):
+            tsmc.run_smc(plain, 2, CHEAP, seed=11, batched=batched,
+                         checkpoint=_stop_at(1, keep[batched]))
+    a, b = keep[True], keep[False]
+    assert a['beta'] == b['beta']
+    np.testing.assert_array_equal(a['history']['accept'],
+                                  b['history']['accept'])
+    np.testing.assert_allclose(a['states'].m.numpy(), b['states'].m.numpy(),
+                               rtol=1e-3)
     from parasitoids_tpu_torch.bayes import run as brun
     monkeypatch.setenv('PARA_SMC_BATCHED', '1')
-    with pytest.raises(NotImplementedError, match='PARA_SMC_BATCHED'):
-        brun.main(['--new', '4', '0', str(tmp_path / 'b'), '--sampler',
-                   'smc', '--device', 'cpu'] + OV)
+    brun.main(['--new', '4', '0', str(tmp_path / 'b'), '--sampler', 'smc',
+               '--ess-target', '0.01', '--moves', '1', '--min-accepts', '0',
+               '--max-move-rounds', '1', '--device', 'cpu'] + OV)
+    with np.load(str(tmp_path / 'b') + '.npz') as d:
+        assert d['traces'].shape == (1, 4, 26)
+        assert np.isfinite(d['traces']).all()
