@@ -41,8 +41,14 @@ one batched launch a day per move round and no host read in it, a resume
 bitwise, and seconds per particle move batched and in turn; and the
 forward variants: the CLI with ``ref_trunc=true`` (no kernel launch),
 the log-depth propagation against the sequential one, and the
-model-vs-data statistics and figures from card tensors.  Any failed phase
-exits non-zero.  ``--only 11,12`` runs some phases alone,
+model-vs-data statistics and figures from card tensors.  Then [20] the
+meshes at the Bayes default: the minute-sharded forward
+(``parallel/domain.py``; four shards of 360 minutes on one card named four
+times, or one shard a card where there are several) against the unsharded
+one, its value+gradient through K1/K3 on every shard, and the chain,
+store, replica, particle (in turn and batched) and draw meshes each
+bitwise their runs without a mesh.  Any failed phase
+exits non-zero.  ``--only 11,12`` (or ``--only 20``) runs some phases alone,
 without the result line (a development run).  The last line is a JSON
 object with ``"ok": true`` and the device; the line before it lists the
 kernels with their launches, errors, times (the forward's three passes and
@@ -128,6 +134,24 @@ NUTS_VALUE_RTOL, NUTS_GRAD_L2_LIMIT, NUTS_GRAD_COMP_LIMIT = 1e-5, 1e-3, 1e-3
 # error printed, each limit about ten times the worst reading
 HESS_SYM_LIMIT, HESS_FD_LIMIT = 5e-15, 1e-8
 HESS_FD_STEPS = (1e-5, 3e-6, 1e-6)
+# [20]: the minute-sharded forward at the Bayes default against the
+# unsharded one on the card.  Only the order of the day buffer's sums
+# differs: the kernels are held at [3]'s REL_LIMIT of their peak, the
+# losses and day sums at test_domain.py's 1e-6, and the value and every
+# gradient component at test_domain.py's rtol 5e-4 plus an atol of the
+# largest component.  Readings on an H100 80GB HBM3 at 700 W: kernels
+# 4.8e-8 of the peak, losses 6.0e-8, day sums 8.0e-8, value 1.3e-6 of
+# itself, gradient relative L2 3.1e-5; the flight sig_x component, 0.01
+# of the largest, moved 6.1e-4 of itself (6.1e-6 of the largest): each
+# shard's minutes sum their cancelling terms apart, an f32 summation-order
+# change.  The atol and the L2 limit are about ten times their readings
+MESH_KERNEL_LIMIT = REL_LIMIT
+MESH_LOSS_LIMIT = MESH_SUM_LIMIT = 1e-6
+MESH_GRAD_RTOL, MESH_GRAD_ATOL, MESH_GRAD_L2_LIMIT = 5e-4, 5e-5, 3e-4
+# SMC's batched moves on a mesh of two shards against the stacked batch
+# of 4: positions within the rtol that tests/test_torch_smc.py holds the
+# batched moves to against the moves in turn
+BATCHED_MESH_RTOL = 1e-3
 
 
 class SmokeError(RuntimeError):
@@ -2210,6 +2234,319 @@ def phase_variants(dev, card, work):
     return sec_trunc, day_kernel.LAUNCHES, sec_phase
 
 
+def sync_all():
+    """Wait for every visible card."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_devices():
+    """The devices of [20]'s meshes: on one card, that card four times for
+    the minute shards (1,440 minutes, 360 a shard) and twice for the
+    members; on more, every card for the minutes and the first two for
+    the members.  Returns (minute devices, member devices, repeated)."""
+    n = torch.cuda.device_count()
+    if n == 1:
+        d = torch.device('cuda', 0)
+        return [d] * 4, [d] * 2, True
+    cards = [torch.device('cuda', i) for i in range(n)]
+    return cards, cards[:2], False
+
+
+def payload_equal(a, b):
+    """Two SMC payloads bitwise equal: particles, generators, weights,
+    evidence and history."""
+    return (states_equal(a['states'], b['states']) and
+            np.array_equal(a['logw'], b['logw']) and a['logz'] == b['logz']
+            and all(np.array_equal(a['history'][k], b['history'][k])
+                    for k in a['history']))
+
+
+def phase_meshes(dev, card, rate, work):
+    """Meshes on the card at the Bayes default (801², 25 m, 18 days,
+    T = 1,440, K = 44, Kl = 20): the minute-sharded forward
+    (``parallel/domain.py``) against the unsharded one, two sharded runs
+    bitwise, 18 K1 launches a shard a forward, a shard's kernel time
+    against its bound; a sharded value+gradient against the unsharded one
+    with 18 K3 launches a shard; then the member meshes, each bitwise its
+    run without a mesh: ``run_chains`` (2 chains × 10 steps), a store
+    written from the mesh and resumed on it, ``run_pt_sharded`` (2 rungs,
+    2 rounds), SMC (4 particles, one stage, in turn and batched) and
+    ``ensemble_projections`` (4 draws).  Counts zeroed just before each
+    part and read just after.  Returns the kernels line's numbers."""
+    from parasitoids_tpu_torch.bayes import map_fit
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.bayes import sampler, smc, tempering
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    from parasitoids_tpu_torch.bayes.priors import initial_model_params
+    from parasitoids_tpu_torch.bayes.store import load_chain, save_chain
+    from parasitoids_tpu_torch.models.forward import build_all_kernels
+    from parasitoids_tpu_torch.ops import day_kernel
+    from parasitoids_tpu_torch.ops.daily_kernel import day_scatter_inputs
+    from parasitoids_tpu_torch.parallel.chains import (chain_mesh,
+                                                       init_chains,
+                                                       run_chains,
+                                                       shard_bounds)
+    from parasitoids_tpu_torch.parallel.domain import (
+        build_all_kernels_sharded, minute_mesh)
+    from parasitoids_tpu_torch.parallel.ensemble import ensemble_projections
+    print('[20] meshes on the card at the Bayes default (801^2, 18 days, '
+          'T = 1440, K = 44, Kl = 20)')
+    tic_phase = time.perf_counter()
+    minute_devs, member_devs, repeated = mesh_devices()
+    n = len(minute_devs)
+    print('  {} card(s) visible; minute mesh of {} shards on {}, member '
+          'mesh on {}{} ({})'.format(
+              torch.cuda.device_count(), n,
+              ', '.join(str(d) for d in minute_devs),
+              ', '.join(str(d) for d in member_devs),
+              ': one card named more than once, so the shards run one '
+              'after the other on it and no concurrency across cards is '
+              'measured' if repeated else '', card))
+    setup = bayes_run.build_setup(device=dev)
+    s = setup.setup
+    check((s.kcfg.K, s.kcfg.K_local, setup.ndays, s.kcfg.periods,
+           2 * s.kcfg.rad_res + 1) == (44, 20, 18, 1440, 801) and
+          s.kcfg.pallas, 'the Bayes default on the CUDA kernels: K = 44, '
+          'Kl = 20, 18 days, T = 1440, 801^2')
+    mesh = minute_mesh(devices=minute_devs)
+    sharded = setup.with_forward_mesh(mesh)
+    m = _as_model(torch.as_tensor(initial_model_params(),
+                                  dtype=torch.float32).to(dev))
+    branches, _ = setup._branches(m)
+    n_per = torch.round(m.n_periods).to(torch.int64)
+    args = (s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
+            m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
+            setup.ndays, branches)
+
+    # 1. the minute-sharded kernels against the unsharded ones
+    with torch.no_grad():
+        ref, ref_loss = build_all_kernels(*args)
+        zero_counts()
+        got, got_loss = build_all_kernels_sharded(mesh, *args)
+        sync_all()
+        k1_fwd = day_kernel.LAUNCHES
+        again, again_loss = build_all_kernels_sharded(mesh, *args)
+        sync_all()
+    check(k1_fwd == 18 * n, '{} K1 launches for one sharded forward = 18 '
+          'days x {} shards'.format(k1_fwd, n))
+    check(torch.equal(got, again) and torch.equal(got_loss, again_loss),
+          'two sharded forwards bitwise equal (kernels and losses)')
+    diff = (got - ref).abs()
+    peak = float(ref.abs().max())
+    flips = int(((got == 0) != (ref == 0)).sum())
+    kerr = float(diff.max())
+    lerr = float((got_loss - ref_loss).abs().max())
+    serr = float((got.double().sum((1, 2)) -
+                  ref.double().sum((1, 2))).abs().max())
+    print('  sharded vs unsharded kernels: max |d| {:.3e} ({:.3e} of the '
+          'peak {:.3e}), {} cells on one side of the 1e-8 sparsity '
+          'threshold only; losses {:.3e}; day sums {:.3e}'.format(
+              kerr, kerr / peak, peak, flips, lerr, serr))
+    check(np.isfinite(kerr) and kerr <= MESH_KERNEL_LIMIT * peak and
+          lerr <= MESH_LOSS_LIMIT and serr <= MESH_SUM_LIMIT,
+          'sharded kernels within {:.0e} of the peak, losses within {:.0e}, '
+          'day sums within {:.0e} of the unsharded ones'.format(
+              MESH_KERNEL_LIMIT, MESH_LOSS_LIMIT, MESH_SUM_LIMIT))
+
+    # a shard's kernel time against its bound, day 9
+    h, mu, idx, clip, _ = day_scatter_inputs(
+        s.wind_flat, s.wind_cumsum, 9, m.hparams(), m.mu_r, n_per, 0,
+        s.kcfg, s.rad_dist)
+    Dp = tuple(float(v) for v in m.Dparams())
+    cell = s.rad_dist / s.kcfg.rad_res
+    buf_len = s.scfg.dom_len + 4 * s.kcfg.K
+    shard_ms, shard_bound = [], []
+    for d, a, b in shard_bounds(h.shape[0] + (-h.shape[0]) % n, mesh):
+        b = min(b, h.shape[0])
+        part = [x[a:b].contiguous() for x in (h, mu, idx, clip)]
+        shard_ms.append(float(np.median(day_kernel.pass_ms(
+            *part, Dp, cell, s.kcfg.K, buf_len, reps=5).sum(axis=1))))
+        shard_bound.append(forward_bound(part[0], part[1], Dp, cell,
+                                         s.kcfg.K, buf_len, rate)[:2])
+    whole_ms = float(np.median(day_kernel.pass_ms(
+        h, mu, idx, clip, Dp, cell, s.kcfg.K, buf_len, reps=5).sum(axis=1)))
+    print('  day 9, a shard of {} minutes: kernels {} ms (CUDA events '
+          'around the kernels alone, median of 5), bounds {} ms by {}; the '
+          'whole day {:.4f} ms ({})'.format(
+              -(-h.shape[0] // n),
+              ' '.join('{:.4f}'.format(v) for v in shard_ms),
+              ' '.join('{:.4f}'.format(v) for v, _ in shard_bound),
+              shard_bound[0][1], whole_ms, card))
+    with torch.no_grad():
+        sec_fwd = timed(lambda: setup.forward_projections(m))
+        sec_fwd_sh = timed(lambda: sharded.forward_projections(m))
+    print('  {:.4f} s per sharded forward ({} shards) against {:.4f} s '
+          'unsharded (median of 3, forward_projections; {})'.format(
+              sec_fwd_sh, n, sec_fwd, card))
+
+    # 2. a sharded value+gradient against the unsharded one
+    neg, _, _ = map_fit._make_objective(setup, False)
+    neg_sh, _, _ = map_fit._make_objective(sharded, False)
+    z0 = map_fit.initial_z(setup, False)
+    zero_counts()
+    v_sh, g_sh = value_and_grad(neg_sh, z0)
+    sync_all()
+    k1_vg, k3_vg = day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD
+    check((k1_vg, k3_vg) == (18 * n, 18 * n),
+          '{} K1 and {} K3 launches for one sharded value+gradient = 18 x '
+          '{} shards each'.format(k1_vg, k3_vg, n))
+    v, g = value_and_grad(neg, z0)
+    gmax = np.abs(g).max()
+    dg = np.abs(g_sh - g)
+    worst = float((dg / np.maximum(np.abs(g), 1e-30)).max())
+    dv = abs(v_sh - v) / abs(v)
+    print('  value sharded {!r} unsharded {!r} (rel {:.3e}); gradient '
+          'worst component {:.3e} of its magnitude; per component '
+          '|dg|/|g| {} and |g|/max|g| {}'.format(
+              v_sh, v, dv, worst,
+              np.array2string(dg / np.maximum(np.abs(g), 1e-30),
+                              precision=2),
+              np.array2string(np.abs(g) / gmax, precision=2)))
+    l2 = float(np.linalg.norm(g_sh - g) / np.linalg.norm(g))
+    check(np.isfinite(v_sh) and np.all(np.isfinite(g_sh)) and
+          dv <= MESH_GRAD_RTOL and l2 <= MESH_GRAD_L2_LIMIT and
+          bool(np.all(dg <= MESH_GRAD_RTOL * np.abs(g) +
+                      MESH_GRAD_ATOL * gmax)),
+          'sharded value and every gradient component within {:.0e} of '
+          'the unsharded ones (+ {:.0e} of the largest), gradient relative '
+          'L2 {:.3e} <= {:.0e}'.format(MESH_GRAD_RTOL, MESH_GRAD_ATOL, l2,
+                                       MESH_GRAD_L2_LIMIT))
+    peaks = {}
+    for name, f in (('sharded', neg_sh), ('unsharded', neg)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        value_and_grad(f, z0)
+        sync_all()
+        peaks[name] = torch.cuda.max_memory_allocated(dev)
+    sec_vg = timed(lambda: value_and_grad(neg, z0))
+    sec_vg_sh = timed(lambda: value_and_grad(neg_sh, z0))
+    print('  {:.4f} s per sharded value+gradient against {:.4f} s '
+          'unsharded (median of 3); peak {:.1f} MiB against {:.1f} MiB '
+          'allocated on {} ({})'.format(
+              sec_vg_sh, sec_vg, peaks['sharded'] / 2 ** 20,
+              peaks['unsharded'] / 2 ** 20, dev, card))
+
+    # 3. the member meshes, each bitwise its run without a mesh
+    members = chain_mesh(devices=member_devs)
+    zero_counts()
+    tic = time.perf_counter()
+    st_m, tr_m = run_chains(setup, init_chains(setup, 0, 2),
+                            sampler.MCMCConfig(10), mesh=members)
+    sync_all()
+    sec_chains = time.perf_counter() - tic
+    k1_chains, fwd_chains = day_kernel.LAUNCHES, sampler.FORWARDS
+    check(k1_chains == 18 * fwd_chains and fwd_chains >= 2,
+          'run_chains on the mesh: {} K1 launches = 18 x {} forwards'.format(
+              k1_chains, fwd_chains))
+    st_r, tr_r = run_chains(setup, init_chains(setup, 0, 2),
+                            sampler.MCMCConfig(10))
+    check(torch.equal(tr_m, tr_r) and states_equal(st_m, st_r),
+          'run_chains, 2 chains x 10 steps on {} devices, bitwise equal to '
+          'mesh=None ({:.2f} s on the mesh)'.format(members.size,
+                                                    sec_chains))
+    db = os.path.join(work, 'mesh_store')
+    save_chain(db, tr_m, st_m, meta={'chains': 2})
+    _, st_l, _ = load_chain(db, setup)
+    zero_counts()
+    st_a, tr_a = run_chains(setup, st_m, sampler.MCMCConfig(5), mesh=members)
+    st_b, tr_b = run_chains(setup, st_l, sampler.MCMCConfig(5), mesh=members)
+    sync_all()
+    k1_store = day_kernel.LAUNCHES
+    check(torch.equal(tr_a, tr_b) and states_equal(st_a, st_b),
+          'a store written from the mesh and resumed on it: 5 more steps '
+          'bitwise equal to 5 from memory')
+
+    betas = tempering.power_ladder(2)
+    cfg = tempering.PTConfig(n_rounds=2, swap_every=2)
+    zero_counts()
+    pt_m = tempering.run_pt_sharded(setup, tempering.init_pt_states(
+        setup, 1, 2), betas, 3, cfg, members)
+    sync_all()
+    k1_pt = day_kernel.LAUNCHES
+    pt_r = tempering.run_pt(setup, tempering.init_pt_states(setup, 1, 2),
+                            betas, 3, cfg)
+    check(states_equal(pt_m[0], pt_r[0]) and torch.equal(pt_m[1], pt_r[1])
+          and all(torch.equal(pt_m[2][k], pt_r[2][k]) for k in pt_r[2]),
+          'run_pt_sharded, 2 rungs x 2 rounds of 2 steps, bitwise equal to '
+          'run_pt (swaps accepted {})'.format(
+              pt_m[2]['swap_accepts'].tolist()))
+
+    class Stop(Exception):
+        pass
+
+    def stage_one(**kw):
+        keep = {}
+
+        def cb(p):
+            keep.update(p)
+            raise Stop
+        try:
+            smc.run_smc(setup, 4, smc.SMCConfig(
+                n_particles=4, n_moves=1, min_accepts=0.0,
+                max_move_rounds=1), seed=4, checkpoint=cb, **kw)
+        except Stop:
+            pass
+        return keep
+
+    k1_smc = kb_smc = 0
+    for batched in (False, True):
+        zero_counts()
+        got_p = stage_one(mesh=members, batched=batched)
+        sync_all()
+        k1_smc += day_kernel.LAUNCHES
+        kb_smc += day_kernel.LAUNCHES_BATCHED
+        want_p = stage_one(batched=batched)
+        if not batched:
+            check(payload_equal(got_p, want_p),
+                  'SMC in turn, 4 particles to stage 1 on the mesh, bitwise '
+                  'equal to the stacked run')
+            continue
+        # a batch of 2 a shard sums each particle's reductions in another
+        # order than the stacked batch of 4 (torch splits a reduction over
+        # blocks by its count of outputs), so the batched moves agree to
+        # f32 summation order, not bitwise: the same decisions, positions
+        # within [18]'s batched-vs-in-turn rtol, and two mesh runs bitwise
+        again_p = stage_one(mesh=members, batched=True)
+        a, b = got_p['states'], want_p['states']
+        dm = float(((a.m - b.m).abs() / b.m.abs().clamp(min=1e-30)).max())
+        dll = float((a.loglik - b.loglik).abs().max())
+        check(payload_equal(got_p, again_p),
+              'SMC batched on the mesh: two runs bitwise equal')
+        check(torch.equal(a.accepts_m, b.accepts_m) and
+              torch.equal(a.accepts_o, b.accepts_o) and
+              np.array_equal(got_p['history']['accept'],
+                             want_p['history']['accept']) and
+              dm <= BATCHED_MESH_RTOL,
+              'SMC batched, 4 particles to stage 1 on the mesh against the '
+              'stacked batch: the same acceptances, positions within {:.3e} '
+              '<= {:.0e} of theirs (log likelihoods {:.3e} apart; not '
+              'bitwise: the batch of 2 a shard sums in another order)'
+              .format(dm, BATCHED_MESH_RTOL, dll))
+    check(kb_smc == 18 * members.size,
+          '{} batched launches for the batched move round on the mesh = 18 '
+          'days x {} shards of 2 particles'.format(kb_smc, members.size))
+
+    thetas = torch.cat([st_a.m, st_m.m])
+    zero_counts()
+    ens_m = ensemble_projections(setup, thetas, mesh=members)
+    sync_all()
+    k1_ens = day_kernel.LAUNCHES
+    ens_r = ensemble_projections(setup, thetas)
+    check(k1_ens == 18 * 4 and torch.equal(flat_proj(ens_m),
+                                           flat_proj(ens_r)),
+          'ensemble_projections, 4 draws on the mesh: {} K1 launches, '
+          'bitwise equal to mesh=None'.format(k1_ens))
+    sec_phase = time.perf_counter() - tic_phase
+    print('  phase [20]: {:.1f} s'.format(sec_phase))
+    return {'k1': k1_fwd + k1_vg + k1_chains + k1_store + k1_pt + k1_smc +
+            k1_ens, 'k3': k3_vg, 'batched': kb_smc, 'shards': n,
+            'repeated': repeated, 'kernel_err': kerr,
+            'shard_ms': max(shard_ms), 'shard_bound_ms': shard_bound[0][0],
+            'sec_fwd': sec_fwd, 'sec_fwd_sharded': sec_fwd_sh,
+            'sec_vg': sec_vg, 'sec_vg_sharded': sec_vg_sh,
+            'peak_sharded': peaks['sharded'], 'sec_phase': sec_phase}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(prog='chip_smoke.py')
@@ -2217,8 +2554,8 @@ def main(argv=None):
                     help='run only these phases (1, 2 and the checks of '
                          'imports always run; 13 needs 9), e.g. 14,15,16,17 '
                          'for the tempered and evidence samplers, 18,19 for '
-                         'the batched SMC moves and the forward variants; '
-                         'no result line')
+                         'the batched SMC moves and the forward variants, 20 '
+                         'for the meshes; no result line')
     args = ap.parse_args(argv)
     only = (None if args.only is None else
             {int(v) for v in args.only.split(',')})
@@ -2282,15 +2619,18 @@ def run(only, work):
                                                                  work)
     bat = phase_smc_batched(dev, card, rate, work, smc_sec)
     trunc_sec, var_k1, p19_phase = phase_variants(dev, card, work)
+    mesh = phase_meshes(dev, card, rate, work)
     check(launches > 0 and min(map_launches) > 0 and am_launches > 0 and
           min(nuts_k1, nuts_k3) > 0 and min(lap_launches) > 0 and
           min(ridge_k1, ridge_k3) > 0 and sum_k1 > 0 and
           min(pt_k1, smc_k1, vi_k1, vi_k3, sbc_k1, small_k1) > 0 and
-          bat['launches'] > 0 and var_k1 > 0,
+          bat['launches'] > 0 and var_k1 > 0 and
+          min(mesh['k1'], mesh['k3'], mesh['batched']) > 0,
           'both kernels launched on their main paths, the forward kernel on '
           'the AM path too, both on the NUTS, Laplace and ridge paths, the '
           'forward kernel on the summary, PT, SMC, SBC and CV paths, both '
-          'on the ADVI path, the batched forward on the batched SMC path')
+          'on the ADVI path, the batched forward on the batched SMC path, '
+          'all three on the mesh paths')
     check_imports()
 
     k1, k2 = timing['K1'], timing['K2']
@@ -2302,7 +2642,15 @@ def run(only, work):
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:157',
         'launches': (launches + nuts_k1 + lap_launches[0] + ridge_k1 +
                      sum_k1 + pt_k1 + smc_k1 + vi_k1 + sbc_k1 + small_k1 +
-                     bat['k1'] + var_k1),
+                     bat['k1'] + var_k1 + mesh['k1']),
+        'launches_meshes': mesh['k1'], 'mesh_minute_shards': mesh['shards'],
+        'mesh_repeats_one_card': mesh['repeated'],
+        'mesh_max_abs_err_vs_unsharded': mesh['kernel_err'],
+        'ms_per_shard_day9': mesh['shard_ms'],
+        'bound_ms_per_shard_day9': mesh['shard_bound_ms'],
+        'sec_per_forward_801': mesh['sec_fwd'],
+        'sec_per_forward_801_sharded': mesh['sec_fwd_sharded'],
+        'sec_phase_20': mesh['sec_phase'],
         'launches_smc_batched_init': bat['k1'],
         'launches_explorer': var_k1,
         'launches_main_path': launches, 'launches_nuts_cli': nuts_k1,
@@ -2348,7 +2696,11 @@ def run(only, work):
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:326',
         'launches': (map_launches[1] + nuts_k3 + lap_launches[1] +
-                     ridge_k3 + vi_k3),
+                     ridge_k3 + vi_k3 + mesh['k3']),
+        'launches_meshes': mesh['k3'],
+        'sec_per_value_and_grad_801_unsharded_20': mesh['sec_vg'],
+        'sec_per_value_and_grad_801_sharded': mesh['sec_vg_sharded'],
+        'peak_bytes_value_and_grad_801_sharded': mesh['peak_sharded'],
         'launches_map_cli': map_launches[1], 'launches_nuts_cli': nuts_k3,
         'launches_vi_cli': vi_k3, 'sec_per_elbo_step_801': vi_sec,
         'launches_laplace_cli': lap_launches[1],
@@ -2398,7 +2750,8 @@ def run(only, work):
         'route': 'cuda',
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:157',
-        'launches': bat['launches'], 'particles': 8,
+        'launches': bat['launches'] + mesh['batched'], 'particles': 8,
+        'launches_meshes': mesh['batched'],
         'max_abs_err': max(bat['err']['K1'], bat['err']['K2']),
         'max_abs_err_k1': bat['err']['K1'],
         'max_abs_err_k2': bat['err']['K2'],
@@ -2454,7 +2807,8 @@ def run_some(only, dev, card, rate, work):
         16: lambda: phase_vi_cli(dev, card, work),
         17: lambda: phase_sbc_and_anneals(dev, card, work),
         18: lambda: phase_smc_batched(dev, card, rate, work),
-        19: lambda: phase_variants(dev, card, work)}
+        19: lambda: phase_variants(dev, card, work),
+        20: lambda: phase_meshes(dev, card, rate, work)}
     failed = []
     for n in sorted(only | ({9} if 13 in only else set())):
         tic = time.perf_counter()

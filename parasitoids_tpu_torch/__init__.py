@@ -24,7 +24,8 @@ Layout mirrors the JAX package:
   bayes/           priors, transforms, the log posterior, the MAP fit,
                    the adaptive-Metropolis sampler, its trace store and
                    command line (``python -m parasitoids_tpu_torch.bayes.run``)
-  parallel/        the chains of a run, advanced in turn on one device
+  parallel/        the device mesh; chains, starts, replicas, particles
+                   and draws sharded over it; the minute-sharded forward
   utils/           numerical sanitizers of a run's fields; durable commits
   viz/             per-day plots of a run (``--plot``); MCMC diagnostics
   cli.py           ``python -m parasitoids_tpu_torch [flags] [key=value ...]``

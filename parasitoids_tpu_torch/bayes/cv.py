@@ -20,7 +20,8 @@ projections make the extra evaluation free of any new simulation.
 The reference has no cross-validation machinery of any kind.
 
 CLI: ``python -m parasitoids_tpu_torch.bayes.cv --group block [--folds 0,2]
-[--device cpu] [k=v...]``
+[--device cpu] [k=v...]``; the particles shard over the visible cards when
+their count divides over them.
 """
 
 from __future__ import annotations
@@ -67,8 +68,8 @@ def exact_logo_cv(setup: BayesSetup, by='block', folds=None, seed=0,
             practice, the groups PSIS-LOO flagged with high khat.
         smc_config: SMCConfig for each fold's refit (default: 128
             particles, 3 moves/stage).
-        mesh: particles over several devices — not ported (ROADMAP
-            Queue 1 item 16b); must be None.
+        mesh: optional device mesh (``parallel.chains.chain_mesh``); each
+            fold's particles shard over it (``run_smc(mesh=)``).
     Returns:
         dict with per-fold labels, exact elpd values, the refit logZ per
         fold, and the total over evaluated folds.
@@ -131,8 +132,16 @@ def main(argv=None, device=None):
     ap.add_argument('overrides', nargs='*',
                     help='key=value Params overrides matching the run')
     args = ap.parse_args(argv)
-    setup = build_setup(args.overrides,
-                        device=args.device if device is None else device)
+    from .. import device as _device
+    from ..parallel.chains import chain_mesh
+    device = args.device if device is None else device
+    setup = build_setup(args.overrides, device=device)
+
+    mesh = None
+    devices = _device.visible_devices(device)
+    if len(devices) > 1 and args.particles % len(devices) == 0:
+        mesh = chain_mesh(devices=devices)
+        print('particles sharded over {} devices'.format(len(devices)))
 
     folds = ([int(x) for x in args.folds.split(',')]
              if args.folds else None)
@@ -140,7 +149,7 @@ def main(argv=None, device=None):
         setup, by=args.group, folds=folds, seed=args.seed,
         smc_config=SMCConfig(n_particles=args.particles,
                              n_moves=args.moves),
-        verbose=True)
+        mesh=mesh, verbose=True)
     print('exact LOGO-CV elpd over {} folds: {:.3f}'.format(
         len(res['folds']), res['elpd_total']))
     with open(args.out, 'w') as fh:

@@ -56,7 +56,9 @@ def pointwise_matrix(setup: BayesSetup, traces, n_draws=400, seed=0,
         traces: (n_chains, n_samples, dim) or (n_samples, dim) array in the
             standard trace layout (model block + obs block + logpost).
         n_draws: posterior draws to evaluate (each is one forward sim).
-        mesh: not ported (``parallel.ensemble``); raises.
+        mesh: optional 1-D device mesh; the draw axis is sharded over it,
+            the draws rounded down to a multiple of its size (the mesh
+            dropped when there are fewer draws than devices).
     Returns:
         (ll, rows): the float64 matrix and the flat trace rows used.
     """
@@ -65,6 +67,15 @@ def pointwise_matrix(setup: BayesSetup, traces, n_draws=400, seed=0,
     from .priors import MODEL_PARAM_NAMES, OBS_PARAM_NAMES
 
     draws, take = subsample_draws(traces, n_draws, seed)
+    if mesh is not None:
+        # as the JAX function: the draw axis splits evenly over the
+        # devices; round down to a multiple (or drop the mesh for tiny
+        # subsamples)
+        if draws.shape[0] < mesh.size:
+            mesh = None
+        else:
+            size = draws.shape[0] - draws.shape[0] % mesh.size
+            draws, take = draws[:size], take[:size]
     n_m = len(MODEL_PARAM_NAMES)
     n_o = len(OBS_PARAM_NAMES)
     m_draws = draws[:, :n_m].astype(np.float32)
@@ -336,13 +347,15 @@ def main(argv=None, device=None):
     ap.add_argument('overrides', nargs='*',
                     help='key=value Params overrides matching the run')
     args = ap.parse_args(argv)
+    from ..parallel.chains import visible_mesh
     device = args.device if device is None else device
     setup = build_setup(args.overrides, device=device)
+    mesh = visible_mesh(device)
     path = args.trace if args.trace.endswith('.npz') else args.trace + '.npz'
     with np.load(path) as npz:
         traces = npz['traces']
     ll, rows = pointwise_matrix(setup, traces, n_draws=args.draws,
-                                seed=args.seed)
+                                seed=args.seed, mesh=mesh)
     unit = 'points'
     if args.group == 'point':
         labels = point_labels(setup)
@@ -386,7 +399,7 @@ def main(argv=None, device=None):
                 setup2 = build_setup(list(args.overrides)
                                      + ['obs_model=' + om2], device=device)
         ll2, _ = pointwise_matrix(setup2, traces2, n_draws=args.draws,
-                                  seed=args.seed)
+                                  seed=args.seed, mesh=mesh)
         if args.group != 'point':
             ll2 = group_loglik(ll2, gids)
         l2 = psis_loo(ll2)

@@ -8,12 +8,14 @@ reparameterization.  As in the reference, ``n_periods`` is held at 30
 Uniform(0, 1) parameter (Bayes_MAP.py:200-205).
 
 Run as ``python -m parasitoids_tpu_torch.bayes.map_fit --MAP | --norm
-[--starts N --seed S] [--polish N]``: Adam from the reference's initial
-values or from several prior draws (in turn), optionally an L-BFGS polish,
+[--starts N --seed S] [--polish N] [--shard-forward]``: Adam from the
+reference's initial values or from several prior draws (in turn, or
+sharded over the visible cards), optionally an L-BFGS polish,
 and with ``--norm`` the Laplace (normal) approximation around the mode
 (ref ``pm.NormApprox``, Bayes_MAP.py:521-569): the covariance is the
 inverse Hessian of the negative log posterior in the unconstrained space.
-The sharded forward (ROADMAP Queue 1 item 16b) is not ported.
+``--shard-forward`` spreads each forward simulation's flight minutes over
+the visible cards (``parallel/domain.py``).
 
 The Hessian never goes through the CUDA day kernels, whose backward is
 first order (in JAX too the Pallas ``custom_vjp`` admits no forward mode).
@@ -95,8 +97,11 @@ def _make_objective(setup: BayesSetup, use_sprd, free_n=False,
 
     def _neg_logpost(z, n_periods=_N_PERIODS_FIXED, obs=None, gate=None):
         m_vec, o_vec, sprd = constrain(z, n_periods)
-        lp = setup.log_posterior(_as_model(m_vec), _as_obs(o_vec, n_sent),
-                                 sprd, obs=obs, gate=gate)
+        # the setup follows z: a start or chain sharded onto another device
+        # evaluates there (BayesSetup.on_device)
+        lp = setup.on_device(z.device).log_posterior(
+            _as_model(m_vec), _as_obs(o_vec, n_sent), sprd, obs=obs,
+            gate=gate)
         return None if lp is None else -lp
 
     if free_n:
@@ -259,13 +264,14 @@ def map_fit_multistart(setup: BayesSetup, n_starts=8, seed=0, n_steps=300,
     initialisation; the others draw the model and observation blocks from
     the joint prior (``priors.sample_prior_*``, a CPU generator seeded with
     ``seed``) and ``sprd_factor`` from U(0.02, 0.98).  The starts run in
-    turn, as the JAX fit's ``lax.map`` runs them.  Returns the best start's
-    ``map_fit``-shaped dict plus ``'start_logps'`` (each start's log
-    posterior at its last step) and ``'best_start'``."""
+    turn, as the JAX fit's ``lax.map`` runs them; with a ``mesh``
+    (``parallel.chains.chain_mesh``; the start count must divide over it)
+    each shard's starts run on its device, exactly as without one.
+    Returns the best start's ``map_fit``-shaped dict plus
+    ``'start_logps'`` (each start's log posterior at its last step) and
+    ``'best_start'``."""
+    from ..parallel.chains import member_devices
     from .priors import sample_prior_model, sample_prior_obs
-    if mesh is not None:
-        raise NotImplementedError('starts sharded over several devices are '
-                                  'not ported: ROADMAP Queue 1 item 16b')
     if use_sprd is None:
         use_sprd = default_use_sprd(setup.params)
     neg_logpost, _, unconstrain = _make_objective(setup, use_sprd)
@@ -279,6 +285,8 @@ def map_fit_multistart(setup: BayesSetup, n_starts=8, seed=0, n_steps=300,
     z0s = [initial_z(setup, use_sprd)] + [
         unconstrain(ms[i].to(dev), os_[i].to(dev), sprds[i].to(dev))
         for i in range(k)]
+    if mesh is not None:
+        z0s = [z.to(d) for z, d in zip(z0s, member_devices(n_starts, mesh))]
     zs, lasts = [], []
     for i, z0 in enumerate(z0s):
         z, losses = _adam(neg_logpost, z0, n_steps, learning_rate)
@@ -289,7 +297,8 @@ def map_fit_multistart(setup: BayesSetup, n_starts=8, seed=0, n_steps=300,
                 i + 1, n_starts, lasts[-1]), flush=True)
     logps = -np.asarray(lasts, np.float64)
     best = int(np.nanargmax(logps))
-    return _fit_dict(setup, use_sprd, zs[best], np.zeros(0, np.float32),
+    return _fit_dict(setup, use_sprd, zs[best].to(dev),
+                     np.zeros(0, np.float32),
                      start_logps=logps, best_start=best)
 
 
@@ -319,7 +328,8 @@ def plain_twin(setup: BayesSetup, dtype=None) -> BayesSetup:
     the setup's own): the counterpart of JAX's ``xla_twin``.  The setup
     itself when it already is one.  The twin is built from this setup's
     own wind arrays (upcast exactly where ``dtype`` is wider) and keeps
-    its ``sprd_factor``, observed data and held-out ``obs_mask``: a
+    its ``sprd_factor``, forward mesh, observed data and held-out
+    ``obs_mask``: a
     Laplace metric of held-out data must take its curvature from the
     held-out likelihood too."""
     from ..models.forward import setup_from_numpy
@@ -336,7 +346,7 @@ def plain_twin(setup: BayesSetup, dtype=None) -> BayesSetup:
     params = copy.copy(setup.params)
     params.use_pallas = False
     twin = BayesSetup(params, sprd_factor=setup.sprd_factor, dtype=dtype,
-                      forward_setup=fs)
+                      forward_setup=fs, forward_mesh=setup.forward_mesh)
 
     def cast(group):
         return [t.to(dtype) for t in group]
@@ -646,32 +656,51 @@ def main(argv=None, device=None):
     parser.add_argument('-o', '--outname', default='map_fit.txt')
     parser.add_argument('--steps', type=int, default=300)
     parser.add_argument('--starts', type=int, default=1,
-                        help='multi-start global MAP: N Adam runs, in turn, '
-                             'from the reference initialisation and N - 1 '
-                             'prior draws; best mode wins')
+                        help='multi-start global MAP: N Adam runs from the '
+                             'reference initialisation and N - 1 prior '
+                             'draws, sharded over the visible cards when N '
+                             'divides over them; best mode wins')
     parser.add_argument('--seed', type=int, default=0,
                         help='seed of the multi-start prior draws')
     parser.add_argument('--polish', type=int, default=0, metavar='N',
                         help='L-BFGS refinement steps after the Adam fit')
     parser.add_argument('--shard-forward', action='store_true',
-                        help='minute-sharded forward (not ported: ROADMAP '
-                             'Queue 1 item 16b)')
+                        help='shard each forward simulation\'s '
+                             'flight-minute axis over the visible cards '
+                             '(single-fit latency scaling, as on '
+                             'bayes.run); incompatible with --starts > 1, '
+                             'which shards over starts instead')
     parser.add_argument('overrides', nargs='*')
     args = parser.parse_args(argv)
-    if args.shard_forward:
-        parser.error('--shard-forward is not ported (ROADMAP Queue 1 item '
-                     '16)')
+    if args.shard_forward and args.starts > 1:
+        parser.error('--shard-forward is incompatible with --starts > 1 '
+                     '(multi-start already shards over the mesh)')
+    from .. import device as _device
+    from ..parallel.chains import chain_mesh
+    from ..parallel.domain import minute_mesh
 
-    setup = BayesSetup(map_cli_params(args.overrides),
-                       device=args.device if device is None else device)
+    device = args.device if device is None else device
+    setup = BayesSetup(map_cli_params(args.overrides), device=device)
     dev = setup.setup.wind_flat.device
     print('device {}, accumulate {}'.format(
         dev, 'CUDA day kernel' if setup.setup.kcfg.pallas
         else 'plain torch'))
+    devices = _device.visible_devices(device)
+    if args.shard_forward:
+        if len(devices) > 1:
+            setup = setup.with_forward_mesh(minute_mesh(devices=devices))
+            print('forward pass sharded over {} devices (flight-minute '
+                  'axis)'.format(setup.forward_mesh.size))
+        else:
+            print('--shard-forward: single device, running unsharded')
     tic = time.time()
     if args.starts > 1:
+        mesh = None
+        if len(devices) > 1 and args.starts % len(devices) == 0:
+            mesh = chain_mesh(devices=devices)
+            print('starts sharded over {} devices'.format(len(devices)))
         fit = map_fit_multistart(setup, n_starts=args.starts, seed=args.seed,
-                                 n_steps=args.steps, verbose=True)
+                                 n_steps=args.steps, mesh=mesh, verbose=True)
         print('multistart: best start {} of {}; per-start logp: {}'.format(
             fit['best_start'], args.starts,
             np.array2string(fit['start_logps'], precision=1)))

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import copy
 import math
+import weakref
+from functools import partial
 
 import numpy as np
 import torch
@@ -52,6 +54,10 @@ _RATE_FLOOR = 1e-12
 # forward because the prior was not finite; a run reads it beside
 # ``ops.day_kernel.LAUNCHES`` to account for every launch
 SKIPPED_FORWARDS = 0
+
+# each setup's copies on other devices (``BayesSetup.on_device``), kept
+# while the setup lives
+_ON_DEVICE = weakref.WeakKeyDictionary()
 
 
 def poisson_logpmf(obs, rate):
@@ -114,6 +120,22 @@ def _per(v):
     return v[..., None, None] if torch.is_tensor(v) and v.ndim else v
 
 
+def _moved(x, device):
+    """``x`` with every tensor on ``device``: tuples, lists, NamedTuples
+    and the observation operators mapped, anything else kept."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, (tuple, list)):
+        vals = [_moved(v, device) for v in x]
+        return type(x)(*vals) if hasattr(x, '_fields') else type(x)(vals)
+    if isinstance(x, ObservationOps):
+        new = copy.copy(x)
+        for k, v in vars(x).items():
+            setattr(new, k, _moved(v, device))
+        return new
+    return x
+
+
 def _kalbar_default_params():
     params = Params()
     params.cmd_line_chg(['--kalbar'])
@@ -138,11 +160,16 @@ class BayesSetup:
         forward_setup: a ready :class:`ForwardSetup`, for example from
             ``setup_from_numpy`` of another package's setup arrays, used
             instead of loading the wind again.
+        forward_mesh: optional 1-D mesh (``parallel.domain.minute_mesh``)
+            led by the setup's device: every forward simulation shards its
+            flight-minute axis over it (latency scaling for single-chain
+            samplers); leave None for chain-sharded sampling.
     """
 
     def __init__(self, params: Params | None = None, sprd_factor=None,
                  dtype=None, device=None,
-                 forward_setup: ForwardSetup | None = None):
+                 forward_setup: ForwardSetup | None = None,
+                 forward_mesh=None):
         if params is None:
             params = _kalbar_default_params()
         self.params = params
@@ -152,6 +179,7 @@ class BayesSetup:
         # optional per-observation 0/1 weights (rel, sent, grid) excluding
         # held-out data from the likelihood (with_held_out)
         self.obs_mask = None
+        self.forward_mesh = None
         cell = params.domain_info[0] / params.domain_info[1]
         K, Kl = prior_coverage_windows(cell)
         if params.kernel_rad is None:
@@ -191,6 +219,9 @@ class BayesSetup:
         self.dist_weights = dev(self.setup.dist_weights)
         self.r_dur = int(params.r_dur)
         self.r_number = float(params.r_number)
+        if forward_mesh is not None:
+            self._check_forward_mesh(forward_mesh)
+            self.forward_mesh = forward_mesh
 
     # ------------------------------------------------------------------
     def _check_obs(self, rel, sent, grid):
@@ -262,17 +293,52 @@ class BayesSetup:
         new.obs_mask = self.split_point_mask(keep_flat)
         return new
 
+    def _check_forward_mesh(self, mesh):
+        own = self.setup.wind_flat.device
+        if mesh.devices[0] != own:
+            raise ValueError('a forward mesh must lead with the setup\'s '
+                             'device {}, got {}'.format(own, mesh))
+
     def with_forward_mesh(self, mesh):
-        raise NotImplementedError(
-            'the minute-sharded forward (parallel/domain.py) is not ported: '
-            'ROADMAP Queue 1 item 16b')
+        """Shallow copy routing every forward simulation through the
+        minute-sharded builder (``parallel/domain.py``) on ``mesh``, whose
+        first device must be the setup's; ``None`` routes it back.  Every
+        later copy (``with_held_out``, ``with_observations``,
+        ``map_fit.plain_twin``) carries the mesh."""
+        if mesh is not None:
+            self._check_forward_mesh(mesh)
+        new = copy.copy(self)
+        new.forward_mesh = mesh
+        return new
+
+    def on_device(self, device):
+        """This setup with every tensor on ``device``: itself where it
+        lies there already, else a copy made once and kept while this
+        setup lives.  A chain, replica, particle or member sharded onto a
+        device evaluates its posterior through the copy there.  A setup
+        with a forward mesh stays on its mesh's lead device."""
+        device = torch.device(device)
+        if device == self.setup.wind_flat.device:
+            return self
+        if self.forward_mesh is not None:
+            raise ValueError('a setup with a forward mesh runs on its lead '
+                             'device, not {}'.format(device))
+        copies = _ON_DEVICE.setdefault(self, {})
+        if device not in copies:
+            new = copy.copy(self)
+            for k, v in vars(self).items():
+                setattr(new, k, _moved(v, device))
+            copies[device] = new
+        return copies[device]
 
     def with_batched_bvn(self):
         """Shallow copy whose forward simulations take N parameter sets at
         once with the ensemble's select node rule (the JAX method's
         ``kcfg._replace(batched_bvn=True)``): on the card one launch of
         the particle-batched day kernel a day for the whole population, so
-        no host read of any ρ (``forward_projections``)."""
+        no host read of any ρ (``forward_projections``).  The copy keeps
+        the forward mesh: each of its shards then takes every particle's
+        minutes of its block in one batched launch."""
         new = copy.copy(self)
         new.setup = self.setup._replace(
             kcfg=self.setup.kcfg._replace(batched_bvn=True))
@@ -374,10 +440,17 @@ class BayesSetup:
             branches, _ = self._branches(m)
         n_per = torch.round(scalar(m.n_periods, s.wind_flat.dtype,
                                    s.wind_flat.device)).to(torch.int64)
-        kernels, _ = build_all_kernels(
-            s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
-            m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
-            self.ndays, branches)
+        if self.forward_mesh is not None:
+            from ..parallel.domain import build_all_kernels_sharded
+            kernels, _ = build_all_kernels_sharded(
+                self.forward_mesh, s.wind_flat, s.wind_cumsum, m.hparams(),
+                m.Dparams(), m.Dlparams(), m.mu_r, n_per, s.rad_dist,
+                s.start_idx, s.kcfg, self.ndays, branches)
+        else:
+            kernels, _ = build_all_kernels(
+                s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
+                m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx,
+                s.kcfg, self.ndays, branches)
         if sprd_factor is not None:
             pre = self._pre_spread_kernel(m, sprd_factor, branches)
             kernels = torch.cat([pre[None], kernels], dim=0)
@@ -394,7 +467,12 @@ class BayesSetup:
         s = self.setup
         dtype, dev = s.wind_flat.dtype, s.wind_flat.device
         n_per = torch.round(m.n_periods.to(dtype)).to(torch.int64)
-        kernels, _ = build_all_kernels_batched(
+        build = build_all_kernels_batched
+        if self.forward_mesh is not None:
+            from ..parallel.domain import build_all_kernels_batched_sharded
+            build = partial(build_all_kernels_batched_sharded,
+                            self.forward_mesh)
+        kernels, _ = build(
             s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
             m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
             self.ndays)

@@ -52,9 +52,6 @@ __all__ = ['NUTSConfig', 'NUTSDraws', 'GibbsDraws', 'VALUE_AND_GRADS',
 # one); a run reads it beside ``ops.day_kernel.LAUNCHES``
 VALUE_AND_GRADS = 0
 
-_NO_MESH = ('chains sharded over several devices are not ported: ROADMAP '
-            'Queue 1 item 16b')
-
 
 def inv_mass_from_hessian(H, lam_floor=1e-2, lam_ceil=1e12, prior_var=None,
                           floor_frac=1e-4):
@@ -598,19 +595,33 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
     ``n_accept_rate``.  ``logpdf_args``: extra arguments of every
     ``logpdf`` call, not checkpointed (a resume passes the same).
     ``init_inv_mass``: per-chain starting metric, (chains, d) or
-    (chains, d, d); not checkpointed (the carry holds the metric)."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    (chains, d, d); not checkpointed (the carry holds the metric).
+
+    ``mesh`` (``parallel.chains.chain_mesh``; the chain count must divide
+    over it): each shard's chains, their generators, metric and
+    ``logpdf_args`` live on its device and every evaluation runs there
+    (the target must follow its input's device, as
+    :func:`make_transformed_logpdf`'s does), exactly the ops of
+    ``mesh=None``, so the draws are bitwise the same; results gather on
+    the lead device."""
+    from ..parallel.chains import member_devices, move_generator, to_device
     gibbs = gibbs_n is not None
     if gibbs and logpdf_args:
         raise ValueError('logpdf_args is not supported with gibbs_n')
     if gibbs and logpdf is None:
         logpdf = partial(_gibbs_fixed_n, gibbs_n, float(n0))
         logpdf.takes_gate = getattr(gibbs_n, 'takes_gate', False)
-    gens = list(gens)
     n_chains, dim = z0s.shape
     dtype, dev = z0s.dtype, z0s.device
-    lpg = value_and_grad(logpdf, tuple(logpdf_args))
+    # each chain's device: its shard's with a mesh, where the results
+    # gather
+    cdev = ([dev] * n_chains if mesh is None else
+            member_devices(n_chains, mesh))
+    if mesh is not None:
+        dev = mesh.devices[0]
+    gens = [move_generator(g, d) for g, d in zip(gens, cdev)]
+    lpgs = {d: value_and_grad(logpdf, to_device(tuple(logpdf_args), d))
+            for d in set(cdev)}
     spc = max(1, int(steps_per_call))
     # the draw transition reads n_step only when gibbs: a plain run's
     # signature records the canonical 1
@@ -629,8 +640,11 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
     start_w = start_d = 0
     carries = state = None
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a)).to(dev)
+    def t(a, c):
+        return torch.as_tensor(np.asarray(a)).to(cdev[c])
+
+    def gather(xs):
+        return torch.stack([x.to(dev) for x in xs])
 
     if resume:
         if not (checkpoint_path and os.path.exists(checkpoint_path)):
@@ -652,13 +666,13 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
             _set_gens(gens, d['key'], checkpoint_path)
             if str(d['phase']) == 'warmup':
                 start_w = int(d['i'])
-                carries = [WarmState(*[t(d['w_' + f][c])
+                carries = [WarmState(*[t(d['w_' + f][c], c)
                                        for f in WarmState._fields])
                            for c in range(n_chains)]
             else:
                 start_w = config.num_warmup
                 start_d = int(d['i'])
-                state = [{f: t(d[f][c]) for f in
+                state = [{f: t(d[f][c], c) for f in
                           ('z', 'lp', 'grad', 'step_size', 'inv_mass') +
                           (('n',) if gibbs else ())}
                          for c in range(n_chains)]
@@ -674,7 +688,7 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
         payload = {'phase': 'warmup', 'i': i, 'cfg_sig': cfg_sig,
                    'key': _gen_bytes(gens)}
         for f in WarmState._fields:
-            payload['w_' + f] = torch.stack(
+            payload['w_' + f] = gather(
                 [getattr(c, f) for c in carries]).cpu().numpy()
         _ckpt_save(checkpoint_path, payload)
 
@@ -682,7 +696,7 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
         payload = {'phase': 'draw', 'i': i, 'cfg_sig': cfg_sig,
                    'key': _gen_bytes(gens)}
         for f in state[0]:
-            payload[f] = torch.stack([s[f] for s in state]).cpu().numpy()
+            payload[f] = gather([s[f] for s in state]).cpu().numpy()
         payload.update(samples=rows('samples', tail=(dim,)),
                        logp=rows('logp'), astat=rows('astat'),
                        div=rows('div', bool), nleaf=rows('nleaf', np.int64))
@@ -703,15 +717,16 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
 
     if carries is None and state is None:
         inv0 = [None] * n_chains if init_inv_mass is None else [
-            torch.as_tensor(np.asarray(init_inv_mass[c]), dtype=dtype).to(dev)
-            for c in range(n_chains)]
-        carries = [_warmup_init(lpg, z0s[c], gens[c], config, inv0[c])
+            torch.as_tensor(np.asarray(init_inv_mass[c]), dtype=dtype).to(
+                cdev[c]) for c in range(n_chains)]
+        carries = [_warmup_init(lpgs[cdev[c]], z0s[c].to(cdev[c]), gens[c],
+                                config, inv0[c])
                    for c in range(n_chains)]
     i = start_w
     while i < config.num_warmup:
         n = min(spc, config.num_warmup - i)
         for j in range(i, i + n):
-            carries = [_warm_step(lpg, config, carries[c], j,
+            carries = [_warm_step(lpgs[cdev[c]], config, carries[c], j,
                                   draw_transition(gens[c], dim,
                                                   config.max_depth, dtype))
                        for c in range(n_chains)]
@@ -723,12 +738,13 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
             notify('warmup', i)
     if state is None:
         state = []
-        for c in carries:
-            z, lp, grad, step_size, inv_mass = _warmup_final(c)
+        for c, carry in enumerate(carries):
+            z, lp, grad, step_size, inv_mass = _warmup_final(carry)
             s = dict(z=z, lp=lp, grad=grad, step_size=step_size,
                      inv_mass=inv_mass)
             if gibbs:
-                s['n'] = torch.full((), float(n0), dtype=dtype, device=dev)
+                s['n'] = torch.full((), float(n0), dtype=dtype,
+                                    device=cdev[c])
             state.append(s)
 
     i = start_d
@@ -748,7 +764,8 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
                     row['nacc'].append(acc)
                 else:
                     s['z'], s['lp'], s['grad'], astat, n_leaf, div = \
-                        _nuts_step(lpg, s['inv_mass'], s['step_size'],
+                        _nuts_step(lpgs[cdev[c]], s['inv_mass'],
+                                   s['step_size'],
                                    config.max_depth, s['z'], s['lp'],
                                    s['grad'], draw_transition(
                                        gens[c], dim, config.max_depth, dtype))
@@ -765,7 +782,7 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
                                                  np.int64))
             else:
                 done_rows[key].extend(torch.stack(
-                    [torch.stack(r[key]) for r in new_rows]).cpu().numpy())
+                    [gather(r[key]) for r in new_rows]).cpu().numpy())
         i += n
         if progress is not None:
             progress('sample', i, config.num_samples)
@@ -776,10 +793,9 @@ def nuts_sample_stepwise(logpdf, z0s, gens, config: NUTSConfig,
         os.remove(checkpoint_path)   # run completed; drop the checkpoint
     astats = rows('astat')
     out = {'samples': rows('samples', tail=(dim,)), 'logp': rows('logp'),
-           'step_size': torch.stack([s['step_size'] for s in state]
-                                    ).cpu().numpy(),
-           'inv_mass': torch.stack([s['inv_mass'] for s in state]
-                                   ).cpu().numpy(),
+           'step_size': gather([s['step_size'] for s in state]
+                               ).cpu().numpy(),
+           'inv_mass': gather([s['inv_mass'] for s in state]).cpu().numpy(),
            'accept_rate': (astats.mean() if astats.size else np.float32(0)),
            'n_divergent': rows('div', bool).astype(np.int32).sum(),
            'n_leapfrog': rows('nleaf', np.int64)}

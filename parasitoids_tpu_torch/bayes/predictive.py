@@ -363,8 +363,10 @@ def main(argv=None, device=None):
     if args.prior and args.trace and '=' in args.trace:
         args.overrides = [args.trace] + args.overrides
         args.trace = None
-    setup = build_setup(args.overrides,
-                        device=args.device if device is None else device)
+    from ..parallel.chains import visible_mesh
+    device = args.device if device is None else device
+    setup = build_setup(args.overrides, device=device)
+    mesh = visible_mesh(device)
 
     def write_json(pv, jpath, n_draws):
         import json
@@ -376,7 +378,8 @@ def main(argv=None, device=None):
         print('wrote', jpath)
 
     if args.prior:
-        pred = prior_predictive(setup, n_draws=args.draws, seed=args.seed)
+        pred = prior_predictive(setup, n_draws=args.draws, seed=args.seed,
+                                mesh=mesh)
         pv = predictive_pvalues(setup, pred)
         print(pvalue_report(pv))
         if args.json:
@@ -390,7 +393,7 @@ def main(argv=None, device=None):
         with np.load(path) as npz:
             traces = npz['traces']
         pred = posterior_predictive(setup, traces, n_draws=args.draws,
-                                    seed=args.seed)
+                                    seed=args.seed, mesh=mesh)
         out = path[:-4] + '_predictive.png'
     pv = predictive_pvalues(setup, pred)
     print(pvalue_report(pv))

@@ -18,8 +18,10 @@ Reference entry point: ``python Bayes_Run.py --new <iters> <burn> <db>`` /
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback).  The
 chains of a run, the replicas of parallel tempering (``--sampler pt``) and
-the particles of SMC (``--sampler smc``) advance in turn on the one card
-(SMC's particles all at once for each move with ``PARA_SMC_BATCHED=1``);
+the particles of SMC (``--sampler smc``) advance in turn (SMC's particles
+all at once for each move with ``PARA_SMC_BATCHED=1``), sharded over the
+visible cards where there are several and the count suits them, as the
+JAX command line shards them over its devices;
 the AM, PT, SMC and VI trace stores are npz files with exact sampler-state
 resume instead of a PyMC HDF5 database, and a NUTS run keeps a transition
 checkpoint (``<db>.ckpt.npz``, mirrored to ``<db>.ckpt_durable.npz``) that
@@ -29,7 +31,8 @@ metric from the Laplace covariance at a MAP fit and ``--mass ridge``
 samples in that covariance's eigenbasis, the map kept in a
 ``<db>.whiten.npz`` sidecar that a ``--resume`` reads.  The argument
 parser is the JAX module's, so ``--help`` reads the same;
-``--shard-forward`` exits naming why.
+``--shard-forward`` spreads each forward simulation's flight minutes over
+the visible cards (``parallel/domain.py``).
 """
 
 from __future__ import annotations
@@ -408,16 +411,18 @@ def run_analyze(args):
             print('unrecognized option {!r}'.format(ans))
 
 
-def _sample(setup, states, n_steps, chunk, obs_sweeps, checkpoint):
+def _sample(setup, states, n_steps, chunk, obs_sweeps, checkpoint,
+            mesh=None):
     """Advance the stacked ``states`` by ``n_steps`` in chunks of
-    ``chunk``, one copy of the chunk's traces to the host per chunk;
-    ``checkpoint(states, new traces, steps done)`` runs after each."""
+    ``chunk`` (the chains sharded over ``mesh`` when given), one copy of
+    the chunk's traces to the host per chunk; ``checkpoint(states, new
+    traces, steps done)`` runs after each."""
     from ..parallel.chains import run_chains
     done = 0
     while done < n_steps:
         n = min(chunk, n_steps - done)
         states, tr = run_chains(setup, states,
-                                MCMCConfig(n, obs_sweeps=obs_sweeps))
+                                MCMCConfig(n, obs_sweeps=obs_sweeps), mesh)
         done += n
         checkpoint(states, tr.cpu().numpy(), done)
         if done < n_steps:
@@ -457,7 +462,7 @@ def _nuts_init_point(args, setup, z0_prior):
     return unconstrain(f32(m), f32(o), f32(0.3))
 
 
-def run_nuts(args, setup):
+def run_nuts(args, setup, devices=()):
     """The gradient-based path (``--sampler nuts``): chains in turn,
     unconstrained space with log-Jacobians, warm-up = the burn-in argument,
     a transition checkpoint with a durable twin.  Returns the sampler's
@@ -610,10 +615,20 @@ def run_nuts(args, setup):
                                               os.path.basename(db))):
                 last_commit[0] = now
 
+    # the chains shard over the cards when they divide over them, and not
+    # when each forward is already spread over them (--shard-forward)
+    mesh = None
+    n_dev = len(devices)
+    if (n_dev > 1 and args.chains % n_dev == 0
+            and setup.forward_mesh is None):
+        from ..parallel.chains import chain_mesh
+        mesh = chain_mesh(devices=devices)
+        print('  chains sharded over {} devices'.format(n_dev))
     out = nuts_sample_stepwise(
         logpdf, z0s, gens, cfg, progress=progress, checkpoint_path=ckpt,
         checkpoint_every=max(1, min(args.checkpoint_every, 25)),
-        resume=resume, gibbs_n=logpdf_n, steps_per_call=args.steps_per_call,
+        resume=resume, mesh=mesh, gibbs_n=logpdf_n,
+        steps_per_call=args.steps_per_call,
         init_inv_mass=init_inv_mass, on_checkpoint=on_ckpt)
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
@@ -656,18 +671,20 @@ def run_nuts(args, setup):
     return dict(out, seconds=dt)
 
 
-def run_pt_cli(args, setup):
+def run_pt_cli(args, setup, devices=()):
     """Replica-exchange path (``--sampler pt``): a ladder of tempered AM
     replicas with periodic state swaps; the cold chain is the posterior
     sample and, when the ladder reaches beta = 0 (default), the per-replica
     log-likelihood traces yield marginal-likelihood estimates
     (thermodynamic integration + stepping-stone) — model-comparison
     machinery the reference lacks entirely (its only such number is the
-    MAP AIC, Bayes_MAP.py:494-517).  The replicas advance in turn on the
-    one card.  Returns the final stacked states, the evidence dict, the
-    swap rates and the sampling seconds."""
+    MAP AIC, Bayes_MAP.py:494-517).  The replicas advance in turn, one on
+    each card when the card count equals the rung count.  Returns the
+    final stacked states, the evidence dict, the swap rates and the
+    sampling seconds."""
     from .tempering import (PTConfig, geometric_ladder, init_pt_states,
-                            log_evidence, power_ladder, run_pt, tune_ladder)
+                            log_evidence, power_ladder, run_pt,
+                            run_pt_sharded, tune_ladder)
 
     resume = args.new is None
     if resume:
@@ -726,6 +743,12 @@ def run_pt_cli(args, setup):
     # pair has data (not persisted — a mid-burn resume restarts the window)
     t_att = np.zeros(T - 1)
     t_acc = np.zeros(T - 1)
+    sharded = len(devices) == T and T > 1
+    if sharded:
+        from ..parallel.chains import chain_mesh
+        mesh = chain_mesh(devices=devices)
+        print('  one replica per device over {} devices (neighbour '
+              'swaps)'.format(T))
     print('PT: {} rungs, {} swap rounds x {} steps{}...'.format(
         T, rounds, se, ' (resuming at round {})'.format(rounds_done)
         if rounds_done else ''))
@@ -743,8 +766,13 @@ def run_pt_cli(args, setup):
     while done < rounds:
         n = min(chunk, rounds - done)
         cfg = PTConfig(n_rounds=n, swap_every=se, obs_sweeps=obs_sweeps)
-        states, tr, stats = run_pt(setup, states, betas, swap_seed, cfg,
-                                   round_offset=rounds_done + done)
+        if sharded:
+            states, tr, stats = run_pt_sharded(
+                setup, states, betas, swap_seed, cfg, mesh,
+                round_offset=rounds_done + done)
+        else:
+            states, tr, stats = run_pt(setup, states, betas, swap_seed, cfg,
+                                       round_offset=rounds_done + done)
         # keep only the post-burn part of the cold chain, so the stored
         # 'traces' mean the same thing as an AM store (posterior draws);
         # the full-history loglik lives in the extras with meta['burn']
@@ -907,7 +935,7 @@ def _smc_resume_payload(db, setup):
     return payload, meta
 
 
-def run_smc_cli(args, setup):
+def run_smc_cli(args, setup, devices=()):
     """Adaptive tempered SMC path (``--sampler smc``): a particle
     population annealed from the exact prior to the posterior along a
     data-driven temperature schedule, rejuvenated by the same AM kernel as
@@ -963,6 +991,12 @@ def run_smc_cli(args, setup):
                         obs_sweeps=args.obs_sweeps or 1)
         payload = None
 
+    mesh = None
+    n_dev = len(devices)
+    if n_dev > 1 and cfg.n_particles % n_dev == 0:
+        from ..parallel.chains import chain_mesh
+        mesh = chain_mesh(devices=devices)
+        print('  particles sharded over {} devices'.format(n_dev))
     dev = setup.setup.wind_flat.device
     tic = time.time()
     if payload is None or payload['beta'] < 1.0:
@@ -979,8 +1013,8 @@ def run_smc_cli(args, setup):
         batched = bool(int(os.environ.get('PARA_SMC_BATCHED', '0') or 0))
         if batched:
             print('  batched (vmap) rejuvenation enabled')
-        payload = run_smc(setup, seed, cfg, seed=seed, verbose=True,
-                          resume=payload,
+        payload = run_smc(setup, seed, cfg, mesh=mesh, seed=seed,
+                          verbose=True, resume=payload,
                           checkpoint=lambda p: _save_smc(db, p, seed, cfg),
                           batched=batched)
         if dev.type == 'cuda':
@@ -1121,27 +1155,43 @@ def main(argv=None, device=None):
         # samplers, so there is no Metropolis-within-Gibbs sweep to repeat
         parser.error('--obs-sweeps only applies to the am/pt/smc samplers'
                      ' (nuts/vi update the observation block jointly)')
-    if args.shard_forward:
-        if args.sampler in ('pt', 'smc'):
-            parser.error('--shard-forward is incompatible with the '
-                         'population-sharded pt/smc samplers')
-        parser.error('--shard-forward is not ported (ROADMAP Queue 1 item '
-                     '16b)')
-    setup = build_setup(args.overrides,
-                        device=args.device if device is None else device)
+    if args.shard_forward and args.sampler in ('pt', 'smc'):
+        parser.error('--shard-forward is incompatible with the '
+                     'population-sharded pt/smc samplers')
+    from .. import device as _device
+    device = args.device if device is None else device
+    setup = build_setup(args.overrides, device=device)
     dev = setup.setup.wind_flat.device
     print('device {}, accumulate {}'.format(
         dev, 'CUDA day kernel' if setup.setup.kcfg.pallas
         else 'plain torch'))
+    devices = _device.visible_devices(device)
+    if args.shard_forward and len(devices) > 1:
+        from ..parallel.domain import minute_mesh
+        setup = setup.with_forward_mesh(minute_mesh(devices=devices))
+        print('forward simulations minute-sharded over {} devices'.format(
+            len(devices)))
     if args.sampler == 'nuts':
-        return run_nuts(args, setup)
+        return run_nuts(args, setup, devices)
     if args.sampler == 'pt':
-        return run_pt_cli(args, setup)
+        return run_pt_cli(args, setup, devices)
     if args.sampler == 'smc':
-        return run_smc_cli(args, setup)
+        return run_smc_cli(args, setup, devices)
     if args.sampler == 'vi':
         return run_vi_cli(args, setup)
-    from ..parallel.chains import init_chains
+    from ..parallel.chains import chain_mesh, init_chains
+
+    n_dev = len(devices)
+    mesh = chain_mesh(devices=devices) if (
+        args.chains > 1 and n_dev > 1 and args.chains % n_dev == 0 and
+        setup.forward_mesh is None) else None
+    if mesh is not None:
+        print('  chains sharded over {} devices'.format(n_dev))
+    if mesh is None and args.chains > 1 and n_dev > 1 \
+            and args.chains % n_dev:
+        print('note: {} chains do not divide {} devices — running '
+              'unsharded (pick a multiple for chain parallelism)'.format(
+                  args.chains, n_dev))
 
     def sync():
         if dev.type == 'cuda':
@@ -1172,7 +1222,7 @@ def main(argv=None, device=None):
             _commit_store(db, 'AM checkpoint: {}/{} steps'.format(done,
                                                                   total))
 
-        _sample(setup, states, total, chunk, obs_sweeps, checkpoint)
+        _sample(setup, states, total, chunk, obs_sweeps, checkpoint, mesh)
         traces = np.concatenate(all_tr, axis=-2)[..., burn:, :]
         sync()
         dt = time.time() - tic
@@ -1209,7 +1259,8 @@ def main(argv=None, device=None):
             _commit_store(db, 'AM checkpoint (resume): {}/{} steps'.format(
                 done, n_samples))
 
-        _sample(setup, states, n_samples, chunk, obs_sweeps, checkpoint)
+        _sample(setup, states, n_samples, chunk, obs_sweeps, checkpoint,
+                mesh)
         sync()
         dt = time.time() - tic
         print('Sampling finished: {:.1f} s'.format(dt))

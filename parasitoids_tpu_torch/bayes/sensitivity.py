@@ -176,7 +176,7 @@ def sensitivity_from_trace(setup: BayesSetup, traces, n_draws=400, seed=0,
     + logpost).
 
     The per-draw total log likelihood comes from ``loo.pointwise_matrix``
-    (one forward simulation per draw; ``mesh`` is not ported); the per-draw
+    (one forward simulation per draw, sharded over ``mesh``); the per-draw
     log prior is evaluated directly (cheap).  Uses the same seeded
     subsampling as every other draw-consuming tool.  ``pointwise``: an
     already-computed ``(ll, take)`` from ``pointwise_matrix`` with the
@@ -193,8 +193,9 @@ def sensitivity_from_trace(setup: BayesSetup, traces, n_draws=400, seed=0,
                                      seed=seed, mesh=mesh)
     ll, take = pointwise
     # same flattening + seed → same rows (subsample_draws is the shared
-    # policy)
+    # policy); truncate to the mesh-rounded count pointwise_matrix used
     rows, _ = subsample_draws(traces, n_draws, seed)
+    rows = rows[:ll.shape[0]]
     log_lik = np.asarray(ll, np.float64).sum(axis=1)
 
     n_m = len(MODEL_PARAM_NAMES)
@@ -320,14 +321,16 @@ def main(argv=None, device=None):
     ap.add_argument('overrides', nargs='*',
                     help='key=value Params overrides matching the run')
     args = ap.parse_args(argv)
-    setup = build_setup(args.overrides,
-                        device=args.device if device is None else device)
+    from ..parallel.chains import visible_mesh
+    device = args.device if device is None else device
+    setup = build_setup(args.overrides, device=device)
+    mesh = visible_mesh(device)
 
     path = args.trace if args.trace.endswith('.npz') else args.trace + '.npz'
     with np.load(path) as npz:
         traces = npz['traces']
     res = sensitivity_from_trace(setup, traces, n_draws=args.draws,
-                                 seed=args.seed, delta=args.delta)
+                                 seed=args.seed, mesh=mesh, delta=args.delta)
     print(report(res))
     out = path[:-4] + '_sensitivity'
     np.savez(out + '.npz',

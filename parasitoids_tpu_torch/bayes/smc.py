@@ -36,8 +36,11 @@ each stage reads the population's log likelihoods in one transfer and
 each move round its acceptance counts in one.  A resample gives every
 particle a generator of its own, derived from its ancestor's state and
 its index without advancing the ancestor, so clones move differently and
-a resumed run is bitwise a monolithic one.  A particle mesh (ROADMAP
-item 16b) raises.
+a resumed run is bitwise a monolithic one.  With a particle mesh
+(``mesh=``) each move round shards the particles over its devices: each
+shard's particles, in turn or batched, move on its device through the
+setup's copy there, and the population gathers back on the lead device,
+where the between-stage logic reads it as without a mesh.
 """
 
 from __future__ import annotations
@@ -65,9 +68,6 @@ _ADAPT_START = 500
 # diag(step_scales^2) (Bayes_Run.py:188-196): keeps the proposal full-rank
 # when the population is small or momentarily degenerate
 _SHRINK = 0.1
-
-_NO_MESH = ('particles sharded over several devices are not ported: ROADMAP '
-            'Queue 1 item 16b')
 
 
 class SMCConfig(NamedTuple):
@@ -175,26 +175,45 @@ def init_smc_particles(setup: BayesSetup, key, n, mesh=None, obs_mask=None):
     """``n`` particles drawn from the exact joint prior, with the forward
     model evaluated at each, in turn (stacked ChainState).  ``key``: the
     integer seed of the prior draws (a CPU generator) and of the
-    particles' generators (``chain_generator(key, i)``)."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    particles' generators (``chain_generator(key, i)``).  With a ``mesh``
+    (``n`` must divide over it) each particle is evaluated on its shard's
+    device, where its generator stays; the states gather on the lead
+    device."""
+    from ..parallel.chains import member_devices, to_device
     dev = setup.setup.wind_flat.device
+    devs = [dev] * n if mesh is None else member_devices(n, mesh)
+    lead = dev if mesh is None else mesh.devices[0]
     gen = torch.Generator().manual_seed(int(key))
     m0s = sample_prior_model(gen, n)
     o0s = sample_prior_obs(gen, setup.field_areas.cpu().numpy(),
                            setup.min_field_area, setup.obs_model, n)
-    return stack_states([
-        init_chain_state(setup, chain_generator(key, i, dev), m0=m0s[i],
-                         o0=o0s[i], obs_mask=obs_mask) for i in range(n)])
+    return stack_states([to_device(init_chain_state(
+        setup.on_device(d), chain_generator(key, i, d), m0=m0s[i], o0=o0s[i],
+        obs_mask=to_device(obs_mask, d)), lead, generators=False)
+        for i, d in enumerate(devs)])
 
 
 def _move_prog(setup, states, beta, n_moves, obs_scale, obs_sweeps=1,
-               obs_mask=None, draws=None, batched=False):
+               obs_mask=None, draws=None, batched=False, mesh=None):
     """``n_moves`` AM transitions at inverse temperature ``beta`` (a host
     float) on every particle: the particles in turn, or with ``batched``
     (``setup`` a ``with_batched_bvn`` copy) all at once for each move.
     ``draws(i, k)``: optional ``StepDraws`` of particle ``i``'s move
-    ``k``."""
+    ``k``.  With a ``mesh`` each shard of particles moves on its device
+    (the setup's and the mask's copies there) and the population gathers
+    back on the lead device."""
+    if mesh is not None:
+        from ..parallel.chains import (concat_rows, shard_bounds, take_rows,
+                                       to_device)
+        parts = []
+        for d, a, b in shard_bounds(states.m.shape[0], mesh):
+            parts.append(_move_prog(
+                setup.on_device(d), to_device(take_rows(states, a, b), d),
+                beta, n_moves, obs_scale, obs_sweeps,
+                to_device(obs_mask, d),
+                None if draws is None else
+                (lambda i, k, a=a: draws(a + i, k)), batched))
+        return concat_rows(parts, mesh.devices[0])
     mcfg = MCMCConfig(n_samples=n_moves, adapt_start=_ADAPT_START,
                       obs_scale=obs_scale, obs_sweeps=obs_sweeps)
     if batched:
@@ -277,6 +296,11 @@ def run_smc(setup: BayesSetup, key, cfg: SMCConfig, mesh=None, seed=0,
     ``draws(stage, rnd, i, k)``: optional ``StepDraws`` of particle
     ``i``'s move ``k`` in move round ``rnd`` of ``stage``.
 
+    ``mesh``: the particle mesh (``parallel.chains.chain_mesh``; the
+    particle count must divide over it): each move round and the initial
+    evaluations run shard by shard on its devices, with exactly the ops
+    of ``mesh=None``, so the payload is bitwise the same.
+
     Returns a payload dict:
 
     * ``'states'`` — final stacked ChainState (posterior particles),
@@ -288,9 +312,10 @@ def run_smc(setup: BayesSetup, key, cfg: SMCConfig, mesh=None, seed=0,
     * ``'history'`` — dict of per-stage arrays (betas, ess, acceptance,
       resampled flags, logz path).
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     N = cfg.n_particles
+    if mesh is not None and N % mesh.size:
+        raise ValueError('n_particles must divide evenly over the mesh '
+                         '({} over {} devices)'.format(N, mesh.size))
     # the initial particles take the in-turn forward, as JAX's do; the
     # moves take the batched one when asked
     move_setup = setup.with_batched_bvn() if batched else setup
@@ -305,7 +330,7 @@ def run_smc(setup: BayesSetup, key, cfg: SMCConfig, mesh=None, seed=0,
         hist = {k: list(np.atleast_1d(v))
                 for k, v in resume['history'].items()}
     else:
-        states = init_smc_particles(setup, key, N, obs_mask=obs_mask)
+        states = init_smc_particles(setup, key, N, mesh, obs_mask=obs_mask)
         logw = np.zeros(N)
         beta = 0.0
         logz = 0.0
@@ -362,7 +387,7 @@ def run_smc(setup: BayesSetup, key, cfg: SMCConfig, mesh=None, seed=0,
                 cfg.obs_sweeps, obs_mask,
                 None if draws is None else
                 (lambda i, k, s=stage, r=rounds: draws(s, r, i, k)),
-                batched)
+                batched, mesh)
             rounds += 1
             per_particle = (float(_host(states.accepts_m).sum())
                             - acc0) / N

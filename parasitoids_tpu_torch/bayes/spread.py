@@ -188,11 +188,14 @@ def main(argv=None, device=None):
         else:
             ap.error('--prior takes no trace (got {!r}); drop one or '
                      'the other'.format(args.trace))
-    setup = build_setup(args.overrides,
-                        device=args.device if device is None else device)
+    from ..parallel.chains import visible_mesh
+    device = args.device if device is None else device
+    setup = build_setup(args.overrides, device=device)
+    mesh = visible_mesh(device)
     if args.prior:
         spread = prior_spread(setup, n_draws=args.draws, days=args.days,
-                              quantiles=args.quantiles, seed=args.seed)
+                              quantiles=args.quantiles, seed=args.seed,
+                              mesh=mesh)
         base = 'prior_spread'
     else:
         path = (args.trace if args.trace.endswith('.npz')
@@ -202,7 +205,7 @@ def main(argv=None, device=None):
         spread = posterior_spread(setup, traces, n_draws=args.draws,
                                   days=args.days,
                                   quantiles=args.quantiles,
-                                  seed=args.seed)
+                                  seed=args.seed, mesh=mesh)
         base = path[:-4] + '_spread'
     print('wrote', save_spread(spread, base + '.npz'))
     try:

@@ -229,15 +229,17 @@ def main(argv=None, device=None):
     ap.add_argument('overrides', nargs='*',
                     help='key=value Params overrides matching the run')
     args = ap.parse_args(argv)
-    setup = build_setup(args.overrides,
-                        device=args.device if device is None else device)
+    from ..parallel.chains import visible_mesh
+    device = args.device if device is None else device
+    setup = build_setup(args.overrides, device=device)
+    mesh = visible_mesh(device)
 
     path = (args.trace if args.trace.endswith('.npz')
             else args.trace + '.npz')
     with np.load(path) as npz:
         traces = npz['traces']
     out = build_report(setup, traces, path, draws=args.draws,
-                       seed=args.seed, group=args.group)
+                       seed=args.seed, mesh=mesh, group=args.group)
     print('wrote', out)
     return out
 

@@ -13,13 +13,17 @@ even–odd nearest-neighbor state swaps accepted at
 
 so hot replicas explore and the cold chain (index 0) is the posterior.
 
-Execution: the replicas advance in turn on the one card, as the port's
-chains do (``parallel/chains.py``), each step through the ported AM step
+Execution: the replicas advance in turn, as the port's chains do
+(``parallel/chains.py``), each step through the ported AM step
 (``sampler.mcmc_step(beta=)``); the swap sweep works on the stacked states
 with gathers on the device and reads nothing back.  Its uniforms come from
 a generator seeded by the run's swap seed and the global round index, so a
 run driven in chunks, or resumed from its store, swaps exactly as one
-monolithic run.  One replica per card (``run_pt_sharded``) is not ported.
+monolithic run.  ``run_pt_sharded`` puts one replica on each device of a
+mesh: each advances there, the swap decision is made on the lead device
+from the replicas' log likelihoods, and every replica copies both
+neighbours' swap fields and keeps the one the decision names (JAX's
+``ppermute``), so it is bitwise ``run_pt``.
 
 Replica adaptation state (Haario moments, proposal scale) and each
 replica's generator are *not* swapped: each temperature keeps adapting to
@@ -45,9 +49,6 @@ __all__ = ['PTConfig', 'geometric_ladder', 'power_ladder', 'init_pt_states',
 # chain-state fields exchanged on an accepted swap (position + everything
 # cached at that position); adaptation fields stay with the temperature
 _SWAP_FIELDS = ('m', 'o', 'loglik', 'prior_m', 'prior_o', 'proj')
-
-_NO_MESH = ('one replica per device is not ported: ROADMAP Queue 1 item '
-            '16b')
 
 
 class PTConfig(NamedTuple):
@@ -260,28 +261,37 @@ def _take(x, perm):
     return tuple(_take(y, perm) for y in x)
 
 
+def _swap_decision(ll, betas, parity, u):
+    """The even–odd swap decision from the replicas' untempered log
+    likelihoods ``ll`` (T,): ``(perm, accepts (T-1,), attempts (T-1,))``,
+    ``perm[t]`` the replica whose swap fields replica ``t`` takes.
+    ``betas``: (T,) f32 tensor on ``ll``'s device; ``u``: (T-1,)
+    uniforms, one per adjacent pair.  Nothing is read back."""
+    T = betas.shape[0]
+    idx = torch.arange(T, device=betas.device)
+    is_left, is_right, pair_id = _pairing(idx, parity, T)
+    paired = is_left | is_right
+    la = _swap_log_alpha(betas, ll[pair_id],
+                         ll[torch.clamp(pair_id + 1, max=T - 1)], pair_id, T)
+    accept = paired & (torch.log(u[pair_id]) < la)
+    partner = torch.clamp(torch.where(is_left, idx + 1, idx - 1), 0, T - 1)
+    perm = torch.where(accept, partner, idx)
+    # a left member's pair index is its own rank, and the last rank is
+    # never a left member: the per-pair counts are the left flags
+    acc = (is_left & accept)[:T - 1].to(betas.dtype)
+    att = is_left[:T - 1].to(betas.dtype)
+    return perm, acc, att
+
+
 def _swap_sweep_stacked(states, betas, parity, u):
     """One even–odd swap sweep on stacked (T, ...) states by gathers on the
     device.  ``betas``: (T,) f32 tensor on the states' device; ``u``:
     (T-1,) uniforms, one per adjacent pair.  Only ``_SWAP_FIELDS`` move.
     Returns ``(states, accepts (T-1,), attempts (T-1,))``; nothing is read
     back to the host."""
-    T = betas.shape[0]
-    idx = torch.arange(T, device=betas.device)
-    is_left, is_right, pair_id = _pairing(idx, parity, T)
-    paired = is_left | is_right
-    ll = states.loglik
-    la = _swap_log_alpha(betas, ll[pair_id],
-                         ll[torch.clamp(pair_id + 1, max=T - 1)], pair_id, T)
-    accept = paired & (torch.log(u[pair_id]) < la)
-    partner = torch.clamp(torch.where(is_left, idx + 1, idx - 1), 0, T - 1)
-    perm = torch.where(accept, partner, idx)
+    perm, acc, att = _swap_decision(states.loglik, betas, parity, u)
     states = states._replace(**{f: _take(getattr(states, f), perm)
                                 for f in _SWAP_FIELDS})
-    # a left member's pair index is its own rank, and the last rank is
-    # never a left member: the per-pair counts are the left flags
-    acc = (is_left & accept)[:T - 1].to(betas.dtype)
-    att = is_left[:T - 1].to(betas.dtype)
     return states, acc, att
 
 
@@ -343,15 +353,119 @@ def run_pt(setup: BayesSetup, states, betas, swap_seed, cfg: PTConfig,
                             'loglik': lls}
 
 
-def _swap_step_collective(s, betas, key, parity, rank, T, axis):
-    raise NotImplementedError(_NO_MESH)
+def _pick(take_next, nxt, take_prev, prv, own):
+    """``nxt`` where ``take_next``, ``prv`` where ``take_prev``, else
+    ``own``, over a tree of tensors (0-d conditions)."""
+    if torch.is_tensor(own):
+        return torch.where(take_next, nxt, torch.where(take_prev, prv, own))
+    return tuple(_pick(take_next, a, take_prev, b, c)
+                 for a, b, c in zip(nxt, prv, own))
 
 
-def run_pt_sharded(setup: BayesSetup, states, betas, swap_key,
-                   cfg: PTConfig, mesh, round_offset=0):
-    """One replica per device: not ported (ROADMAP Queue 1 item 16b)."""
-    raise NotImplementedError(_NO_MESH)
+def _swap_step_collective(reps, betas, parity, u):
+    """One swap sweep over replicas that each live on a device of their
+    own (``reps``, one ``ChainState`` each, in ladder order): the decision
+    of :func:`_swap_decision` on ``betas``' device (the lead) from the
+    replicas' log likelihoods, then each replica copies both neighbours'
+    swap fields to its device unconditionally and keeps the one the
+    decision names, as JAX's ``ppermute`` exchange does.  Selections only,
+    so the result is bitwise :func:`_swap_sweep_stacked`'s.  Returns
+    ``(reps, accepts (T-1,), attempts (T-1,))`` on the lead device."""
+    from ..parallel.chains import to_device
+    T = len(reps)
+    lead = betas.device
+    perm, acc, att = _swap_decision(
+        torch.stack([r.loglik.to(lead) for r in reps]), betas, parity, u)
+    out = []
+    for t, r in enumerate(reps):
+        dev = r.m.device
+        src = perm[t].to(dev)
+        fields = {}
+        for f in _SWAP_FIELDS:
+            own = getattr(r, f)
+            nxt = (to_device(getattr(reps[t + 1], f), dev) if t + 1 < T
+                   else own)
+            prv = to_device(getattr(reps[t - 1], f), dev) if t else own
+            fields[f] = _pick(src == t + 1, nxt, src == t - 1, prv, own)
+        out.append(r._replace(**fields))
+    return out, acc, att
 
 
 def _sharded_pt_prog(setup, cfg: PTConfig, mesh, T):
-    raise NotImplementedError(_NO_MESH)
+    """The one-round program of :func:`run_pt_sharded` on ``mesh`` (one
+    device per rung): ``round_fn(reps, betas_np, betas_t, parity, u,
+    draws) -> (reps, traces, lls, accepts, attempts)`` advances replica
+    ``t`` on device ``t`` through the setup's copy there by
+    ``cfg.swap_every`` steps, then swaps (:func:`_swap_step_collective`,
+    skipped for one rung); traces and logliks come back stacked on the
+    lead device.
+    ``draws(t)``: the replica's replayed ``StepDraws`` or None."""
+    if mesh.size != T:
+        raise ValueError('run_pt_sharded wants one temperature per device '
+                         '(got {} temps over {} devices)'.format(T,
+                                                                 mesh.size))
+    lead = mesh.devices[0]
+    setups = [setup.on_device(d) for d in mesh.devices]
+
+    def round_fn(reps, betas_np, betas_t, parity, u, draws):
+        out, tr, ll = [], [], []
+        for t, r in enumerate(reps):
+            r, (rows, lls) = _advance(setups[t], r, float(betas_np[t]), cfg,
+                                      draws(t))
+            out.append(r)
+            tr.append(rows.to(lead))
+            ll.append(lls.to(lead))
+        if T > 1:
+            out, acc, att = _swap_step_collective(out, betas_t, parity, u)
+        else:
+            acc = att = torch.zeros(0, dtype=torch.float32, device=lead)
+        return out, torch.stack(tr), torch.stack(ll), acc, att
+
+    return round_fn
+
+
+@torch.no_grad()
+def run_pt_sharded(setup: BayesSetup, states, betas, swap_seed,
+                   cfg: PTConfig, mesh, round_offset=0, draws=None,
+                   swap_u=None):
+    """Parallel tempering with one replica per device of ``mesh``
+    (``parallel.chains.chain_mesh``; a ladder whose length differs from
+    the mesh size raises): :func:`run_pt`'s contract, arguments and
+    results, bitwise.  Each replica's state and generator live on its
+    device and its steps run there; a swap round's uniforms and decision
+    are made on the lead device and the swap fields cross between
+    neighbouring devices (:func:`_swap_step_collective`).  Traces, the
+    swap counts and the returned stacked states gather on the lead device;
+    each replica's generator stays on its device."""
+    from ..parallel.chains import to_device
+    betas_np = np.asarray(betas, np.float32)
+    T = betas_np.shape[0]
+    run_round = _sharded_pt_prog(setup, cfg, mesh, T)
+    lead = mesh.devices[0]
+    betas_t = torch.as_tensor(betas_np).to(lead)
+    reps = [to_device(s, d)
+            for s, d in zip(unstack_states(states), mesh.devices)]
+    zero = torch.zeros(max(T - 1, 0), dtype=torch.float32, device=lead)
+    att, acc = zero, zero.clone()
+    traces, lls = [], []
+    for r in range(cfg.n_rounds):
+        rr = int(round_offset) + r
+        u = None
+        if T > 1:
+            u = (swap_u(rr) if swap_u is not None
+                 else swap_uniforms(swap_seed, rr, T - 1, lead)).to(lead)
+        reps, tr, ll, pa, pt_att = run_round(
+            reps, betas_np, betas_t, rr % 2, u,
+            lambda t: None if draws is None else draws(rr, t))
+        if T > 1:
+            att, acc = att + pt_att, acc + pa
+        traces.append(tr)
+        lls.append(ll)
+    states = stack_states([to_device(s, lead, generators=False)
+                           for s in reps])
+    dim = states.m.shape[-1] + states.o.shape[-1] + 1
+    traces = (torch.cat(traces, dim=1) if traces
+              else torch.zeros((T, 0, dim), device=lead))
+    lls = torch.cat(lls, dim=1) if lls else torch.zeros((T, 0), device=lead)
+    return states, traces, {'swap_attempts': att, 'swap_accepts': acc,
+                            'loglik': lls}

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ['pick_device', 'pick_dtype', 'pin_full_f32', 'scalar']
+__all__ = ['pick_device', 'pick_dtype', 'pin_full_f32', 'resolve_device',
+           'scalar', 'visible_devices']
 
 
 def pick_device(device=None) -> torch.device:
@@ -25,6 +26,32 @@ def pick_device(device=None) -> torch.device:
                            "device='cpu' (--device cpu on the command line) "
                            "to run on the CPU")
     return dev
+
+
+def resolve_device(device=None) -> torch.device:
+    """:func:`pick_device` with a CUDA device given its index (the current
+    card's when it names none), so that two names of one card compare
+    equal.  Raises for a card index torch does not see."""
+    dev = pick_device(device)
+    if dev.type == 'cuda':
+        if dev.index is None:
+            dev = torch.device('cuda', torch.cuda.current_device())
+        elif dev.index >= torch.cuda.device_count():
+            raise ValueError('{} is not a visible card: torch sees {}'.format(
+                dev, torch.cuda.device_count()))
+    return dev
+
+
+def visible_devices(device=None) -> list:
+    """The devices a default mesh spans, the port's ``jax.devices()``:
+    every visible card on CUDA (the default), only the CPU with
+    ``device='cpu'``.  The command lines build a mesh over them when there
+    is more than one."""
+    dev = pick_device(device)
+    if dev.type == 'cuda':
+        return [torch.device('cuda', i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def pick_dtype(params=None, dtype=None) -> torch.dtype:

@@ -46,6 +46,7 @@ by construction in ``day_scatter_inputs``), so no block is ever clamped.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -66,6 +67,14 @@ __all__ = ['LAUNCHES', 'LAUNCHES_BATCHED', 'LAUNCHES_BWD', 'accumulate_day',
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 LAUNCHES_BATCHED = 0
+# the autograd engine runs each card's backward on a thread of its own, so
+# the counts are added under a lock
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(name, n=1):
+    with _COUNT_LOCK:
+        globals()[name] += n
 
 _G_NODES = 20
 _CHUNK = 64                          # minutes per gather chunk (C)
@@ -328,14 +337,13 @@ def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk,
 
 
 def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
-    global LAUNCHES
     from ._build import load
     lib = load('day_kernel')
     out, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len,
                               _CHUNK)
     _cuda_call(lib, 'parasitoids_day_accumulate',
                lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args)
-    LAUNCHES += 1
+    _count('LAUNCHES')
     loss = torch.sum(clipped * h_scat * (1.0 - out['bsum']))
     return out['buf'], loss
 
@@ -348,7 +356,6 @@ def accumulate_day_batched(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
     kernel for the whole population (the particle on its grid, no host
     read), on CPU tensors the plain twin.  f32 only; no gradient (an input
     that requires one raises)."""
-    global LAUNCHES_BATCHED
     if h_scat.ndim != 2:
         raise ValueError('h_scat must be (N, T), got {}'.format(
             tuple(h_scat.shape)))
@@ -369,7 +376,7 @@ def accumulate_day_batched(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
                               _CHUNK, select=True)
     _cuda_call(lib, 'parasitoids_day_accumulate',
                lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args)
-    LAUNCHES_BATCHED += 1
+    _count('LAUNCHES_BATCHED')
     loss = torch.sum(clipped * h_scat * (1.0 - out['bsum']), dim=-1)
     return out['buf'], loss
 
@@ -383,7 +390,6 @@ def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
     :func:`accumulate_day`'s inputs, or :func:`accumulate_day_batched`'s
     (then the select node rule and ``(N, 3)`` ``Dparams``), on the card;
     each rep counts as one launch of its kind."""
-    global LAUNCHES, LAUNCHES_BATCHED
     from ._build import load
     _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
     batched = h_scat.ndim == 2
@@ -399,9 +405,9 @@ def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
                lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args,
                reps, ctypes.addressof(ms))
     if batched:
-        LAUNCHES_BATCHED += reps
+        _count('LAUNCHES_BATCHED', reps)
     else:
-        LAUNCHES += reps
+        _count('LAUNCHES', reps)
     del bufs                 # the call waited for the card: safe to free
     return np.frombuffer(ms, dtype=np.float32).reshape(reps, 3).copy()
 
@@ -447,7 +453,6 @@ def _bwd_ring(lib, K):
 
 def _launch_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
                 cell, K, buf_len):
-    global LAUNCHES_BWD
     from ._build import load
     lib = load('day_kernel')
     ring = _bwd_ring(lib, K)
@@ -456,7 +461,7 @@ def _launch_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
     _cuda_call(lib, 'parasitoids_day_accumulate_bwd',
                lib.parasitoids_day_bwd_smem_bytes(K, ring), K,
                h_scat.device, *args)
-    LAUNCHES_BWD += 1
+    _count('LAUNCHES_BWD')
     return out['dh'], out['dmu'], out['dclip'], out['dD'], out['dcell']
 
 
@@ -468,7 +473,6 @@ def pass_ms_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams, cell,
     on: the wrapper's checks and packing are outside them.  Takes
     :func:`accumulate_day_bwd`'s inputs, on the card, and launches what
     it launches; each rep counts as one launch."""
-    global LAUNCHES_BWD
     from ._build import load
     _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
     if reps < 1:
@@ -484,7 +488,7 @@ def pass_ms_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams, cell,
     _cuda_call(lib, 'parasitoids_day_accumulate_bwd_timed',
                lib.parasitoids_day_bwd_smem_bytes(K, ring), K,
                h_scat.device, *args, reps, ctypes.addressof(ms))
-    LAUNCHES_BWD += reps
+    _count('LAUNCHES_BWD', reps)
     del out                  # the call waited for the card: safe to free
     return np.frombuffer(ms, dtype=np.float32).reshape(reps, 2).copy()
 

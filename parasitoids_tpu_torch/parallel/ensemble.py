@@ -6,12 +6,14 @@ per parameter set.  Here a batch of model-parameter vectors runs as an
 ensemble of forward simulations: posterior-predictive projections from
 MCMC draws, prior-predictive coverage checks, spread maps.
 
-The members run in turn on the one card, as the JAX package's ``lax.map``
-runs them: a θ-batched forward would evaluate every ρ branch of the BVN
-for every member.  Each member reads its own Genz branch through
+The members run in turn, as the JAX package's ``lax.map`` runs them: a
+θ-batched forward would evaluate every ρ branch of the BVN for every
+member.  Each member reads its own Genz branch through
 ``BayesSetup._branches`` (one host read a member), so member i is exactly
-one ``forward_projections`` call.  Members spread over several cards
-(``mesh=``) are not ported (ROADMAP Queue 1 item 16b).
+one ``forward_projections`` call.  With a mesh (``mesh=``) the member axis
+is sharded over its devices: each shard's members run on its device
+through the setup's copy there, exactly as without a mesh, and the
+results come back to the lead device.
 """
 
 from __future__ import annotations
@@ -25,16 +27,52 @@ from ..models.solver import propagate_pop
 
 __all__ = ['ensemble_projections', 'ensemble_fields']
 
-_NO_MESH = ('an ensemble sharded over several devices is not ported: '
-            'ROADMAP Queue 1 item 16b')
-
 
 def _thetas(setup: BayesSetup, thetas):
-    """``(B, 15)`` model blocks as a tensor of the setup's dtype and
-    device."""
+    """``(B, 15)`` model blocks (an array or a tensor) as a tensor of the
+    setup's dtype and device."""
     s = setup.setup
-    return torch.as_tensor(np.asarray(thetas)).to(
-        device=s.wind_flat.device, dtype=s.wind_flat.dtype)
+    t = thetas if torch.is_tensor(thetas) else torch.as_tensor(
+        np.asarray(thetas))
+    return t.to(device=s.wind_flat.device, dtype=s.wind_flat.dtype)
+
+
+def _sharded_map(fn, setup: BayesSetup, thetas, mesh):
+    """``fn(setup on the device, theta) -> tree of tensors`` over the
+    rows of ``thetas``, stacked along a new leading axis; with a mesh the
+    rows are sharded over its devices, and a batch that does not divide
+    the device count is padded (repeating the last row) and the padding
+    stripped from the result, so any draw count works on any mesh."""
+    from .chains import concat_rows, shard_bounds
+
+    def stack(outs):
+        if torch.is_tensor(outs[0]):
+            return torch.stack(outs)
+        return tuple(stack(list(xs)) for xs in zip(*outs))
+
+    if mesh is None:
+        return stack([fn(setup, th) for th in thetas])
+    B = thetas.shape[0]
+    pad = (-B) % mesh.size
+    if pad:
+        thetas = torch.cat([thetas, thetas[-1:].expand(
+            (pad,) + tuple(thetas.shape[1:]))])
+    parts = []
+    for d, a, b in shard_bounds(B + pad, mesh):
+        local = setup.on_device(d)
+        parts.append(stack([fn(local, th) for th in thetas[a:b].to(d)]))
+    out = concat_rows(parts, mesh.devices[0])
+    return out if not pad else _strip(out, B)
+
+
+def _strip(tree, B):
+    if torch.is_tensor(tree):
+        return tree[:B]
+    return tuple(_strip(x, B) for x in tree)
+
+
+def _projections_one(setup: BayesSetup, theta):
+    return setup.forward_projections(_as_model(theta))
 
 
 def ensemble_projections(setup: BayesSetup, thetas, mesh=None):
@@ -43,42 +81,35 @@ def ensemble_projections(setup: BayesSetup, thetas, mesh=None):
     Args:
         setup: BayesSetup (site, domain, data alignment).
         thetas: (B, 15) model-parameter blocks (e.g. posterior draws).
-        mesh: not ported; raises.
+        mesh: optional 1-D device mesh (``parallel.chains.chain_mesh``);
+            the batch axis is sharded over it (padded internally to a
+            multiple of the device count).
     Returns:
         (release, sentinel, grid) projection batches on the setup's
-        device, leading axis B.
+        device (the mesh's lead device), leading axis B.
 
     Members run without a pre-spread day (``sprd_factor=None``), as in the
     JAX function: every sampler CLI fits with ``use_sprd=False``.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     with torch.no_grad():
-        outs = [setup.forward_projections(_as_model(th))
-                for th in _thetas(setup, thetas)]
-    rel = tuple(torch.stack([o[0][k] for o in outs])
-                for k in range(len(setup.obs_release)))
-    sent = tuple(torch.stack([o[1][k] for o in outs])
-                 for k in range(len(setup.obs_sentinel)))
-    return rel, sent, torch.stack([o[2] for o in outs])
+        return _sharded_map(_projections_one, setup,
+                            _thetas(setup, thetas), mesh)
 
 
-def _fields_one(setup: BayesSetup):
-    """``theta -> (ndays, D, D)`` population fields of one member."""
+def _fields_one(setup: BayesSetup, theta, days=None):
+    """The ``(ndays, D, D)`` population fields of one member, or only
+    ``days`` of them."""
     s = setup.setup
-
-    def one(theta):
-        m = _as_model(theta)
-        branches, _ = setup._branches(m)
-        n_per = torch.round(m.n_periods).to(torch.int64)
-        kernels, _ = build_all_kernels(
-            s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
-            m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
-            setup.ndays, branches)
-        return propagate_pop(kernels, setup.r_dur, setup.r_number,
-                             setup.dist_weights, s.scfg)
-
-    return one
+    m = _as_model(theta)
+    branches, _ = setup._branches(m)
+    n_per = torch.round(m.n_periods).to(torch.int64)
+    kernels, _ = build_all_kernels(
+        s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
+        m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
+        setup.ndays, branches)
+    fields = propagate_pop(kernels, setup.r_dur, setup.r_number,
+                           setup.dist_weights, s.scfg)
+    return fields if days is None else fields[days]
 
 
 def ensemble_fields(setup: BayesSetup, thetas, mesh=None, days=None):
@@ -86,11 +117,9 @@ def ensemble_fields(setup: BayesSetup, thetas, mesh=None, days=None):
     ``(B, ndays, D, D)`` on the setup's device; ``days`` (0-based indices)
     keeps only those days of each member, so the full stack never forms.
     Memory scales with B·ndays·D²: prefer :func:`ensemble_projections`
-    unless the fields themselves are needed."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    one = _fields_one(setup)
+    unless the fields themselves are needed.  ``mesh``: as
+    :func:`ensemble_projections`."""
     idx = None if days is None else list(days)
     with torch.no_grad():
-        return torch.stack([one(th) if idx is None else one(th)[idx]
-                            for th in _thetas(setup, thetas)])
+        return _sharded_map(lambda s, th: _fields_one(s, th, idx), setup,
+                            _thetas(setup, thetas), mesh)

@@ -119,8 +119,13 @@ def test_exact_logo_cv_one_fold(plain, monkeypatch):
     assert res['elpd_total'] == pytest.approx(elpd)
     with pytest.raises(ValueError, match='out of range'):
         tcv.exact_logo_cv(plain, folds=[len(labels)], smc_config=cfg)
-    with pytest.raises(NotImplementedError, match='16b'):
-        tcv.exact_logo_cv(plain, folds=[0], smc_config=cfg, mesh=object())
+    # each fold's particles sharded over a mesh that names the CPU twice:
+    # fold 0's result of the run without one, bit for bit
+    from parasitoids_tpu_torch.parallel.chains import chain_mesh
+    ref = tcv.exact_logo_cv(plain, folds=[0], smc_config=cfg)
+    got = tcv.exact_logo_cv(plain, folds=[0], smc_config=cfg,
+                            mesh=chain_mesh(devices=['cpu', 'cpu']))
+    assert got == ref and np.isfinite(got['elpd_total'])
 
 
 def test_cv_cli_writes_its_json(tmp_path, monkeypatch):

@@ -104,7 +104,23 @@ def test_ensemble_fields_match_jax(setups):
 
 
 def test_ensemble_mesh_is_not_ported(setups):
-    _, ts, thetas = setups
-    for fn in (te.ensemble_projections, te.ensemble_fields):
-        with pytest.raises(NotImplementedError, match='item 16b'):
-            fn(ts, thetas, mesh=object())
+    # (the name is the test's from before the mesh was ported; it now
+    # holds the mesh) members sharded over three devices (four draws: one
+    # padded member) and over two, against JAX's sharded ensemble on as
+    # many devices, and bitwise the unsharded port
+    from parasitoids_tpu.parallel.chains import chain_mesh as jax_mesh
+    from parasitoids_tpu_torch.parallel.chains import chain_mesh
+    js, ts, thetas = setups
+    flat = lambda p: torch.cat([x.reshape(x.shape[0], -1)
+                                for x in (*p[0], *p[1], p[2])], 1)
+    ref = te.ensemble_projections(ts, thetas)
+    for n in (3, 2):
+        got = te.ensemble_projections(ts, thetas,
+                                      mesh=chain_mesh(devices=['cpu'] * n))
+        assert torch.equal(flat(got), flat(ref))
+    want = je.ensemble_projections(js, thetas, mesh=jax_mesh(n_devices=3))
+    _close(flat(got).numpy(), _flat(want), 1e-5, 2e-7)
+    mesh = chain_mesh(devices=['cpu'] * 3)
+    fields = te.ensemble_fields(ts, thetas[:2], mesh=mesh, days=[2])
+    assert tuple(fields.shape) == (2, 1, 101, 101)
+    assert torch.equal(fields, te.ensemble_fields(ts, thetas[:2], days=[2]))

@@ -235,8 +235,14 @@ def test_observation_structures(setups):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     with pytest.raises(ValueError, match='keep_flat'):
         ts.split_point_mask(np.append(keep, True))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ts.with_forward_mesh(None)
+    # the forward-mesh copy (once refused): a mesh led by another device is
+    # refused, None routes the forward back, the original is untouched
+    from parasitoids_tpu_torch.parallel.domain import minute_mesh
+    fm = ts.with_forward_mesh(minute_mesh(devices=['cpu'] * 2))
+    assert fm.forward_mesh.size == 2 and ts.forward_mesh is None
+    assert fm.with_forward_mesh(None).forward_mesh is None
+    with pytest.raises(ValueError, match='lead'):
+        ts.with_forward_mesh(minute_mesh(devices=['meta', 'meta']))
     # the ensemble-batched copy (once refused): its kernel configuration is
     # JAX's with_batched_bvn() one, and the original is untouched
     tb, jb = ts.with_batched_bvn(), js.with_batched_bvn()
@@ -267,15 +273,17 @@ def test_cli_writes_the_report(tmp_path, capsys):
         assert '{} = '.format(name) in report
 
 
-@pytest.mark.parametrize('flags', [['--MAP', '--shard-forward']])
+@pytest.mark.parametrize('flags', [['--MAP', '--shard-forward',
+                                    '--starts', '2']])
 def test_cli_refuses_what_is_not_ported(flags, capsys):
-    # the sharded forward waits for item 16; --norm, --polish, --starts
-    # and --seed run (below)
+    # (the name is the test's from before the sharded forward was ported)
+    # --shard-forward runs (test_torch_parallel.py); with --starts > 1 it
+    # is refused, as the JAX command line refuses it
     with pytest.raises(SystemExit) as exc:
         tm.main(flags + list(MAP_SMALL), device='cpu')
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert 'ROADMAP' in err and 'item 16' in err
+    assert 'incompatible with --starts > 1' in err
 
 
 @pytest.mark.parametrize('flags', [['--norm'], ['--norm', '--polish', '2'],
@@ -427,8 +435,17 @@ def test_multistart_runs_the_reference_start_first(setups):
     assert other['start_logps'][0] == multi['start_logps'][0]
     assert not np.array_equal(other['start_logps'][1:],
                               multi['start_logps'][1:])
-    with pytest.raises(NotImplementedError, match='item 16'):
-        tm.map_fit_multistart(ts, n_starts=2, mesh=object())
+    # the starts sharded over a mesh run as in turn, bit for bit
+    from parasitoids_tpu_torch.parallel.chains import chain_mesh
+    meshed = tm.map_fit_multistart(ts, n_starts=3, seed=2, n_steps=3,
+                                   use_sprd=True,
+                                   mesh=chain_mesh(devices=['cpu'] * 3))
+    np.testing.assert_array_equal(meshed['start_logps'],
+                                  multi['start_logps'])
+    np.testing.assert_array_equal(meshed['z'], multi['z'])
+    with pytest.raises(ValueError, match='divisible'):
+        tm.map_fit_multistart(ts, n_starts=3, n_steps=1,
+                              mesh=chain_mesh(devices=['cpu'] * 2))
 
 
 def test_cli_polish_starts_and_seed(tmp_path, capsys):

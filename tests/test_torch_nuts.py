@@ -403,9 +403,18 @@ def test_stepwise_resume_rejects_mismatched_config(tmp_path):
     with pytest.raises(FileNotFoundError):
         tn.nuts_sample_stepwise(_corr_gauss_logpdf, z0s, _gens(6), cfg,
                                 checkpoint_path=ckpt, resume=True)
-    with pytest.raises(NotImplementedError, match='item 16'):
-        tn.nuts_sample_stepwise(_corr_gauss_logpdf, z0s, _gens(6), cfg,
-                                mesh=object())
+    # the chains sharded over a mesh that names the CPU twice draw what
+    # they draw without one, bit for bit; three chains do not divide
+    from parasitoids_tpu_torch.parallel.chains import chain_mesh
+    mesh = chain_mesh(devices=['cpu', 'cpu'])
+    ref = tn.nuts_sample_stepwise(_corr_gauss_logpdf, z0s, _gens(7), cfg)
+    got = tn.nuts_sample_stepwise(_corr_gauss_logpdf, z0s, _gens(7), cfg,
+                                  mesh=mesh)
+    for k in ('samples', 'logp', 'step_size', 'inv_mass', 'n_leapfrog'):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    with pytest.raises(ValueError, match='divisible'):
+        tn.nuts_sample_stepwise(_corr_gauss_logpdf, torch.zeros((3, 2)),
+                                _gens(7, 3), cfg, mesh=mesh)
     with pytest.raises(ValueError):
         tn.nuts_sample_stepwise(None, z0s, _gens(6), cfg,
                                 gibbs_n=_gibbs_target, n0=5.0,

@@ -433,21 +433,39 @@ def test_smc_cli_new_and_resume(tmp_path, capsys):
 
 
 def test_batched_and_sharded_paths_raise(plain, tmp_path, monkeypatch):
-    # the sharded paths still raise (item 16b); the batched ones, once
-    # refused, run: run_smc(batched=True) to stage 1 against the in-turn
-    # run from the same particles and draws (the same acceptances; the
-    # positions differ by the select node rule's roundoff), and
-    # PARA_SMC_BATCHED=1 through the command line
-    with pytest.raises(NotImplementedError, match='16b'):
-        tsmc.run_smc(plain, 0, CHEAP, mesh=object())
-    with pytest.raises(NotImplementedError, match='16b'):
-        tsmc.init_smc_particles(plain, 0, 4, mesh=object())
+    # (the name is the test's from before the particle mesh was ported)
+    # the sharded paths run: the particles over a mesh that names the CPU
+    # twice, in turn and batched, give the payload of the run without one
+    # bit for bit, and four particles do not divide over three devices;
+    # the batched ones, once refused, run: run_smc(batched=True) to stage
+    # 1 against the in-turn run from the same particles and draws (the
+    # same acceptances; the positions differ by the select node rule's
+    # roundoff), and PARA_SMC_BATCHED=1 through the command line
+    from parasitoids_tpu_torch.bayes.sampler import ChainState
+    from parasitoids_tpu_torch.parallel.chains import chain_mesh
+    mesh = chain_mesh(devices=['cpu', 'cpu'])
+    with pytest.raises(ValueError, match='divide evenly'):
+        tsmc.run_smc(plain, 0, CHEAP, mesh=chain_mesh(devices=['cpu'] * 3))
+    with pytest.raises(ValueError, match='divisible'):
+        tsmc.init_smc_particles(plain, 0, 3, mesh=mesh)
     keep = {}
     for batched in (True, False):
         keep[batched] = {}
         with pytest.raises(_Stop):
             tsmc.run_smc(plain, 2, CHEAP, seed=11, batched=batched,
                          checkpoint=_stop_at(1, keep[batched]))
+        meshed = {}
+        with pytest.raises(_Stop):
+            tsmc.run_smc(plain, 2, CHEAP, seed=11, batched=batched,
+                         mesh=mesh, checkpoint=_stop_at(1, meshed))
+        for f in ChainState._fields:
+            if f not in ('proj', 'key'):
+                assert torch.equal(getattr(meshed['states'], f),
+                                   getattr(keep[batched]['states'], f)), f
+        assert all(torch.equal(g.get_state(), h.get_state()) for g, h in
+                   zip(meshed['states'].key, keep[batched]['states'].key))
+        np.testing.assert_array_equal(meshed['logw'], keep[batched]['logw'])
+        assert meshed['logz'] == keep[batched]['logz']
     a, b = keep[True], keep[False]
     assert a['beta'] == b['beta']
     np.testing.assert_array_equal(a['history']['accept'],

@@ -190,11 +190,31 @@ def test_init_chains_always_in_prior_support(setup):
     assert len({bytes(k.get_state().numpy()) for k in states.key}) == 16
 
 
-def test_sharded_chains_raise_naming_their_item(setup):
-    states = chains.init_chains(setup, 0, 1)
-    for call in (lambda: chains.chain_mesh(),
-                 lambda: chains.shard_chain_states(states, None),
-                 lambda: chains.run_chains(setup, states,
-                                           ts.MCMCConfig(1), mesh=object())):
-        with pytest.raises(NotImplementedError, match='ROADMAP.*item 16'):
-            call()
+def test_sharded_chains_raise_naming_their_item(setup, tmp_path):
+    # (the name is the test's from before the chain mesh was ported; it
+    # now holds the mesh) chains sharded over a mesh that names the CPU
+    # twice run the ops they run unsharded, bit for bit; a store written
+    # from the mesh resumes on it bit for bit; a chain count that does not
+    # divide over the mesh raises
+    mesh = chains.chain_mesh(devices=['cpu', 'cpu'])
+    assert mesh.size == 2 and mesh.axis_names == ('chains',)
+    cfg = ts.MCMCConfig(4)
+    st_a, tr_a = chains.run_chains(setup, chains.init_chains(setup, 3, 2),
+                                   cfg)
+    st_b, tr_b = chains.run_chains(setup, chains.init_chains(setup, 3, 2),
+                                   cfg, mesh=mesh)
+    assert torch.equal(tr_a, tr_b)
+    _assert_states_equal(st_a, st_b)
+    shards = chains.shard_chain_states(st_b, mesh)
+    assert [len(s.key) for s in shards] == [1, 1]
+    assert shards[1].key[0] is st_b.key[1]
+    db = str(tmp_path / 'mesh')
+    save_chain(db, tr_b.numpy(), st_b)
+    _, st_r, _ = load_chain(db, setup)
+    st_m, tr_m = chains.run_chains(setup, st_b, cfg, mesh=mesh)
+    st_r, tr_r = chains.run_chains(setup, st_r, cfg, mesh=mesh)
+    assert torch.equal(tr_m, tr_r)
+    _assert_states_equal(st_m, st_r)
+    with pytest.raises(ValueError, match='divisible'):
+        chains.run_chains(setup, chains.init_chains(setup, 0, 3), cfg,
+                          mesh=mesh)

@@ -15,7 +15,9 @@ tolerances).  Observations with a positive count over an expected count
 that is 0 in f64 at any start or proposal are held out of both
 likelihoods (``support_mask_at``).  The rest runs on the port alone:
 T = 1 is plain AM, chunked runs are bitwise a monolithic one, the command
-line's ``--new``/``--resume``, and the sharded entry points raise."""
+line's ``--new``/``--resume``, and one replica per device
+(``run_pt_sharded``, on a mesh that names the CPU once per rung) is
+bitwise ``run_pt`` and, draws replayed, JAX's ``run_pt_sharded``."""
 
 import numpy as np
 import pytest
@@ -313,9 +315,10 @@ def pt_setups():
 
 
 def _run_port(setup, arrays_or_m0, replay, cfg, betas, monkeypatch,
-              from_jax=False):
-    """The port's run_pt with the replayed draws; returns its result and
-    the spied block proposals and observation moves."""
+              from_jax=False, mesh=None):
+    """The port's run_pt (run_pt_sharded with a ``mesh``) with the
+    replayed draws; returns its result and the spied block proposals and
+    observation moves."""
     proposals, moves = [], []
     with monkeypatch.context() as mp:
         _spy(mp, '_model_proposal', proposals)
@@ -328,8 +331,12 @@ def _run_port(setup, arrays_or_m0, replay, cfg, betas, monkeypatch,
             states = ts.stack_states([
                 ts.init_chain_state(setup, torch.Generator(), m0=m)
                 for m in arrays_or_m0])
-        out = tt.run_pt(setup, states, betas, None, cfg,
-                        draws=replay.draws, swap_u=replay.swap_u)
+        if mesh is None:
+            out = tt.run_pt(setup, states, betas, None, cfg,
+                            draws=replay.draws, swap_u=replay.swap_u)
+        else:
+            out = tt.run_pt_sharded(setup, states, betas, None, cfg, mesh,
+                                    draws=replay.draws, swap_u=replay.swap_u)
     return out, proposals, moves
 
 
@@ -425,6 +432,64 @@ def test_run_pt_matches_jax(pt_setups, monkeypatch):
     assert 0 < acc_m.sum() < T * 4
 
 
+def test_run_pt_sharded_matches_jax(pt_setups, monkeypatch):
+    # one replica per device: the port's run_pt_sharded on a mesh that
+    # names the CPU three times against JAX's on three virtual devices,
+    # every step's draws and every round's uniforms replayed (JAX's
+    # sharded swap draws what its stacked one draws); the tolerances of
+    # test_run_pt_matches_jax, whose decisions this run repeats
+    from parasitoids_tpu.parallel.chains import chain_mesh as jax_mesh
+    from parasitoids_tpu_torch.parallel.chains import chain_mesh
+    jsetup, tsetup, ts64, starts = pt_setups
+    T, cfg = 3, tt.PTConfig(n_rounds=2, swap_every=2)
+    betas = tt.power_ladder(T)
+    n_obs = 4 + tsetup.n_sent + tsetup.n_extra_obs
+    swap_key = random.PRNGKey(PT_KEY)
+    keep = _fitted_mask(tsetup, ts64, starts, cfg, betas, swap_key,
+                        monkeypatch)
+    jm, tmk = jsetup.with_held_out(keep), tsetup.with_held_out(keep)
+    jinit = jax.jit(lambda key, m0: js.init_chain_state(jm, key, m0=m0))
+    jstates = [jinit(random.PRNGKey(k), jnp.asarray(m0))
+               for k, m0 in zip(CHAIN_KEYS, starts)]
+    jstack = jax.tree.map(lambda *x: jnp.stack(x), *jstates)
+    jfinal, jtr, jstats = jt.run_pt_sharded(jm, jstack, betas, swap_key,
+                                            cfg, jax_mesh(n_devices=T))
+    arrays = [chain_state_arrays(s) for s in jstates]
+    (final, tr, stats), _, _ = _run_port(
+        tmk, arrays, PTReplay(n_obs, 2, 2, swap_key), cfg, betas,
+        monkeypatch, from_jax=True, mesh=chain_mesh(devices=['cpu'] * T))
+    tol = RATIO_RTOL * abs(float(jstates[0].loglik)) + RATIO_ATOL
+    np.testing.assert_array_equal(stats['swap_attempts'].numpy(),
+                                  np.asarray(jstats['swap_attempts']))
+    np.testing.assert_array_equal(stats['swap_accepts'].numpy(),
+                                  np.asarray(jstats['swap_accepts']))
+    got, want = tr.numpy(), np.asarray(jtr)
+    assert got.shape == want.shape == (T, 4, 15 + n_obs + 1)
+    np.testing.assert_allclose(got[..., :-1], want[..., :-1], rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(got[..., -1], want[..., -1], rtol=0,
+                               atol=tol)
+    np.testing.assert_allclose(stats['loglik'].numpy(),
+                               np.asarray(jstats['loglik']), rtol=0,
+                               atol=tol)
+    for f in ('m', 'o', 'mean', 'm2'):
+        np.testing.assert_allclose(getattr(final, f).numpy(),
+                                   np.asarray(getattr(jfinal, f)),
+                                   rtol=1e-5, atol=1e-7, err_msg=f)
+    for f in ('count', 'accepts_m', 'accepts_o', 'log_scale'):
+        np.testing.assert_array_equal(getattr(final, f).numpy(),
+                                      np.asarray(getattr(jfinal, f)),
+                                      err_msg=f)
+    # and it is bitwise the port's stacked run with the same draws
+    (final2, tr2, stats2), _, _ = _run_port(
+        tmk, arrays, PTReplay(n_obs, 2, 2, swap_key), cfg, betas,
+        monkeypatch, from_jax=True)
+    assert torch.equal(tr, tr2) and torch.equal(stats['loglik'],
+                                                stats2['loglik'])
+    for f in ('m', 'o', 'loglik', 'm2', 'log_scale'):
+        assert torch.equal(getattr(final, f), getattr(final2, f)), f
+
+
 # ----------------------------------------------------------------------
 # the port alone
 # ----------------------------------------------------------------------
@@ -488,11 +553,73 @@ def test_swapped_cache_follows_the_position(plain):
 
 @pytest.mark.parametrize('name', ['run_pt_sharded', '_sharded_pt_prog',
                                   '_swap_step_collective'])
-def test_sharded_entry_points_raise(name):
-    n_args = {'run_pt_sharded': 6, '_sharded_pt_prog': 4,
-              '_swap_step_collective': 7}[name]
-    with pytest.raises(NotImplementedError, match='16b'):
-        getattr(tt, name)(*([None] * n_args))
+def test_sharded_entry_points_raise(name, plain):
+    # (the name is the test's from before one replica per device was
+    # ported; each case now holds its entry point)
+    from parasitoids_tpu_torch.parallel.chains import chain_mesh
+    betas = tt.geometric_ladder(3, beta_min=0.1)
+    cfg = tt.PTConfig(n_rounds=2, swap_every=2)
+    mesh = chain_mesh(devices=['cpu'] * 3)
+    if name == 'run_pt_sharded':
+        # bitwise run_pt, chunked at an offset too; the generators stay
+        # with their rung; a ladder that does not match the mesh raises
+        for off in (0, 3):
+            st_a, tr_a, s_a = tt.run_pt(plain, tt.init_pt_states(plain, 7, 3),
+                                        betas, 8, cfg, round_offset=off)
+            st_b, tr_b, s_b = tt.run_pt_sharded(
+                plain, tt.init_pt_states(plain, 7, 3), betas, 8, cfg, mesh,
+                round_offset=off)
+            assert torch.equal(tr_a, tr_b)
+            for k in s_a:
+                assert torch.equal(s_a[k], s_b[k]), k
+            for f in ('m', 'o', 'loglik', 'prior_m', 'm2', 'log_scale'):
+                assert torch.equal(getattr(st_a, f), getattr(st_b, f)), f
+            assert all(torch.equal(a.get_state(), b.get_state())
+                       for a, b in zip(st_a.key, st_b.key))
+        assert float(s_b['swap_attempts'].sum()) > 0
+        with pytest.raises(ValueError, match='one temperature per device'):
+            tt.run_pt_sharded(plain, tt.init_pt_states(plain, 7, 2),
+                              betas[:2], 8, cfg, mesh)
+    elif name == '_sharded_pt_prog':
+        # the one-round program: one rung on a one-device mesh advances
+        # its replica as run_pt does and makes no swap
+        one = chain_mesh(devices=['cpu'])
+        fn = tt._sharded_pt_prog(plain, cfg, one, 1)
+        s0 = tt.init_pt_states(plain, 4, 1)
+        reps, tr, ll, acc, att = fn(ts.unstack_states(s0), np.ones(1),
+                                    torch.ones(1), 0, None,
+                                    lambda t: None)
+        _, tr_ref, s_ref = tt.run_pt(plain, tt.init_pt_states(plain, 4, 1),
+                                     np.ones(1, np.float32), 0,
+                                     cfg._replace(n_rounds=1))
+        assert torch.equal(tr, tr_ref) and torch.equal(ll, s_ref['loglik'])
+        assert acc.shape == att.shape == (0,)
+        with pytest.raises(ValueError, match='one temperature per device'):
+            tt._sharded_pt_prog(plain, cfg, mesh, 2)
+    else:
+        # the neighbour exchange between replicas held apart is the
+        # stacked sweep's gather, bit for bit, for every parity
+        for T in (2, 3, 5):
+            for parity in (0, 1):
+                arrays, proj = _synthetic_states(T, 10 * T + parity)
+                u = torch.from_numpy(_swap_uniforms_jax(
+                    random.PRNGKey(7 * T + parity), T))
+                stacked = ts.ChainState(
+                    proj=tuple(torch.from_numpy(p) for p in proj),
+                    key=tuple(torch.Generator() for _ in range(T)),
+                    **{k: torch.from_numpy(v) for k, v in arrays.items()})
+                b = torch.from_numpy(tt.power_ladder(T, 1.0))
+                want, wacc, watt = tt._swap_sweep_stacked(stacked, b,
+                                                          parity, u)
+                reps, acc, att = tt._swap_step_collective(
+                    ts.unstack_states(stacked), b, parity, u)
+                got = ts.stack_states(reps)
+                for f in arrays:
+                    assert torch.equal(getattr(got, f),
+                                       getattr(want, f)), f
+                for g, w in zip(got.proj, want.proj):
+                    assert torch.equal(g, w)
+                assert torch.equal(acc, wacc) and torch.equal(att, watt)
 
 
 OV = list(MAP_SMALL)
