@@ -210,7 +210,7 @@ def lattice_exps(mu, Dp, cell, K, select=False):
     ensemble's node rule (20 nodes to |rho| 0.925).  Returns (exps,
     corners, whether the high branch ran)."""
     from parasitoids_tpu_torch.ops.bvn import genz_branch
-    from parasitoids_tpu_torch.ops.day_kernel import _pack_constants
+    from parasitoids_tpu_torch.ops.day_kernel import LAYOUT, _pack_constants
     dev = mu.device
     q = _pack_constants(Dp, cell, dev)
     m, T = 2 * K + 2, mu.shape[0]
@@ -220,7 +220,7 @@ def lattice_exps(mu, Dp, cell, K, select=False):
     if branch < 3:
         return corners * (6, 12, 20)[branch] + 2 * m * T, corners, False
     sig_x, sig_y, sgn, a_sq = (float(q[i]) for i in (0, 1, 4, 6))
-    xs = q[16 + 3 * 38:16 + 3 * 38 + 20]
+    xs = q[LAYOUT['kHiXs']:LAYOUT['kHiXs'] + 20]
     ar = torch.arange(m, dtype=torch.float32, device=dev) - (K + 0.5)
     total = 2 * m * T
     for s in range(0, T, 120):
@@ -281,6 +281,85 @@ def backward_bound(h, mu, Dp, cell, K, buf_len, rate):
     return bound(exps, flops, nbytes, rate)
 
 
+# the lattice probe (ops/day_kernel.lattice_probe): every corner of one
+# minute's lattice through the kernel's exact division against the IEEE
+# division, for each rho (Genz's 6-, 12- and 20-node rules and the series;
+# the select rule's 20 nodes and series), three diffusions (the Kalbar
+# default, the prior's narrowest, and one of a few metres whose corners
+# reach hundreds of sigmas, the far tails) and three mean offsets (the
+# centre, a sub-cell offset, 0.9 and -0.6 of the window's reach), at
+# K = 6, 44, 88.  No word may differ.
+PROBE_RHOS = (0.0, 0.253, -0.253, 0.5, -0.5, 0.9, -0.9, 0.93, -0.93, -0.99)
+PROBE_SIGMAS = ((171.82, 144.58), (21.1, 10.6), (3.0, 2.0))
+PROBE_KS = (6, 44, 88)
+PROBE_CELL = 25.0
+
+
+def probe_cases(K, dev):
+    """(Dparams (P, 3), mu (P, 2)) of the lattice probe at half-width K."""
+    reach = K * PROBE_CELL
+    rows, mus = [], []
+    for rho in PROBE_RHOS:
+        for sx, sy in PROBE_SIGMAS:
+            for off in ((0.0, 0.0), (12.5, -7.3), (0.9 * reach,
+                                                    -0.6 * reach)):
+                rows.append((sx, sy, rho))
+                mus.append(off)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return torch.tensor(rows, **f32), torch.tensor(mus, **f32)
+
+
+def check_lattice_probe(dev, select):
+    """The probe at PROBE_KS for one node rule; fails on any word that
+    differs from the IEEE division's.  Prints the counts."""
+    from parasitoids_tpu_torch.ops.day_kernel import lattice_probe
+    tot = dict(differ=0, corners=0, ieee=0, bwd_vs_fwd=0)
+    want = 0
+    for K in PROBE_KS:
+        Dp, mu = probe_cases(K, dev)
+        for k, v in lattice_probe(Dp, mu, PROBE_CELL, K,
+                                  select=select).items():
+            tot[k] += v
+        want += Dp.shape[0] * (2 * K + 2) ** 2
+    rule = 'select' if select else 'Genz'
+    print('  lattice probe ({} rule, K = {}): {} corners, {} differing '
+          'words, {} corners on the IEEE division (out of the exact '
+          'division\'s range), {} corners where block_bwd\'s value differs '
+          "from block_build's".format(rule, ', '.join(map(str, PROBE_KS)),
+                                      tot['corners'], tot['differ'],
+                                      tot['ieee'], tot['bwd_vs_fwd']))
+    check(tot['corners'] == want and tot['differ'] == 0,
+          'lattice probe ({} rule): the exact division gives the IEEE '
+          "division's bits at all {} corners, forward and backward".format(
+              rule, want))
+    return tot
+
+
+def check_packed_reciprocals(dev):
+    """The reciprocal rows packed on the card are the f32 IEEE quotients
+    1 / d of their divisors, bit for bit (numpy on the host)."""
+    from parasitoids_tpu_torch.ops.day_kernel import LAYOUT, _pack_constants
+    Dp, _ = probe_cases(44, dev)
+    q = _pack_constants(Dp, 25.0, dev).cpu().numpy()
+    f = np.float32
+    rs = q[:, LAYOUT['kHiRs']:LAYOUT['kHiRs'] + 20]
+    pairs = [('kLoDen', 'kLoInvDen', 38), ('kHiXs', 'kHiInvXs', 20),
+             (None, 'kHiInvEp', 20), ('kHiRs', 'kHiInvRs', 20)]
+    bad = 0
+    for d_at, r_at, n in pairs:
+        d = f(2) * (f(1) + rs) if d_at is None else \
+            q[:, LAYOUT[d_at]:LAYOUT[d_at] + n]
+        r = q[:, LAYOUT[r_at]:LAYOUT[r_at] + n]
+        bad += int(((f(1) / d).view(np.uint32) != r.view(np.uint32)).sum())
+    for d_at, r_at in ((LAYOUT['kA'], LAYOUT['kInvA']),
+                       (LAYOUT['kASq'], LAYOUT['kInvASq'])):
+        bad += int(((f(1) / q[:, d_at]).view(np.uint32) !=
+                    q[:, r_at].view(np.uint32)).sum())
+    check(bad == 0, 'the reciprocals packed on the card are the f32 IEEE '
+          'quotients of their divisors ({} rows of {} floats)'.format(
+              q.shape[0], q.shape[1]))
+
+
 def kalbar_params(pop=True):
     from parasitoids_tpu_torch.config import Params
     p = Params()
@@ -301,6 +380,8 @@ def phase_kernel_vs_plain(dev, card, rate):
                                                       accumulate_day_plain,
                                                       pass_ms)
     print('[3] kernel vs plain on the card (D = 801, T = 1440, K = 44)')
+    check_packed_reciprocals(dev)
+    check_lattice_probe(dev, select=False)
     p = kalbar_params()
     cell = p.domain_info[0] / p.domain_info[1]
     p.kernel_rad, p.kernel_rad_local = prior_coverage_windows(cell)
@@ -1949,6 +2030,7 @@ def phase_smc_batched(dev, card, rate, work, smc_sec=None):
     bsetup = setup.with_batched_bvn()
     check(bsetup.setup.kcfg.pallas and bsetup.setup.kcfg.K == 44,
           'the batched setup takes the CUDA kernel at K = 44')
+    check_lattice_probe(dev, select=True)
 
     # 1. the batched launch against its plain twin
     m8 = sample_prior_model(torch.Generator().manual_seed(18), 8).to(dev)

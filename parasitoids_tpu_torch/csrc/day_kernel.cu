@@ -32,6 +32,20 @@
 // K = 44), and its sums keep the single launch's order, so it is bitwise
 // reproducible too.
 //
+// The corner lattice (shared by every launch): on a low branch each thread
+// takes a run of kRun corners of one lattice row and walks the quadrature
+// nodes outermost, so a node's constants (sn, w, 1 - sn^2 and its
+// reciprocal, a float4 of a node table in static shared memory, apart
+// from the lattice) are loaded once a run; each corner still sums its
+// nodes in order.  Every division by a per-node or per-rho constant
+// multiplies by its reciprocal (packed on the host) and corrects once
+// (div_exact): the correctly rounded quotient, the IEEE division's
+// own bits, for one MUFU (the exp) a node instead of two (the exp and the
+// division's reciprocal) and no slow-path check.  A run whose corners
+// leave div_exact's range divides as before.  The Pallas kernel
+// multiplies by 1/(1 - sn^2) without the correction, which would move
+// far-tail cells; here no output bit moves.
+//
 // Design (three launches, deterministic, no atomics):
 //   1. block_build: one CTA per minute.  The upper-orthant probabilities on
 //      the (2K+2)^2 corner lattice live in shared memory; the CTA differences
@@ -54,11 +68,14 @@
 // What bounds it: block_build issues (2K+2)^2 * G exps per minute (MUFU
 // throughput; G = 6 at prior-typical rho, 70 M exps a day at K = 44,
 // T = 1440, about 17 us on an H100; about 2 exps per node on the high
-// branch).  The gather was latency-bound: the wind keeps a day's blocks
-// within about a hundred of the 961 tiles, and the busiest tile meets
-// ~1,000 of the 1,440 minutes.  A tile-stationary gather walks those
-// minutes in one CTA, one dependent read per minute (~0.45 ms a day on
-// an H100, about one SM per busy tile).  Splitting the minutes spreads
+// branch), and about 13 FP32 instructions per node beside each exp (the
+// exp's range reduction, the division's three, the sum's FMA), so the
+// FP32 pipe stands near the MUFU bound.  The gather was latency-bound:
+// the wind keeps a day's blocks within about a hundred of the 961 tiles,
+// and the busiest tile meets ~1,000 of the 1,440 minutes.  A
+// tile-stationary gather walks those minutes in one CTA, one dependent
+// read per minute (~0.45 ms a day on an H100, about one SM per busy
+// tile).  Splitting the minutes spreads
 // the busiest tile over ~23 CTAs on as many SMs; sharing a chunk's box
 // among span^2 CTAs keeps the grid to a few hundred CTAs, nearly all busy
 // (one CTA per (tile, chunk) was 22,000 CTAs, most of which found nothing
@@ -97,17 +114,17 @@
 //   2. bwd_reduce: one CTA sums the (T, 4) partials in minute order and
 //      applies the VJPs of the sigma and rho clamps.
 // What bounds it: instruction throughput, not memory or occupancy.  A
-// corner costs the forward's rebuild (G exps and G IEEE divisions, about
-// 170 instructions at G = 6) plus two normcdf and one exp; on an H100 the
+// corner costs the forward's rebuild (G exps and G divisions) plus two
+// normcdf and one exp; on an H100 the
 // rebuild and the cell rows alone take about 0.14 ms a day at K = 44,
 // T = 1440, the derivatives 0.06 ms more, and 3, 4 or 5 CTAs an SM differ
 // by 3%.  Shared memory is O(ring K), 50 KB at K = 44 with a ring of 64
 // rows, so it bounds neither the occupancy (registers do: 60, four CTAs
 // of 256 threads an SM) nor K: the wrapper halves the ring as K grows,
 // and the backward runs wherever block_build's K^2 lattice fits, and
-// beyond.  What is left is the lattice's own arithmetic, shared with the
-// forward: its divisions are by the per-node 1 - sn^2, warp-uniform
-// constants whose reciprocals every thread recomputes.
+// beyond.  The rebuild is the forward's lattice code (runs, node table,
+// div_exact), so what is left is that arithmetic: the exps and their
+// range reduction.
 //
 // Parameters are packed by parasitoids_tpu_torch/ops/day_kernel.py
 // (_pack_constants) into one float vector; the layout is kConst* below.
@@ -120,20 +137,39 @@
 namespace {
 
 // scalar slots; the backward also reads the raw (unclamped) parameters,
-// 1/s, 1/s^2 and the loss cotangent; kSelect picks the node rule
+// 1/s, 1/s^2 and the loss cotangent; kSelect picks the node rule; kInvA
+// and kInvASq are the high branch's 1/a and 1/a^2
 constexpr int kSigX = 0, kSigY = 1, kCell = 2, kRho = 3, kSgn = 4, kA = 5,
               kASq = 6, kAHalf = 7, kAsr = 8, kRawSigX = 9, kRawSigY = 10,
               kRawRho = 11, kInvS = 12, kInvS2 = 13, kCtLoss = 14,
-              kSelect = 15;
-constexpr int kScalars = 16;
-// low-|rho| rows (sn, w, 1 - sn^2), each holding the 6-, 12- and 20-node
-// rules back to back; then high-|rho| rows (xs, rs, w) of the 20-node rule
+              kSelect = 15, kInvA = 16, kInvASq = 17;
+constexpr int kScalars = 18;
+// low-|rho| rows (sn, w, 1 - sn^2, 1 / (1 - sn^2)), each holding the 6-,
+// 12- and 20-node rules back to back; then high-|rho| rows (xs, rs, w,
+// 1 / xs, 1 / (2 (1 + rs)), 1 / rs) of the 20-node rule.  Every
+// reciprocal is the f32 IEEE quotient of its divisor's f32 value
 constexpr int kLoNodes = 6 + 12 + 20;
 constexpr int kHiNodes = 20;
 constexpr int kLoSn = kScalars, kLoW = kLoSn + kLoNodes,
-              kLoDen = kLoW + kLoNodes, kHiXs = kLoDen + kLoNodes,
-              kHiRs = kHiXs + kHiNodes, kHiW = kHiRs + kHiNodes;
-constexpr int kConsts = kHiW + kHiNodes;   // 190 floats
+              kLoDen = kLoW + kLoNodes, kLoInvDen = kLoDen + kLoNodes,
+              kHiXs = kLoInvDen + kLoNodes, kHiRs = kHiXs + kHiNodes,
+              kHiW = kHiRs + kHiNodes, kHiInvXs = kHiW + kHiNodes,
+              kHiInvEp = kHiInvXs + kHiNodes, kHiInvRs = kHiInvEp + kHiNodes;
+constexpr int kConsts = kHiInvRs + kHiNodes;   // 290 floats
+
+// The node table a CTA keeps in static shared memory, one float4 a node:
+// low rows {sn, w, 1 - sn^2, 1 / (1 - sn^2)} (6-, 12- and 20-node rules at
+// kNodeLo + 0, 6, 18), high rows {xs, 1 / xs, rs, 1 / rs} at kNodeHiA and
+// {w, 2 (1 + rs), 1 / (2 (1 + rs)), 0} at kNodeHiB.  Apart from the
+// lattice, so that no store to the lattice makes the compiler reload them.
+constexpr int kNodeLo = 0, kNodeHiA = kLoNodes,
+              kNodeHiB = kLoNodes + kHiNodes;
+constexpr int kNodeRows = kLoNodes + 2 * kHiNodes;
+// corners a thread takes at once on a low branch, in block_build and in
+// block_bwd (64 registers); the high branch takes one (its 20 tail nodes
+// each test a cut-off, and more corners a thread measured slower)
+constexpr int kRun = 5, kRunBwd = 2;
+constexpr int kBuildMinCtas = 4;          // block_build CTAs an SM must hold
 
 constexpr int kBuildThreads = 256;
 constexpr int kTile = 32;                 // buffer tile side
@@ -150,35 +186,119 @@ constexpr float kFourPi = 12.566370614359172f;
 constexpr float kSqrt2Pi = 2.5066282746310002f;
 constexpr float kRhoMax = 1.0f - 1e-6f;   // the |rho| clamp of the BVN op
 
-// P(X > h, Y > k) for |rho| < 0.925: G-node Gauss-Legendre quadrature of the
-// correlation integral (nodes at offset `o` of the low rows), plus the
-// independence term phi = Phi(-h) Phi(-k).  The operations and their order
-// are those of the plain twin (ops/bvn.py _upper_lowcorr).
-template <int G>
-__device__ __forceinline__ float upper_low(float h, float k, float phi,
-                                           const float* q, int o) {
-  const float hk = h * k;
-  const float hs = 0.5f * (h * h + k * k);
-  float total = 0.f;
+// The quotient a / d correctly rounded, as IEEE division (div.rn) gives
+// it, from r = RN(1 / d) and three FP32 operations, no MUFU: q0 = a r lies
+// within one ulp of a / d, the remainder a - q0 d is then exact (one FMA),
+// and one correction q0 + (a - q0 d) r rounds to a / d (Markstein's
+// theorem).  The remainder is taken as -(q0 d - a), so that a zero
+// quotient keeps its sign.  The argument needs every intermediate in the
+// normal range: it holds for a = +-0 and for 2^-96 <= |a| <= 2^64 when
+// 2^-40 <= d <= 2^26, and every divisor below lies in [2^-36, 4] (the
+// rho clamp keeps a^2 >= 2e-6 and xs >= 2.4e-11).  Callers check |a| (see
+// low_exact and high_exact) and take the IEEE division elsewhere;
+// parasitoids_lattice_probe holds both to the same bits on the card.
+__device__ __forceinline__ float div_exact(float a, float d, float r) {
+  const float q0 = __fmul_rn(a, r);
+  const float e = -__fmaf_rn(q0, d, -a);
+  return __fmaf_rn(e, r, q0);
+}
+
+// One float4 of the node table, loaded where it is used: the compiler
+// would otherwise keep the whole table in registers across the run loop
+// (80 of them on the 20-node rule), and the registers, not the loads,
+// would set the occupancy.
+__device__ __forceinline__ float4 node(const float4* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+  return v;
+}
+
+// a / d: div_exact from the packed reciprocal r, or the IEEE division
+template <bool kExact>
+__device__ __forceinline__ float qdiv(float a, float d, float r) {
+  if constexpr (kExact) return div_exact(a, d, r);
+  return __fdiv_rn(a, d);
+}
+
+// The G-node sums of a run of R corners of one lattice row on a low
+// branch, nodes outermost: each node's constants are loaded once for the
+// run, and each corner's sum still takes the nodes in order g = 0 ... G-1.
+template <int G, int R, bool kExact>
+__device__ __forceinline__ void low_nodes(float (&total)[R],
+                                          const float (&hk)[R],
+                                          const float (&hs)[R],
+                                          const float4* nodes) {
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    total += q[kLoW + o + g] *
-             expf((q[kLoSn + o + g] * hk - hs) / q[kLoDen + o + g]);
+    const float4 nd = node(nodes + g);  // sn, w, 1 - sn^2, 1 / (1 - sn^2)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float a = __fmaf_rn(hk[j], nd.x, -hs[j]);
+      total[j] = __fmaf_rn(nd.y, expf(qdiv<kExact>(a, nd.z, nd.w)),
+                           total[j]);
+    }
   }
-  return total * q[kAsr] / kFourPi + phi;
+}
+
+// Whether div_exact is exact for every node of a low-branch corner: the
+// numerator sn hk - hs lies within [0.07, 1.93] hs (|sn| <= 0.925 on
+// either node rule, |hk| <= hs), so hs in [2^-92, 2^63] keeps it within
+// div_exact's range; h = k = 0 gives signed zeros.
+__device__ __forceinline__ bool low_exact(float h, float k, float hs) {
+  return (hs >= 0x1p-92f && hs <= 0x1p63f) || (h == 0.0f && k == 0.0f);
+}
+
+// P(X > h, Y > k) for |rho| < 0.925 at R corners (h[j], k[j]): G-node
+// Gauss-Legendre quadrature of the correlation integral (nodes from
+// `nodes`, the rule's rows of the node table), plus the independence term
+// phi = Phi(-h) Phi(-k) = ph[j] pk[j].  The operations are those of the
+// plain twin (ops/bvn.py _upper_lowcorr), each rounding written out as
+// this kernel has always compiled it, FMAs included; kFusedPhi adds phi
+// by one FMA, as block_bwd has always done, where block_build rounds the
+// product first.  kIeee takes the IEEE division at every node (the
+// probe's reference); otherwise a run whose corners all pass low_exact
+// divides by div_exact, bit for bit the same.
+template <int G, int R, bool kFusedPhi, bool kIeee>
+__device__ __forceinline__ void upper_low_run(
+    float (&u)[R], const float (&h)[R], const float (&k)[R],
+    const float (&ph)[R], const float (&pk)[R], const float4* nodes,
+    float asr) {
+  float hk[R], hs[R], total[R];
+  bool exact = !kIeee;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    hk[j] = __fmul_rn(h[j], k[j]);
+    hs[j] = __fmul_rn(__fmaf_rn(h[j], h[j], __fmul_rn(k[j], k[j])), 0.5f);
+    total[j] = 0.0f;
+    exact = exact && low_exact(h[j], k[j], hs[j]);
+  }
+  if (exact) low_nodes<G, R, true>(total, hk, hs, nodes);
+  else low_nodes<G, R, false>(total, hk, hs, nodes);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float t = __fdiv_rn(__fmul_rn(total[j], asr), kFourPi);
+    u[j] = kFusedPhi ? __fmaf_rn(ph[j], pk[j], t)
+                     : __fadd_rn(__fmul_rn(ph[j], pk[j]), t);
+  }
 }
 
 // P(X > h, Y > k) for |rho| >= 0.925: Genz BVND asymptotic series plus tail
-// quadrature, in the operation order of ops/bvn.py _upper_highcorr.
+// quadrature, in the operation order of ops/bvn.py _upper_highcorr; every
+// division by a constant of the node table or of kInvA / kInvASq through
+// qdiv, the rest written as this kernel has always been.
+template <bool kExact>
 __device__ __forceinline__ float upper_high(float h, float y,
-                                            const float* q) {
+                                            const float* q,
+                                            const float4* nodes) {
   const float sgn = q[kSgn], a = q[kA], a_sq = q[kASq];
   const float k = y * sgn;                 // rho < 0: flip k
   const float hk = h * k;
   const float bs = (h - k) * (h - k);
   const float c = (4.0f - hk) / 8.0f;
   const float d = (12.0f - hk) / 16.0f;
-  const float asr = -(bs / a_sq + hk) / 2.0f;
+  const float asr = -(qdiv<kExact>(bs, a_sq, q[kInvASq]) + hk) / 2.0f;
   float bvn = 0.f;
   if (asr > -80.0f) {
     bvn = a * expf(fminf(asr, 0.0f)) *
@@ -188,23 +308,44 @@ __device__ __forceinline__ float upper_high(float h, float y,
   if (-hk < 80.0f) {
     const float b = sqrtf(bs > 1e-30f ? bs : 1e-30f);
     bvn = bvn - expf(fminf(fmaxf(-hk / 2.0f, -80.0f), 80.0f)) * kSqrt2Pi *
-                    normcdff(-b / a) * b *
+                    normcdff(qdiv<kExact>(-b, a, q[kInvA])) * b *
                     (1.0f - c * bs * (1.0f - d * bs / 5.0f) / 3.0f);
   }
   const float a_half = q[kAHalf];
 #pragma unroll 4
   for (int g = 0; g < kHiNodes; ++g) {
-    const float xs = q[kHiXs + g], rs = q[kHiRs + g];
-    const float asr1 = -(bs / xs + hk) / 2.0f;
+    const float4 na = node(nodes + kNodeHiA + g);  // xs, 1 / xs, rs, 1 / rs
+    const float4 nb = node(nodes + kNodeHiB + g);  // w, 2 (1 + rs), 1 / that
+    const float xs = na.x, rs = na.z;
+    const float asr1 = -(qdiv<kExact>(bs, xs, na.y) + hk) / 2.0f;
     if (asr1 > -80.0f) {
       const float sp = 1.0f + c * xs * (1.0f + d * xs);
-      const float ep = expf(-hk * (1.0f - rs) / (2.0f * (1.0f + rs))) / rs;
-      bvn = bvn + a_half * q[kHiW + g] * expf(fminf(asr1, 0.0f)) * (ep - sp);
+      const float ep = qdiv<kExact>(
+          expf(qdiv<kExact>(-hk * (1.0f - rs), nb.y, nb.z)), rs, na.w);
+      bvn = bvn + a_half * nb.x * expf(fminf(asr1, 0.0f)) * (ep - sp);
     }
   }
   bvn = -bvn / kTwoPi;
   if (sgn > 0.f) return bvn + normcdff(-fmaxf(h, k));
   return -bvn + (k > h ? normcdff(k) - normcdff(h) : 0.0f);
+}
+
+// Whether div_exact is exact for every division of a high-branch corner:
+// bs / a^2, bs / xs (bs = 0 or within range), -b / a (b >= 1e-15), and,
+// past the -80 cut-off where |hk| < 160, -hk (1 - rs) / (2 (1 + rs))
+// (1 - rs is 0 or at least 2^-24, so |hk| >= 2^-66 suffices) and
+// exp(...) / rs (the exp lies within [e^-4, e^4] there).
+__device__ __forceinline__ bool high_exact(float h, float y, const float* q) {
+  const float k = y * q[kSgn], hk = h * k, bs = (h - k) * (h - k);
+  return (bs == 0.0f || (bs >= 0x1p-96f && bs <= 0x1p64f)) &&
+         (hk == 0.0f || (fabsf(hk) >= 0x1p-66f && fabsf(hk) <= 0x1p64f));
+}
+
+template <bool kIeee>
+__device__ __forceinline__ float corner_high(float h, float y, const float* q,
+                                             const float4* nodes) {
+  if (!kIeee && high_exact(h, y, q)) return upper_high<true>(h, y, q, nodes);
+  return upper_high<false>(h, y, q, nodes);
 }
 
 // Genz's node count by |rho| (6 / 12 / 20 nodes, the series from 0.925),
@@ -218,25 +359,118 @@ __device__ __forceinline__ int rho_branch(const float* q) {
   return (ar >= 0.3f) + (ar >= 0.75f) + (ar >= 0.925f);
 }
 
-// The corner lattice U[row][col] = P(X > xe[col], Y > ye[row]) of one
-// minute, m x m, with px = Phi(-xe), py = Phi(-ye).
+// The node table (see kNodeRows) from a constants row in global memory;
+// every thread of the CTA calls it, and a barrier must follow.
+__device__ __forceinline__ void load_nodes(float4* nodes, const float* q) {
+  for (int i = threadIdx.x; i < kLoNodes; i += blockDim.x)
+    nodes[kNodeLo + i] = make_float4(q[kLoSn + i], q[kLoW + i],
+                                     q[kLoDen + i], q[kLoInvDen + i]);
+  for (int i = threadIdx.x; i < kHiNodes; i += blockDim.x) {
+    const float rs = q[kHiRs + i];
+    nodes[kNodeHiA + i] = make_float4(q[kHiXs + i], q[kHiInvXs + i], rs,
+                                      q[kHiInvRs + i]);
+    nodes[kNodeHiB + i] = make_float4(q[kHiW + i], 2.0f * (1.0f + rs),
+                                      q[kHiInvEp + i], 0.0f);
+  }
+}
+
+// A thread's walk over a row-major range of rows of `w` elements, one
+// element a step and kThreads elements between steps (the CTA's threads),
+// with no division in the loop: the thread starts at (row q, column r) =
+// (tid / w, tid % w) of the range and a step adds (dq, dr) = (kThreads /
+// w, kThreads % w), with a carry.  Consecutive threads take consecutive
+// elements, so every lane works whatever w is, and shared-memory accesses
+// run along rows.
+template <int kThreads>
+struct Walk {
+  int w, q, r, dq, dr;
+  __device__ Walk(int width)
+      : w(width), q(threadIdx.x / width), r(threadIdx.x % width),
+        dq(kThreads / width), dr(kThreads % width) {}
+  __device__ __forceinline__ void step(int& row, int& col) const {
+    col += dr;
+    row += dq;
+    if (col >= w) {
+      col -= w;
+      ++row;
+    }
+  }
+};
+
+// The values of corners c0 ... c0 + R - 1 of lattice row r (columns past
+// m - 1 repeat column m - 1) by Genz branch BR (see rho_branch):
+// U[r][c] = P(X > xe[c], Y > ye[r]), with px = Phi(-xe), py = Phi(-ye).
+template <int BR, int R, bool kFusedPhi, bool kIeee>
+__device__ __forceinline__ void corner_run(float (&u)[R], int r, int c0,
+                                           int m, const float* xe,
+                                           const float* ye, const float* px,
+                                           const float* py, const float* q,
+                                           const float4* nodes) {
+  float h[R], k[R], ph[R], pk[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int c = min(c0 + j, m - 1);
+    h[j] = xe[c];
+    ph[j] = px[c];
+    k[j] = ye[r];
+    pk[j] = py[r];
+  }
+  if constexpr (BR == 3) {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      u[j] = corner_high<kIeee>(h[j], k[j], q, nodes);
+  } else {
+    constexpr int G = BR == 0 ? 6 : BR == 1 ? 12 : 20;
+    constexpr int o = BR == 0 ? 0 : BR == 1 ? 6 : 18;
+    upper_low_run<G, R, kFusedPhi, kIeee>(u, h, k, ph, pk,
+                                          nodes + kNodeLo + o, q[kAsr]);
+  }
+}
+
+// Rows [lo, hi) of one minute's m x m corner lattice, row r into
+// U + (r & mask) * m, each thread a run of R corners of one row at a time
+// (runs of a row consecutive across threads; a run that crossed into the
+// next row measured slower).  Every corner's value depends on that corner
+// alone, so the split into runs changes no bit.
+template <int BR, int R, bool kFusedPhi>
+__device__ __forceinline__ void lattice_runs(float* U, int mask, int lo,
+                                             int hi, int m, const float* xe,
+                                             const float* ye, const float* px,
+                                             const float* py, const float* q,
+                                             const float4* nodes) {
+  const Walk<kBuildThreads> wr((m + R - 1) / R);   // over runs
+  for (int r = lo + wr.q, i = wr.r; r < hi; wr.step(r, i)) {
+    const int c0 = i * R;
+    float u[R];
+    corner_run<BR, R, kFusedPhi, false>(u, r, c0, m, xe, ye, px, py, q,
+                                        nodes);
+    float* row = U + (r & mask) * m;
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (c0 + j < m) row[c0 + j] = u[j];
+  }
+}
+
+// The corner lattice U[row][col] of one minute, m x m.
 __device__ __forceinline__ void build_lattice(float* U, const float* xe,
                                               const float* ye,
                                               const float* px,
                                               const float* py,
-                                              const float* q, int m) {
-  const int branch = rho_branch(q);
-  for (int p = threadIdx.x; p < m * m; p += blockDim.x) {
-    const int r = p / m, c = p - r * m;
-    const float phi = px[c] * py[r];
-    float u;
-    switch (branch) {
-      case 0: u = upper_low<6>(xe[c], ye[r], phi, q, 0); break;
-      case 1: u = upper_low<12>(xe[c], ye[r], phi, q, 6); break;
-      case 2: u = upper_low<20>(xe[c], ye[r], phi, q, 18); break;
-      default: u = upper_high(xe[c], ye[r], q); break;
-    }
-    U[p] = u;
+                                              const float* q,
+                                              const float4* nodes, int m) {
+  switch (rho_branch(q)) {
+    case 0: lattice_runs<0, kRun, false>(U, -1, 0, m, m, xe, ye, px, py, q,
+                                         nodes);
+      break;
+    case 1: lattice_runs<1, kRun, false>(U, -1, 0, m, m, xe, ye, px, py, q,
+                                         nodes);
+      break;
+    case 2: lattice_runs<2, kRun, false>(U, -1, 0, m, m, xe, ye, px, py, q,
+                                         nodes);
+      break;
+    default: lattice_runs<3, 1, false>(U, -1, 0, m, m, xe, ye, px, py, q,
+                                       nodes);
+      break;
   }
 }
 
@@ -289,21 +523,23 @@ __device__ __forceinline__ void cta_sum(float (&v)[NV], float* red) {
 }
 
 __host__ __device__ constexpr size_t build_smem_floats(int K) {
-  // lattice + 4 edge vectors + constants + one partial sum per warp
+  // lattice + 4 edge vectors + scalars + one partial sum per warp (the
+  // node table is static shared memory)
   return (size_t)(2 * K + 2) * (2 * K + 2) + 4 * (size_t)(2 * K + 2) +
-         kConsts + kBuildThreads / 32;
+         kScalars + kBuildThreads / 32;
 }
 
 // One CTA per (minute, particle): blockIdx.x is the minute t of T =
 // gridDim.x, blockIdx.y the particle, whose constants, inputs and outputs
 // lie at its offset of each array.
-__global__ void __launch_bounds__(kBuildThreads)
+__global__ void __launch_bounds__(kBuildThreads, kBuildMinCtas)
 block_build_kernel(const float* __restrict__ consts,  // (N, kConsts)
                    const float* __restrict__ h,       // (N, T)
                    const float* __restrict__ mu,      // (N, T, 2): mu_x, mu_y
                    int K, float* __restrict__ scratch,  // (N, T, n, n)
                    float* __restrict__ bsum) {        // (N, T)
   extern __shared__ float smem[];
+  __shared__ float4 nodes[kNodeRows];
   const int n = 2 * K + 1;
   const int m = n + 1;
   const size_t p = blockIdx.y, T = gridDim.x;
@@ -317,31 +553,34 @@ block_build_kernel(const float* __restrict__ consts,  // (N, kConsts)
   float* ye = xe + m;            // y edge, descending with row
   float* px = ye + m;            // Phi(-xe)
   float* py = px + m;            // Phi(-ye)
-  float* q = py + m;             // constants
-  float* warp_sum = q + kConsts;
+  float* q = py + m;             // scalars
+  float* warp_sum = q + kScalars;
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  for (int i = tid; i < kConsts; i += blockDim.x) q[i] = consts[i];
+  for (int i = tid; i < kScalars; i += blockDim.x) q[i] = consts[i];
+  load_nodes(nodes, consts);
   __syncthreads();
 
   corner_edges(xe, ye, px, py, q, mu[2 * t], mu[2 * t + 1], K);
   __syncthreads();
-  build_lattice(U, xe, ye, px, py, q, m);
+  build_lattice(U, xe, ye, px, py, q, nodes, m);
   __syncthreads();
 
   // four-corner differences -> cell masses [row, col]; y descends with the
   // row index, so a cell's low-y corner is on row r + 1
+  // (thread tid takes cells tid, tid + 256, ..., in that order, so its
+  // partial sum and the tree over them are fixed)
   const float ht = h[t];
   float* out = scratch + (size_t)t * n * n;
   float part[1] = {0.f};
-  for (int p = tid; p < n * n; p += blockDim.x) {
-    const int r = p / n, c = p - r * n;
+  const Walk<kBuildThreads> wn(n);
+  for (int r = wn.q, c = wn.r; r < n; wn.step(r, c)) {
     const float* u0 = U + r * m + c;
     const float rect = (u0[m] - u0[m + 1]) - (u0[0] - u0[1]);
     const float b = fmaxf(rect, 0.0f);
     part[0] += b;
-    out[p] = ht * b;
+    out[r * n + c] = ht * b;
   }
   cta_sum(part, warp_sum);
   if (tid == 0) bsum[t] = part[0];
@@ -555,16 +794,17 @@ reduce_tiles_kernel(const float* __restrict__ partial,
   }
 }
 
-constexpr int kBwdThreads = 256;          // threads of a block_bwd CTA
+constexpr int kBwdThreads = kBuildThreads;   // threads of a block_bwd CTA
 constexpr int kBwdMinCtas = 4;            // CTAs an SM must hold: 64 registers
 constexpr int kBwdSums = 9;               // CTA-wide sums of one minute
 
 // Floats of dynamic shared memory of block_bwd at half-width K with rings
 // of `ring` rows: the lattice ring and the padded block cotangent ring, a
-// row of zeros, 6 edge vectors, the constants and the reduction scratch.
+// row of zeros, 6 edge vectors, the scalars and the reduction scratch (the
+// node table is static shared memory).
 __host__ __device__ constexpr size_t bwd_smem_floats(int K, int ring) {
   const size_t m = 2 * (size_t)K + 2;
-  return ring * m + ring * (m + 1) + (m + 1) + 6 * m + kConsts +
+  return ring * m + ring * (m + 1) + (m + 1) + 6 * m + kScalars +
          kBwdSums * (kBwdThreads / 32);
 }
 
@@ -577,52 +817,20 @@ __host__ __device__ constexpr int bwd_ring(int K, int ring) {
   return r;
 }
 
-// A thread's walk over a row-major range of rows of `w` elements, one
-// element a step and kBwdThreads elements between steps, with no division
-// in the loop: the thread starts at (row q, column r) = (tid / w, tid % w)
-// of the range and a step adds (dq, dr) = (kBwdThreads / w, kBwdThreads %
-// w), with a carry.  Consecutive threads take consecutive elements, so
-// every lane works whatever w is, and shared-memory accesses run along
-// rows.
-struct Walk {
-  int w, q, r, dq, dr;
-  __device__ Walk(int width)
-      : w(width), q(threadIdx.x / width), r(threadIdx.x % width),
-        dq(kBwdThreads / width), dr(kBwdThreads % width) {}
-  __device__ __forceinline__ void step(int& row, int& col) const {
-    col += dr;
-    row += dq;
-    if (col >= w) {
-      col -= w;
-      ++row;
-    }
-  }
-};
-
-// One corner of the lattice by Genz branch BR (see rho_branch).
-template <int BR>
-__device__ __forceinline__ float corner_upper(float x, float y, float phi,
-                                              const float* q) {
-  if constexpr (BR == 0) return upper_low<6>(x, y, phi, q, 0);
-  if constexpr (BR == 1) return upper_low<12>(x, y, phi, q, 6);
-  if constexpr (BR == 2) return upper_low<20>(x, y, phi, q, 18);
-  return upper_high(x, y, q);
-}
-
 // Rows [lo, hi) of the corner lattice into a ring of rows of m (row r
-// lives in slot r & mask).  The values are those of build_lattice, bit
-// for bit.
+// lives in slot r & mask), in runs as build_lattice builds them.  The
+// values are build_lattice's but for the low branches' independence term,
+// which the backward adds by one FMA where the forward rounds the product
+// first (so the clamp mask can differ from the forward's at f32 roundoff,
+// as it always has; the probe counts the corners).
 template <int BR>
 __device__ __forceinline__ void lattice_rows(float* U, int mask, int lo,
-                                             int hi, const Walk& wm,
-                                             const float* xe, const float* ye,
-                                             const float* px, const float* py,
-                                             const float* q) {
-  const int m = wm.w;
-  for (int r = lo + wm.q, c = wm.r; r < hi; wm.step(r, c)) {
-    const float phi = px[c] * py[r];
-    U[(r & mask) * m + c] = corner_upper<BR>(xe[c], ye[r], phi, q);
-  }
+                                             int hi, int m, const float* xe,
+                                             const float* ye, const float* px,
+                                             const float* py, const float* q,
+                                             const float4* nodes) {
+  lattice_runs<BR, BR == 3 ? 1 : kRunBwd, true>(U, mask, lo, hi, m, xe, ye,
+                                                px, py, q, nodes);
 }
 
 // Corner rows [lo, hi) of one minute's backward: at corner (i, j) the
@@ -637,9 +845,10 @@ __device__ __forceinline__ void lattice_rows(float* U, int mask, int lo,
 // -1 and n read the row of zeros.  A corner whose ctU is 0 (masked cells,
 // a minute with h = 0) adds exact zeros and is skipped.
 __device__ __forceinline__ void corner_rows(
-    float (&v)[kBwdSums], int lo, int hi, const Walk& wm, const float* ctb,
-    const float* zrow, int mask, const float* xe, const float* ye,
-    const float* fx, const float* fy, const float* q, int K) {
+    float (&v)[kBwdSums], int lo, int hi, const Walk<kBwdThreads>& wm,
+    const float* ctb, const float* zrow, int mask, const float* xe,
+    const float* ye, const float* fx, const float* fy, const float* q,
+    int K) {
   const int m = wm.w, n = m - 1, cw = m + 1;
   const float rho = q[kRho], inv_s = q[kInvS], inv_s2 = q[kInvS2];
   const float lr_scale = inv_s / kTwoPi;
@@ -684,6 +893,7 @@ block_bwd_kernel(const float* __restrict__ consts,
                  float* __restrict__ dclip,         // (T,)
                  float* __restrict__ part) {        // (T, 4)
   extern __shared__ float smem[];
+  __shared__ float4 nodes[kNodeRows];
   const int n = 2 * K + 1;
   const int m = n + 1, cw = m + 1, mask = ring - 1, strip = ring - 1;
   float* U = smem;               // lattice ring [slot][col], ring * m
@@ -695,12 +905,13 @@ block_bwd_kernel(const float* __restrict__ consts,
   float* py = px + m;            // Phi(-ye)
   float* fx = py + m;            // phi(xe)
   float* fy = fx + m;            // phi(ye)
-  float* q = fy + m;             // constants
-  float* red = q + kConsts;
+  float* q = fy + m;             // scalars
+  float* red = q + kScalars;
 
   const int tid = threadIdx.x;
-  const Walk wm(m), wn(n);       // over lattice rows and over cell rows
-  for (int i = tid; i < kConsts; i += kBwdThreads) q[i] = consts[i];
+  const Walk<kBwdThreads> wm(m), wn(n);  // over lattice rows, cell rows
+  for (int i = tid; i < kScalars; i += kBwdThreads) q[i] = consts[i];
+  load_nodes(nodes, consts);
   for (int i = tid; i < cw; i += kBwdThreads) zrow[i] = 0.0f;
   for (int i = tid; i < ring; i += kBwdThreads)
     ctb[i * cw] = ctb[i * cw + n + 1] = 0.0f;
@@ -727,13 +938,17 @@ block_bwd_kernel(const float* __restrict__ consts,
   for (int s = 0; s < nstrips; ++s) {
     const int u_lo = s * strip, u_hi = min(u_lo + strip, m);
     switch (branch) {
-      case 0: lattice_rows<0>(U, mask, u_lo, u_hi, wm, xe, ye, px, py, q);
+      case 0: lattice_rows<0>(U, mask, u_lo, u_hi, m, xe, ye, px, py, q,
+                                   nodes);
         break;
-      case 1: lattice_rows<1>(U, mask, u_lo, u_hi, wm, xe, ye, px, py, q);
+      case 1: lattice_rows<1>(U, mask, u_lo, u_hi, m, xe, ye, px, py, q,
+                                   nodes);
         break;
-      case 2: lattice_rows<2>(U, mask, u_lo, u_hi, wm, xe, ye, px, py, q);
+      case 2: lattice_rows<2>(U, mask, u_lo, u_hi, m, xe, ye, px, py, q,
+                                   nodes);
         break;
-      default: lattice_rows<3>(U, mask, u_lo, u_hi, wm, xe, ye, px, py, q);
+      default: lattice_rows<3>(U, mask, u_lo, u_hi, m, xe, ye, px, py, q,
+                                   nodes);
         break;
     }
     corner_rows(v, c_lo, c_hi, wm, ctb, zrow, mask, xe, ye, fx, fy, q, K);
@@ -797,6 +1012,86 @@ bwd_reduce_kernel(const float* __restrict__ consts,
     dD[2] = fabsf(consts[kRawRho]) < kRhoMax ? tot[2] : 0.0f;
     dcell[0] = tot[3];
   }
+}
+
+// A test-only check that div_exact changes no bit (the C export
+// parasitoids_lattice_probe):
+// one minute's corner lattice a CTA, case blockIdx.x with its constants row
+// and mean offset, every corner as block_build and as block_bwd compute it,
+// each against the same corner with the IEEE division at every node.  Adds
+// to counts: [0] the words that differ from their IEEE twins (both modes),
+// [1] the corners compared, [2] the corners that took the IEEE division
+// (a run of the low branch, or a corner of the high one, out of
+// div_exact's range), [3] the corners where block_bwd's value differs from
+// block_build's (the fused independence term).  Not on any path of the
+// port; the wrapper is ops/day_kernel.lattice_probe.
+constexpr int kProbeMaxM = 238;           // 2K + 2 at the forward's K <= 118
+
+template <int BR>
+__device__ __forceinline__ void probe_runs(int m, const float* xe,
+                                           const float* ye, const float* px,
+                                           const float* py, const float* q,
+                                           const float4* nodes,
+                                           unsigned long long (&cnt)[4]) {
+  const int nr = (m + kRun - 1) / kRun;
+  for (int p = threadIdx.x; p < m * nr; p += blockDim.x) {
+    const int r = p / nr, c0 = (p - r * nr) * kRun;
+    float fwd[kRun], bwd[kRun], ref_f[kRun], ref_b[kRun];
+    corner_run<BR, kRun, false, false>(fwd, r, c0, m, xe, ye, px, py, q,
+                                       nodes);
+    corner_run<BR, kRun, true, false>(bwd, r, c0, m, xe, ye, px, py, q,
+                                      nodes);
+    corner_run<BR, kRun, false, true>(ref_f, r, c0, m, xe, ye, px, py, q,
+                                      nodes);
+    corner_run<BR, kRun, true, true>(ref_b, r, c0, m, xe, ye, px, py, q,
+                                     nodes);
+    bool run_exact = true;
+    for (int j = 0; j < kRun; ++j) {
+      const float h = xe[min(c0 + j, m - 1)], k = ye[r];
+      run_exact = run_exact &&
+                  low_exact(h, k, __fmul_rn(__fmaf_rn(h, h, __fmul_rn(k, k)),
+                                            0.5f));
+    }
+    for (int j = 0; j < kRun && c0 + j < m; ++j) {
+      const bool ieee = BR == 3 ? !high_exact(xe[c0 + j], ye[r], q)
+                                : !run_exact;
+      cnt[0] += (__float_as_uint(fwd[j]) != __float_as_uint(ref_f[j])) +
+                (__float_as_uint(bwd[j]) != __float_as_uint(ref_b[j]));
+      cnt[1] += 1;
+      cnt[2] += ieee;
+      cnt[3] += __float_as_uint(fwd[j]) != __float_as_uint(bwd[j]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBuildThreads)
+lattice_probe_kernel(const float* __restrict__ consts,  // (P, kConsts)
+                     const float* __restrict__ mu,      // (P, 2)
+                     int K, unsigned long long* __restrict__ counts) {
+  __shared__ float q[kScalars];
+  __shared__ float4 nodes[kNodeRows];
+  __shared__ float edges[4 * kProbeMaxM];
+  const int m = 2 * K + 2;
+  consts += (size_t)blockIdx.x * kConsts;
+  mu += 2 * (size_t)blockIdx.x;
+  for (int i = threadIdx.x; i < kScalars; i += blockDim.x) q[i] = consts[i];
+  load_nodes(nodes, consts);
+  __syncthreads();
+  float* xe = edges;
+  float* ye = xe + m;
+  float* px = ye + m;
+  float* py = px + m;
+  corner_edges(xe, ye, px, py, q, mu[0], mu[1], K);
+  __syncthreads();
+  unsigned long long cnt[4] = {0, 0, 0, 0};
+  switch (rho_branch(q)) {
+    case 0: probe_runs<0>(m, xe, ye, px, py, q, nodes, cnt); break;
+    case 1: probe_runs<1>(m, xe, ye, px, py, q, nodes, cnt); break;
+    case 2: probe_runs<2>(m, xe, ye, px, py, q, nodes, cnt); break;
+    default: probe_runs<3>(m, xe, ye, px, py, q, nodes, cnt); break;
+  }
+  for (int i = 0; i < 4; ++i)
+    if (cnt[i]) atomicAdd(counts + i, cnt[i]);
 }
 
 // The three launches of one day's accumulate for N particles on `s` (the
@@ -892,9 +1187,11 @@ cudaError_t time_passes(int reps, int passes, float* ms, Launch launch) {
 
 extern "C" {
 
-// Dynamic shared memory that block_build needs at half-width K (bytes).
+// Shared memory that block_build needs at half-width K (bytes): the
+// dynamic part and the static node table.
 int parasitoids_day_smem_bytes(int K) {
-  return (int)(build_smem_floats(K) * sizeof(float));
+  return (int)(build_smem_floats(K) * sizeof(float) +
+               kNodeRows * sizeof(float4));
 }
 
 // One day's accumulate for N particles (N = 1: one parameter set) on
@@ -941,10 +1238,11 @@ int parasitoids_day_accumulate_timed(const float* consts, const float* h,
   });
 }
 
-// Dynamic shared memory that block_bwd needs at half-width K when asked
-// for rings of `ring` rows (bytes).
+// Shared memory that block_bwd needs at half-width K when asked for rings
+// of `ring` rows (bytes): the dynamic part and the static node table.
 int parasitoids_day_bwd_smem_bytes(int K, int ring) {
-  return (int)(bwd_smem_floats(K, bwd_ring(K, ring)) * sizeof(float));
+  return (int)(bwd_smem_floats(K, bwd_ring(K, ring)) * sizeof(float) +
+               kNodeRows * sizeof(float4));
 }
 
 // One day's backward on `stream`: block_bwd over T minutes (rings of
@@ -979,6 +1277,19 @@ int parasitoids_day_accumulate_bwd_timed(const float* consts, const float* h,
                           ring, dh, dmu, dclip, part, dD, dcell,
                           (cudaStream_t)stream, ev);
   });
+}
+
+// Test-only: the lattice probe (lattice_probe_kernel) over P cases,
+// consts (P, kConsts) and mu (P, 2) device arrays, adding to the four
+// device counters `counts` on `stream`.  K must be at most 118.
+int parasitoids_lattice_probe(const float* consts, const float* mu, int P,
+                              int K, unsigned long long* counts,
+                              void* stream) {
+  if (P < 1 || K < 0 || 2 * K + 2 > kProbeMaxM)
+    return (int)cudaErrorInvalidValue;
+  lattice_probe_kernel<<<P, kBuildThreads, 0, (cudaStream_t)stream>>>(
+      consts, mu, K, counts);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

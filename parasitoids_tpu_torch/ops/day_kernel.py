@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from itertools import accumulate
 
 import numpy as np
 import torch
@@ -56,10 +57,11 @@ from ..device import scalar
 from .bvn import (SELECT, bvn_cell_masses, cell_masses_vjp, corner_rect,
                   genz_branch, gl_nodes)
 
-__all__ = ['LAUNCHES', 'LAUNCHES_BATCHED', 'LAUNCHES_BWD', 'accumulate_day',
-           'accumulate_day_batched', 'accumulate_day_batched_plain',
-           'accumulate_day_bwd', 'accumulate_day_bwd_plain',
-           'accumulate_day_plain', 'pass_ms', 'pass_ms_bwd']
+__all__ = ['LAUNCHES', 'LAUNCHES_BATCHED', 'LAUNCHES_BWD', 'LAYOUT',
+           'accumulate_day', 'accumulate_day_batched',
+           'accumulate_day_batched_plain', 'accumulate_day_bwd',
+           'accumulate_day_bwd_plain', 'accumulate_day_plain',
+           'lattice_probe', 'pass_ms', 'pass_ms_bwd']
 
 # kernel launches so far (one per day accumulated on the card, one per
 # day's backward, and one per day of a particle-batched population); a run
@@ -81,7 +83,18 @@ _CHUNK = 64                          # minutes per gather chunk (C)
 _TILE = 32                           # csrc/day_kernel.cu kTile
 _MAX_CHUNK = 256                     # kGatherThreads: one minute a thread
 _MAX_CHUNKS = 1024                   # kMaxChunks: a tile's chunks
-_N_SCALARS = 16                      # csrc/day_kernel.cu kScalars
+# csrc/day_kernel.cu's kConst* layout of the packed constants: scalar
+# slots, then rows of the 6-, 12- and 20-node low-|ρ| rules back to back
+# and rows of the 20-node high-|ρ| series
+_N_SCALARS = 18                      # kScalars
+_LO_NODES, _HI_NODES = 6 + 12 + 20, 20
+_ROWS = (('kLoSn', _LO_NODES), ('kLoW', _LO_NODES), ('kLoDen', _LO_NODES),
+         ('kLoInvDen', _LO_NODES), ('kHiXs', _HI_NODES),
+         ('kHiRs', _HI_NODES), ('kHiW', _HI_NODES), ('kHiInvXs', _HI_NODES),
+         ('kHiInvEp', _HI_NODES), ('kHiInvRs', _HI_NODES))
+LAYOUT = dict(kA=5, kASq=6, kInvA=16, kInvASq=17, kScalars=_N_SCALARS,
+              **dict(zip([name for name, _ in _ROWS] + ['kConsts'],
+                         accumulate([_N_SCALARS] + [n for _, n in _ROWS]))))
 _SMEM_LIMIT = 232448                 # dynamic shared memory per CTA, H100
 _BWD_MAX_RING = 64                   # most rows of block_bwd's lattice ring
 _BWD_CTAS = 4                        # block_bwd CTAs an SM holds (registers)
@@ -246,12 +259,15 @@ def accumulate_day_bwd_plain(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
 
 
 def _pack_constants(Dparams, cell, device, ct_loss=None, select=False):
-    """Kernel constants (csrc/day_kernel.cu kConst layout), computed on the
-    device from the diffusion parameters with the plain twin's expressions
-    (ops/bvn.py): the scalars, the ρ-only rows of the 6-, 12- and 20-node
-    low-|ρ| rules, and those of the high-|ρ| series.  Every branch is
-    packed, so no host read of ρ is needed.  The backward also reads the
-    raw parameters (for the clamps' VJPs), 1/s and 1/s² with
+    """Kernel constants (csrc/day_kernel.cu kConst layout, :data:`LAYOUT`),
+    computed on the device from the diffusion parameters with the plain
+    twin's expressions (ops/bvn.py): the scalars, the ρ-only rows of the 6-,
+    12- and 20-node low-|ρ| rules, and those of the high-|ρ| series, each
+    divisor of the lattice beside its reciprocal (1/(1 − sn²), 1/a, 1/a²,
+    1/xs, 1/(2(1 + rs)), 1/rs, each the f32 IEEE quotient of 1 by the
+    divisor's f32 value: the kernel's division needs exactly that).  Every
+    branch is packed, so no host read of ρ is needed.  The backward also
+    reads the raw parameters (for the clamps' VJPs), 1/s and 1/s² with
     s² = max(1 − ρ², 1e-12), and the loss cotangent ``ct_loss``.
     ``select``: the kernel takes the select node rule (kSelect = 1).  A
     ``(N, 3)`` tensor of diffusion parameters gives ``(N, kConsts)``, one
@@ -275,13 +291,17 @@ def _pack_constants(Dparams, cell, device, ct_loss=None, select=False):
     s2 = torch.clamp(1.0 - rho * rho, min=1e-12)
     ctl = torch.zeros_like(rho) if ct_loss is None else \
         scalar(ct_loss, f32, device).expand(rho.shape)
+    inv = torch.reciprocal
     scal = torch.stack([sig_x, sig_y, scalar(cell, f32, device).expand(
         rho.shape), rho, torch.sign(rho), a, a_sq, a_half, asr[..., 0],
         raw[0], raw[1], raw[2], 1.0 / torch.sqrt(s2), 1.0 / s2, ctl,
-        torch.full_like(ctl, float(select))], dim=-1)
+        torch.full_like(ctl, float(select)), inv(a), inv(a_sq)], dim=-1)
     assert scal.shape[-1] == _N_SCALARS
-    return torch.cat([scal, *sn, *w, *den, xs, rs, wg.expand(xs.shape)],
-                     dim=-1).contiguous()
+    out = torch.cat([scal, *sn, *w, *den, *map(inv, den), xs, rs,
+                     wg.expand(xs.shape), inv(xs), inv(2.0 * (1.0 + rs)),
+                     inv(rs)], dim=-1).contiguous()
+    assert out.shape[-1] == LAYOUT['kConsts']
+    return out
 
 
 def _cuda_call(lib, fn, smem, K, dev, *args):
@@ -410,6 +430,38 @@ def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
         _count('LAUNCHES', reps)
     del bufs                 # the call waited for the card: safe to free
     return np.frombuffer(ms, dtype=np.float32).reshape(reps, 3).copy()
+
+
+def lattice_probe(Dparams, mu, cell, K, select=False):
+    """The kernel's check that its lattice division changes no bit (a test
+    of the card, on no path of the port): for each of P cases, one
+    minute's corner lattice at half-width ``K`` (at most 118) for the
+    diffusion ``Dparams[i]`` and mean offset ``mu[i]`` (m), every corner
+    as ``block_build`` and as ``block_bwd`` compute it against the same
+    corner with IEEE division at every node.  ``Dparams`` is ``(P, 3)``,
+    ``mu`` ``(P, 2)``, f32 on the card; ``select`` takes the batched
+    launch's node rule.  Returns ``dict(differ=, corners=, ieee=,
+    bwd_vs_fwd=)``: the words that differ from their IEEE twins (both
+    modes), the corners compared, the corners whose run took the IEEE
+    division (out of the exact division's range), and the corners where
+    the backward's value differs from the forward's."""
+    from ._build import load
+    dev = mu.device
+    if dev.type != 'cuda':
+        raise ValueError('lattice_probe checks the CUDA kernel: give it '
+                         'CUDA tensors')
+    if not (torch.is_tensor(Dparams) and Dparams.ndim == 2 and
+            Dparams.shape[1] == 3 and mu.shape == (Dparams.shape[0], 2)):
+        raise ValueError('Dparams must be (P, 3) and mu (P, 2)')
+    lib = load('day_kernel')
+    consts = _pack_constants(Dparams, cell, dev, select=select)
+    mu = mu.to(torch.float32).contiguous()
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    _cuda_call(lib, 'parasitoids_lattice_probe', 0, K, dev,
+               consts.data_ptr(), mu.data_ptr(), mu.shape[0], K,
+               counts.data_ptr())
+    return dict(zip(('differ', 'corners', 'ieee', 'bwd_vs_fwd'),
+                    (int(v) for v in counts.cpu())))
 
 
 def _backward_args(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,

@@ -4,6 +4,7 @@
                                       [--ptxas]
     python scripts/time_day_kernel.py --bwd [--ks 22,44,88] [--reps 20]
                                       [--ptxas]
+    python scripts/time_day_kernel.py --particles 1,8,64 [--reps 20]
 
 Forward (default): on Kalbar day 9 at the headline shapes (801², T = 1440,
 K = 44, buffer 977²), at ρ = 0.253 (K1, 6-node rule) and ρ = 0.99 (K2),
@@ -17,6 +18,13 @@ on day 9 at ρ = 0.253 (K3) and ρ = 0.99 (K4), for the prior-coverage
 window K = 22, 44, 88 (the 10 km domain in cells of 50, 25 and 12.5 m),
 against a seeded random cotangent, with the height of the lattice ring
 that the wrapper picks for each K.
+
+``--particles``: the particle-batched launch (``accumulate_day_batched``,
+the select node rule) on day 9 of the Bayes default (801², K = 44) for the
+first N of the prior's particles (seed 18, as smoke [18] draws them), for
+each N: the three passes' median device milliseconds, their sum, and the
+bound (chip_smoke.py's: the exps, f32 operations and bytes these
+particles' inputs need, at the card's rates).
 
 ``--ptxas`` first compiles ``csrc/day_kernel.cu`` with ``-Xptxas -v`` and
 prints each kernel's registers, shared memory and spills.  Needs a CUDA
@@ -127,6 +135,31 @@ def time_backward(args):
                                              *ms, float(ms.sum())))
 
 
+def time_particles(args):
+    import chip_smoke
+    from parasitoids_tpu_torch.bayes import run as bayes_run
+    from parasitoids_tpu_torch.bayes.priors import sample_prior_model
+    from parasitoids_tpu_torch.ops import day_kernel
+    counts = [int(n) for n in args.particles.split(',')]
+    setup = bayes_run.build_setup(device='cuda')
+    m = sample_prior_model(torch.Generator().manual_seed(18),
+                           max(counts)).to('cuda')
+    rate = chip_smoke.sfu_rate()
+    for n in counts:
+        a = chip_smoke.batched_day(setup, m[:n], 9)
+        h, mu, idx, clip, Dp, cell, K, buf_len = a
+        day_kernel.pass_ms(*a, reps=2)                      # warm-up
+        ms = np.median(day_kernel.pass_ms(*a, reps=args.reps), axis=0)
+        work = np.sum([chip_smoke.forward_counts(
+            h[i], mu[i], tuple(Dp[i]), cell, K, buf_len, select=True)
+            for i in range(n)], axis=0)
+        b, by, what = chip_smoke.bound(*work, rate)
+        print('day 9, {} particle(s): block_build {:.4f} ms, gather {:.4f} '
+              'ms, reduce {:.4f} ms, kernels {:.4f} ms (median of {}); '
+              'bound {:.4f} ms by {} ({})'.format(n, *ms, float(ms.sum()),
+                                                  args.reps, b, by, what))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--chunks', default='64')
@@ -134,6 +167,9 @@ def main():
     ap.add_argument('--ptxas', action='store_true')
     ap.add_argument('--bwd', action='store_true')
     ap.add_argument('--ks', default='22,44,88')
+    ap.add_argument('--particles', default=None,
+                    help='time the particle-batched launch for these '
+                         'particle counts, e.g. 1,8,64')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('time_day_kernel: needs a CUDA device')
@@ -145,7 +181,10 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip()
     print('card: ' + smi)
-    (time_backward if args.bwd else time_forward)(args)
+    if args.particles:
+        time_particles(args)
+    else:
+        (time_backward if args.bwd else time_forward)(args)
 
 
 if __name__ == '__main__':

@@ -124,8 +124,12 @@ def test_kernel_constants_match_jax(rho):
     np.testing.assert_allclose(
         packed[:9], [21.1, 10.6, 25.0, rho, sgn, a, a_sq, a / 2, float(asr)],
         rtol=1e-6)
-    want = np.concatenate(sn + w + den + [np.asarray(hi_quad[0]),
-                                          1.0 / np.asarray(hi_quad[3]),
-                                          w_np])
-    np.testing.assert_allclose(packed[16:], want, rtol=1e-5, atol=1e-7)
-    assert packed.shape == (16 + 3 * 38 + 3 * 20,)
+    L = day_kernel.LAYOUT
+    want = np.concatenate(sn + w + den)
+    np.testing.assert_allclose(packed[L['kLoSn']:L['kLoInvDen']], want,
+                               rtol=1e-5, atol=1e-7)
+    want = np.concatenate([np.asarray(hi_quad[0]),
+                           1.0 / np.asarray(hi_quad[3]), w_np])
+    np.testing.assert_allclose(packed[L['kHiXs']:L['kHiInvXs']], want,
+                               rtol=1e-5, atol=1e-7)
+    assert packed.shape == (L['kConsts'],)

@@ -9,7 +9,8 @@ from tests._torch_parity import (HPARAMS, MAP_SMALL,  # noqa: F401
                                  cuda_device, exact_support_mask, torch,
                                  wind)
 
-from chip_smoke import BWD_ATOL, BWD_RTOL
+from chip_smoke import (BWD_ATOL, BWD_RTOL, PROBE_CELL, PROBE_KS,
+                        probe_cases)
 from parasitoids_tpu_torch.ops import daily_kernel as tdk
 from parasitoids_tpu_torch.ops import day_kernel
 
@@ -664,3 +665,16 @@ def test_batched_smc_moves_launch_once_a_day(cuda_device):
                     checkpoint=stop_at(3, mono))
     assert _same_states(mono['states'], resumed['states'])
     assert mono['logz'] == resumed['logz']
+
+
+@pytest.mark.parametrize('select', [False, True])
+@pytest.mark.parametrize('K', PROBE_KS)
+def test_lattice_division_changes_no_bit(cuda_device, K, select):
+    # the lattice probe: every corner of chip_smoke's probe cases (every
+    # node rule, far tails included) through the kernel's exact division
+    # is bitwise the same corner through the IEEE division, as block_build
+    # and as block_bwd compute it
+    Dp, mu = probe_cases(K, cuda_device)
+    counts = day_kernel.lattice_probe(Dp, mu, PROBE_CELL, K, select=select)
+    assert counts['corners'] == Dp.shape[0] * (2 * K + 2) ** 2
+    assert counts['differ'] == 0, counts

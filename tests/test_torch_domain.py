@@ -10,9 +10,11 @@ projections and log posterior to JAX's ``with_forward_mesh`` at those of
 test_torch_map.py.  Two sharded runs give the same bits.
 
 One kernel cell of this configuration lies at the 1e-8 sparsity
-threshold of ``finish_day``: the port's BVN rule (Genz's by |ρ|) puts
-9.9e-9 there and JAX's XLA rule (16 nodes) 1.02e-8, so the unsharded
-builders already disagree by the renormalized mass there.  The JAX
+threshold of ``finish_day``: the port puts 9.9e-9 there and JAX's XLA
+path 1.02e-8.  Both take Genz's node count by |ρ| (JAX's
+``bvn_cell_masses`` ignores ``G``), so the gap is the order of their f32
+arithmetic, and the unsharded builders already disagree by the
+renormalized mass there.  The JAX
 comparison holds the sharded kernels to 2e-6 everywhere else and asks
 that sharding move no other cell across."""
 
