@@ -47,9 +47,17 @@ meshes at the Bayes default: the minute-sharded forward
 times, or one shard a card where there are several) against the unsharded
 one, its value+gradient through K1/K3 on every shard, and the chain,
 store, replica, particle (in turn and batched) and draw meshes each
-bitwise their runs without a mesh.  Any failed phase
-exits non-zero.  ``--only 11,12`` (or ``--only 20``) runs some phases alone,
-without the result line (a development run).  The last line is a JSON
+bitwise their runs without a mesh.  Then [21] the evaluation replayed as
+CUDA graphs (``utils/graphs.py``; every phase before it runs through them
+where the setup is on the card with the day kernel): the no-gradient
+forward, the value+gradient and the batched forward of 8 particles at the
+Bayes default, each bitwise its eager run for two parameter sets, and
+eager against graphed in turns, the seconds, device kernels, host launch
+calls and device busy time of an AM step, a value+gradient and a batched
+SMC move round, with each capture's seconds and graph-pool bytes.  Any
+failed phase exits non-zero.  ``--only 11,12`` (or ``--only 20``, ``--only
+21``) runs some phases alone, without the result line (a development
+run).  The last line is a JSON
 object with ``"ok": true`` and the device; the line before it lists the
 kernels with their launches, errors, times (the forward's three passes and
 the backward's two launches also timed alone, with CUDA events around the
@@ -378,7 +386,7 @@ def phase_kernel_vs_plain(dev, card, rate):
     from parasitoids_tpu_torch.ops.daily_kernel import day_scatter_inputs
     from parasitoids_tpu_torch.ops.day_kernel import (accumulate_day,
                                                       accumulate_day_plain,
-                                                      pass_ms)
+                                                      pack_constants, pass_ms)
     print('[3] kernel vs plain on the card (D = 801, T = 1440, K = 44)')
     check_packed_reciprocals(dev)
     check_lattice_probe(dev, select=False)
@@ -423,7 +431,10 @@ def phase_kernel_vs_plain(dev, card, rate):
             err['rel'] = max(err['rel'], rel)
             if day == 9 and rho in (0.253, 0.99):
                 passes = pass_ms(*args, reps=20)
+                consts = pack_constants(Dp, cell, dev)
                 t = dict(ms=median_ms(lambda: accumulate_day(*args), 20),
+                         ms_hoisted=median_ms(lambda: accumulate_day(
+                             *args, consts=consts), 20),
                          plain_ms=median_ms(
                              lambda: accumulate_day_plain(*args), 5),
                          passes=np.median(passes, axis=0).tolist(),
@@ -433,12 +444,14 @@ def phase_kernel_vs_plain(dev, card, rate):
                 timing[branch] = t
                 print('  day 9 {}: kernels {:.4f} ms (block_build {:.4f}, '
                       'gather {:.4f}, reduce {:.4f}; CUDA events around the '
-                      'kernels alone, median of 20); wrapper {:.4f} ms; '
-                      'plain {:.4f} ms; bound {:.4f} ms by {} ({}), '
-                      'bound / kernels {:.3f} ({})'.format(
+                      'kernels alone, median of 20); wrapper {:.4f} ms '
+                      '({:.4f} ms given the constants packed once, as the '
+                      'day loop gives them); plain {:.4f} ms; bound {:.4f} '
+                      'ms by {} ({}), bound / kernels {:.3f} ({})'.format(
                           branch, t['kernel_ms'], *t['passes'], t['ms'],
-                          t['plain_ms'], t['bound_ms'], t['bound_by'], what,
-                          t['bound_ms'] / t['kernel_ms'], card))
+                          t['ms_hoisted'], t['plain_ms'], t['bound_ms'],
+                          t['bound_by'], what, t['bound_ms'] / t['kernel_ms'],
+                          card))
     return err, timing
 
 
@@ -643,6 +656,7 @@ def phase_backward_vs_plain(dev, card, rate):
     from parasitoids_tpu_torch.ops.daily_kernel import day_scatter_inputs
     from parasitoids_tpu_torch.ops.day_kernel import (accumulate_day_bwd,
                                                       accumulate_day_bwd_plain,
+                                                      pack_constants,
                                                       pass_ms_bwd)
     print('[6] backward kernel vs plain on the card (D = 801, T = 1440, '
           'K = 44)')
@@ -684,7 +698,10 @@ def phase_backward_vs_plain(dev, card, rate):
                 if K != 44 or day != 9 or rho not in (0.253, 0.99):
                     continue
                 passes = pass_ms_bwd(*args, reps=20)
+                consts = pack_constants(Dp, cell, dev)
                 t = dict(ms=median_ms(lambda: accumulate_day_bwd(*args), 20),
+                         ms_hoisted=median_ms(lambda: accumulate_day_bwd(
+                             *args, consts=consts), 20),
                          plain_ms=median_ms(
                              lambda: accumulate_day_bwd_plain(*args), 5),
                          passes=np.median(passes, axis=0).tolist(),
@@ -694,12 +711,14 @@ def phase_backward_vs_plain(dev, card, rate):
                 timing[branch] = t
                 print('  day 9 {}: kernels {:.4f} ms (block_bwd {:.4f}, '
                       'bwd_reduce {:.4f}; CUDA events around the kernels '
-                      'alone, median of 20); wrapper {:.4f} ms; plain {:.4f} '
+                      'alone, median of 20); wrapper {:.4f} ms ({:.4f} ms '
+                      'given the forward\'s row of constants); plain {:.4f} '
                       'ms; bound {:.4f} ms by {} ({}), bound / kernels {:.3f} '
                       '({})'.format(
                           branch, t['kernel_ms'], *t['passes'], t['ms'],
-                          t['plain_ms'], t['bound_ms'], t['bound_by'], what,
-                          t['bound_ms'] / t['kernel_ms'], card))
+                          t['ms_hoisted'], t['plain_ms'], t['bound_ms'],
+                          t['bound_by'], what, t['bound_ms'] / t['kernel_ms'],
+                          card))
     return worst, worst_abs, timing
 
 
@@ -2629,6 +2648,170 @@ def phase_meshes(dev, card, rate, work):
             'peak_sharded': peaks['sharded'], 'sec_phase': sec_phase}
 
 
+def profiled(fn, reps):
+    """Device kernels, device busy seconds and host launch calls per call
+    of ``fn`` over ``reps`` calls under the profiler (CUPTI)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU and
+            'Launch' in e.key]
+    return (sum(e.count for e in on_card) / reps,
+            sum(e.self_device_time_total for e in on_card) * 1e-6 / reps,
+            sum(e.count for e in host) / reps)
+
+
+def in_turns(calls, reps):
+    """Median host seconds per call of ``calls['eager']`` and
+    ``calls['graph']`` (each ending in a synchronize), ``reps`` calls each
+    in the turns eager, graph, graph, eager."""
+    secs = {'eager': [], 'graph': []}
+    for kind in ('eager', 'graph', 'graph', 'eager'):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            calls[kind]()
+            torch.cuda.synchronize()
+            secs[kind].append(time.perf_counter() - tic)
+    return {k: float(np.median(v)) for k, v in secs.items()}
+
+
+def phase_graphs(dev, card):
+    """The evaluation replayed as CUDA graphs (``utils/graphs.py``) at the
+    Bayes default (801², 25 m, K = 44, Kl = 20, 18 days): the no-gradient
+    forward, the value+gradient (pre-spread day) and the batched forward
+    of 8 prior particles, each bitwise its eager run for two parameter
+    sets; then, eager against graphed in turns, seconds, device kernels,
+    host launch calls and device busy seconds of an AM step, a
+    value+gradient (a NUTS leapfrog's evaluation) and a batched SMC move
+    round of 8, and every capture's seconds and graph-pool bytes."""
+    import copy
+
+    from parasitoids_tpu_torch.bayes import map_fit, sampler, smc
+    from parasitoids_tpu_torch.bayes.model import (BayesSetup, _as_model,
+                                                   _kalbar_default_params)
+    from parasitoids_tpu_torch.bayes.priors import sample_prior_model
+    from parasitoids_tpu_torch.ops import day_kernel
+    print('[21] the evaluation as CUDA graphs at the Bayes default (801^2, '
+          '18 days, K = 44, Kl = 20): graph replay against the eager path')
+    tic_phase = time.perf_counter()
+    setup = BayesSetup(_kalbar_default_params(), device=dev)
+    eager = copy.copy(setup)
+    eager._replays_graphs = lambda: False
+    check(setup._replays_graphs() and setup.setup.kcfg.K == 44 and
+          setup.ndays == 18, 'the setup replays graphs through the day '
+          'kernel (K = 44, 18 days); its copy runs eagerly')
+
+    # 1. bitwise, two parameter sets a key
+    neg = {k: map_fit._make_objective(s, True)[0]
+           for k, s in (('graph', setup), ('eager', eager))}
+    _, constrain, _ = map_fit._make_objective(setup, True)
+    z0 = map_fit.initial_z(setup, True)
+    for i, z in enumerate((z0, z0 + 0.01)):
+        m, _, sprd = constrain(z)
+        with torch.no_grad():
+            a, b = [flat_proj(s.forward_projections(_as_model(m), sprd))
+                    for s in (setup, eager)]
+        check(torch.equal(a, b), 'parameter set {}: the no-gradient forward '
+              'replayed bitwise its eager run ({} projections)'.format(
+                  i, a.numel()))
+        before = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+        (va, ga), (vb, gb) = [value_and_grad(neg[k], z)
+                              for k in ('graph', 'eager')]
+        torch.cuda.synchronize()
+        check(va == vb and np.array_equal(ga, gb) and
+              (day_kernel.LAUNCHES - before[0],
+               day_kernel.LAUNCHES_BWD - before[1]) == (36, 36),
+              'parameter set {}: the value+gradient replayed bitwise its '
+              'eager run (value {!r}, {} components); 18 K1 and 18 K3 '
+              'launches each'.format(i, va, ga.size))
+    bsetup, beager = setup.with_batched_bvn(), eager.with_batched_bvn()
+    for seed in (18, 19):
+        m8 = _as_model(sample_prior_model(torch.Generator().manual_seed(seed),
+                                          8).to(dev))
+        before = day_kernel.LAUNCHES_BATCHED
+        with torch.no_grad():
+            a, b = [flat_proj(s.forward_projections(m8))
+                    for s in (bsetup, beager)]
+        check(torch.equal(a, b) and
+              day_kernel.LAUNCHES_BATCHED - before == 36,
+              'prior draws of seed {}: the batched forward of 8 particles '
+              'replayed bitwise its eager run ({} projections; 18 batched '
+              'launches each)'.format(seed, a.numel()))
+
+    # 2. eager against graphed: an AM step, a value+gradient, a batched
+    # move round of 8
+    cfg = smc.SMCConfig(n_particles=8, n_moves=1)
+    states = smc.init_smc_particles(eager, 0, 8)
+    am = {k: [sampler.init_chain_state(s, sampler.chain_generator(0, 0, dev))]
+          for k, s in (('graph', setup), ('eager', eager))}
+    moved = {'graph': [states], 'eager': [states]}
+
+    def am_step(kind):
+        s = setup if kind == 'graph' else eager
+        am[kind][0] = sampler._mcmc_step(s, am[kind][0],
+                                         sampler.MCMCConfig(1))[0]
+
+    def move_round(kind):
+        s = bsetup if kind == 'graph' else beager
+        moved[kind][0] = smc._move_prog(s, moved[kind][0], 0.5, 1,
+                                        cfg.obs_scale, cfg.obs_sweeps, None,
+                                        None, True)
+
+    paths = {
+        'AM step': (am_step, 10),
+        'value+gradient (a NUTS leapfrog\'s evaluation)': (
+            lambda kind: value_and_grad(neg[kind], z0), 5),
+        'batched SMC move round of 8': (move_round, 3)}
+    out = {}
+    for name, (fn, reps) in paths.items():
+        for kind in ('graph', 'eager'):
+            fn(kind)                   # a capture comes before the timing
+        sec = in_turns({k: (lambda k=k: fn(k)) for k in ('eager', 'graph')},
+                       reps)
+        prof = {k: profiled(lambda k=k: fn(k), 2) for k in ('eager', 'graph')}
+        out[name] = dict(sec=sec, prof=prof)
+        for k in ('eager', 'graph'):
+            kernels, busy, host = prof[k]
+            print('  {}, {}: {:.4f} s (median of {} in turns), {:.0f} device '
+                  'kernels, {:.0f} host launch calls, device busy {:.4f} s '
+                  '(idle share {:.3f}; {})'.format(
+                      name, k, sec[k], 2 * reps, kernels, host, busy,
+                      1.0 - busy / sec[k], card))
+        print('  {}: graphed / eager {:.3f}'.format(
+            name, sec['graph'] / sec['eager']))
+    caps = setup.graphs.summary()
+    for key, seconds, pool in caps:
+        print('  capture {} ({}): {:.3f} s, graph pool {:.1f} MiB'.format(
+            key[0][:2], 'gradient' if key[1] else 'no gradient', seconds,
+            pool / 2 ** 20))
+    sec_phase = time.perf_counter() - tic_phase
+    print('  phase [21]: {:.1f} s'.format(sec_phase))
+    pick = lambda name, k: out[name]['sec'][k]
+    names = list(paths)
+    return {
+        'sec_per_am_step_801_eager': pick(names[0], 'eager'),
+        'sec_per_am_step_801_graphed': pick(names[0], 'graph'),
+        'sec_per_value_and_grad_801_eager': pick(names[1], 'eager'),
+        'sec_per_value_and_grad_801_graphed': pick(names[1], 'graph'),
+        'sec_per_batched_round_of_8_801_eager': pick(names[2], 'eager'),
+        'sec_per_batched_round_of_8_801_graphed': pick(names[2], 'graph'),
+        'device_busy_sec_eager_graphed': {
+            n: [out[n]['prof'][k][1] for k in ('eager', 'graph')]
+            for n in names},
+        'captures': len(caps),
+        'capture_sec_max': max(c[1] for c in caps),
+        'graph_pool_bytes': sum(c[2] for c in caps),
+        'sec_phase_21': sec_phase}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(prog='chip_smoke.py')
@@ -2637,7 +2820,8 @@ def main(argv=None):
                          'imports always run; 13 needs 9), e.g. 14,15,16,17 '
                          'for the tempered and evidence samplers, 18,19 for '
                          'the batched SMC moves and the forward variants, 20 '
-                         'for the meshes; no result line')
+                         'for the meshes, 21 for the evaluation as CUDA '
+                         'graphs; no result line')
     args = ap.parse_args(argv)
     only = (None if args.only is None else
             {int(v) for v in args.only.split(',')})
@@ -2702,6 +2886,7 @@ def run(only, work):
     bat = phase_smc_batched(dev, card, rate, work, smc_sec)
     trunc_sec, var_k1, p19_phase = phase_variants(dev, card, work)
     mesh = phase_meshes(dev, card, rate, work)
+    graphed = phase_graphs(dev, card)
     check(launches > 0 and min(map_launches) > 0 and am_launches > 0 and
           min(nuts_k1, nuts_k3) > 0 and min(lap_launches) > 0 and
           min(ridge_k1, ridge_k3) > 0 and sum_k1 > 0 and
@@ -2752,7 +2937,8 @@ def run(only, work):
         'max_abs_err': max(err['K1'], err['K2']),
         'max_abs_err_k1': err['K1'], 'max_abs_err_k2': err['K2'],
         'max_err_over_peak': err['rel'],
-        'ms': k1['ms'], 'plain_ms': k1['plain_ms'],
+        'ms': k1['ms'], 'ms_constants_packed_once': k1['ms_hoisted'],
+        'plain_ms': k1['plain_ms'],
         'kernel_ms': k1['kernel_ms'],
         'block_build_ms': k1['passes'][0], 'gather_ms': k1['passes'][1],
         'reduce_ms': k1['passes'][2],
@@ -2772,6 +2958,7 @@ def run(only, work):
         'sec_per_am_obs_sweep_801': am_sweep,
         'device_launches_per_am_step_801': am_per_step,
         'device_busy_sec_per_am_step_801': am_busy,
+        'graph_replay_801': graphed,
     }, {
         'name': 'day_accumulate_bwd (K3 low-|rho| + K4 high-|rho|)',
         'route': 'cuda',
@@ -2798,7 +2985,8 @@ def run(only, work):
         'max_abs_err': max(bwd_abs.values()),
         'max_err_over_scale_k3': bwd_err['K3'],
         'max_err_over_scale_k4': bwd_err['K4'],
-        'ms': k3['ms'], 'plain_ms': k3['plain_ms'],
+        'ms': k3['ms'], 'ms_constants_packed_once': k3['ms_hoisted'],
+        'plain_ms': k3['plain_ms'],
         'kernel_ms': k3['kernel_ms'],
         'block_bwd_ms': k3['passes'][0], 'bwd_reduce_ms': k3['passes'][1],
         'bound_ms': k3['bound_ms'], 'bound_by': k3['bound_by'],
@@ -2890,7 +3078,8 @@ def run_some(only, dev, card, rate, work):
         17: lambda: phase_sbc_and_anneals(dev, card, work),
         18: lambda: phase_smc_batched(dev, card, rate, work),
         19: lambda: phase_variants(dev, card, work),
-        20: lambda: phase_meshes(dev, card, rate, work)}
+        20: lambda: phase_meshes(dev, card, rate, work),
+        21: lambda: phase_graphs(dev, card)}
     failed = []
     for n in sorted(only | ({9} if 13 in only else set())):
         tic = time.perf_counter()

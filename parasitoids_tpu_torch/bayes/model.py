@@ -16,7 +16,10 @@ autograd: on CUDA the day loop goes through the hand-written day kernel
 and its backward (``ops/day_kernel.py``), and the graph keeps only the
 per-minute inputs of each day, so no per-day checkpoint is needed (the
 JAX model needs ``jax.checkpoint`` because its XLA path stores the
-per-minute lattices).  The optional Kalbar pre-wind spread day
+per-minute lattices).  On the card the evaluation after its host read
+replays a captured CUDA graph, gradient included (``utils/graphs.py``,
+the counterpart of the JAX model's ``jit``).  The optional Kalbar
+pre-wind spread day
 (``sprd_factor``, Bayes_Run.py:241-267 and Bayes_MAP.py:200-277)
 prepends a mixture of drifted flight spread and local spread.
 """
@@ -26,7 +29,7 @@ from __future__ import annotations
 import copy
 import math
 import weakref
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -42,6 +45,7 @@ from ..models.forward import (ForwardSetup, build_all_kernels,
 from ..models.observe import ObservationOps
 from ..models.solver import propagate_pop
 from ..ops.bvn import bvn_cell_masses, bvn_cell_masses_batched, genz_branch
+from ..utils import graphs
 from .priors import ModelParams, ObsParams, log_prior_model, log_prior_obs
 
 __all__ = ['BayesSetup', 'poisson_logpmf', 'poisson_loglik',
@@ -136,6 +140,21 @@ def _moved(x, device):
     return x
 
 
+@lru_cache(maxsize=None)
+def _pre_spread_constants(res, c, dtype, device):
+    """The pre-spread day's constants for cell side ``res`` and centre
+    cell ``c``, made once per setup and device (a host-to-card copy inside
+    an evaluation would wait for the card, and cannot be captured): the
+    drift's whole-cell offsets (x, y) on the host, its sub-cell remainder
+    (m) and the centre index on ``device``."""
+    drift = np.array([-25.0, 15.0])
+    dint = np.floor(drift / res).astype(int)        # cell offsets (x, y)
+    drem = drift - dint * res                        # sub-cell remainder
+    return (tuple(int(v) for v in dint),
+            torch.as_tensor(drem, dtype=dtype, device=device),
+            torch.tensor([c], device=device))
+
+
 def _kalbar_default_params():
     params = Params()
     params.cmd_line_chg(['--kalbar'])
@@ -219,6 +238,9 @@ class BayesSetup:
         self.dist_weights = dev(self.setup.dist_weights)
         self.r_dur = int(params.r_dur)
         self.r_number = float(params.r_number)
+        # captured CUDA graphs of the evaluation (utils/graphs.py), shared
+        # by the shallow copies, whose forward is this one's
+        self.graphs = graphs.GraphCache()
         if forward_mesh is not None:
             self._check_forward_mesh(forward_mesh)
             self.forward_mesh = forward_mesh
@@ -378,11 +400,9 @@ class BayesSetup:
         dtype = self.setup.wind_flat.dtype
         device = self.setup.wind_flat.device
         D = 2 * kcfg.rad_res + 1
-        drift = np.array([-25.0, 15.0])
-        dint = np.floor(drift / res).astype(int)        # cell offsets (x, y)
-        drem = drift - dint * res                        # sub-cell remainder
+        c = kcfg.rad_res
+        dint, drem_t, centre = _pre_spread_constants(res, c, dtype, device)
         K, Kl = kcfg.K, kcfg.K_local
-        drem_t = torch.as_tensor(drem, dtype=dtype, device=device)
         if kcfg.batched_bvn:
             lead = tuple(torch.as_tensor(m.sig_x).shape)
             long_spread = bvn_cell_masses_batched(
@@ -397,7 +417,6 @@ class BayesSetup:
                 torch.zeros(2, dtype=dtype, device=device), m.sig_xl,
                 m.sig_yl, m.corr_l, res, Kl, branches[1])
         sprd = _per(scalar(sprd_factor, dtype, device))
-        c = kcfg.rad_res
 
         def place(block, row, col):
             # a block at (row, col) of a zero D x D field; the start is
@@ -414,7 +433,6 @@ class BayesSetup:
             rest = torch.clamp(1.0 - field.sum(dim=(-2, -1)), min=0.0)
             return field + F.pad(rest[:, None, None],
                                  (c, D - c - 1, c, D - c - 1))
-        centre = torch.tensor([c], device=device)
         return field.index_put(
             (centre, centre),
             torch.clamp(1.0 - field.sum(), min=0.0).reshape(1),
@@ -432,7 +450,51 @@ class BayesSetup:
         ``(N,)`` tensor (``sprd_factor`` a number or ``(N,)``): N
         parameter sets go through one batched forward, every day one
         launch of the particle-batched kernel on the card, with no host
-        read, and each projection gains a leading particle axis."""
+        read, and each projection gains a leading particle axis.
+
+        On the card with the day kernel, the evaluation after its host
+        read replays a captured CUDA graph (``utils/graphs.py``; the first
+        evaluation of a key captures it), its gradient too; the CPU, a
+        forward mesh and the plain, ``ref_trunc`` and f64 paths run
+        :meth:`_forward_projections_eager`, which gives the same bits."""
+        s = self.setup
+        if branches is None and not s.kcfg.batched_bvn:
+            branches, _ = self._branches(m)
+        if not self._replays_graphs():
+            return self._forward_projections_eager(m, sprd_factor, branches)
+        return self._forward_projections_graphed(m, sprd_factor, branches)
+
+    def _replays_graphs(self):
+        """Whether :meth:`forward_projections` replays captured graphs: on
+        the card, through the day kernel, without a forward mesh."""
+        k = self.setup.kcfg
+        return (self.setup.wind_flat.device.type == 'cuda' and k.pallas and
+                not k.ref_trunc and self.forward_mesh is None)
+
+    def _forward_projections_graphed(self, m: ModelParams, sprd_factor=None,
+                                     branches=None):
+        """:meth:`_forward_projections_eager` as a function of one stacked
+        parameter vector (and ``sprd_factor``) through
+        ``utils.graphs.evaluate``: a replay of the captured graph of its
+        key on the card, the function itself on the CPU.  The key holds
+        the Genz branches (one parameter set) or the particle count."""
+        s = self.setup
+        dtype, dev = s.wind_flat.dtype, s.wind_flat.device
+        batched = s.kcfg.batched_bvn
+        args = [torch.stack([scalar(v, dtype, dev) for v in m], dim=-1)]
+        if sprd_factor is not None:
+            args.append(scalar(sprd_factor, dtype, dev))
+        key = ('batched', args[0].shape[0]) if batched else \
+            ('single', tuple(branches))
+
+        def fn(vec, sprd=None):
+            return self._forward_projections_eager(_as_model(vec), sprd,
+                                                   branches)
+        return graphs.evaluate(self.graphs, key, fn, args)
+
+    def _forward_projections_eager(self, m: ModelParams, sprd_factor=None,
+                                   branches=None):
+        """:meth:`forward_projections` run eagerly, launch by launch."""
         s = self.setup
         if s.kcfg.batched_bvn:
             return self._forward_projections_batched(m, sprd_factor)

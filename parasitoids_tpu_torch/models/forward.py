@@ -4,8 +4,12 @@ wind -> per-day dispersal kernels -> FFT-chained daily fields.
 
 Kernel construction is a Python loop over days (the JAX package's
 ``lax.scan``); each day's minutes go through the CUDA day kernel on the
-card, or the plain accumulate on the CPU.  The loop reads nothing back
-from the card: :func:`simulate` waits once per phase, for its timings.
+card, or the plain accumulate on the CPU, and what the days share (the
+kernel's packed constants, the local-diffusion block) is made once before
+the loop.  The loop reads nothing back from the card: :func:`simulate`
+waits once per phase, for its timings.  The Bayes layer replays the loop
+as a captured CUDA graph (``utils/graphs.py``); :func:`simulate` runs it
+eagerly.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from ..config import Params
 from ..device import pick_device, pick_dtype, pin_full_f32
 from ..io import get_wind_data, pack_wind
 from ..ops.daily_kernel import (KernelConfig, build_daily_kernel,
-                                build_daily_kernel_batched)
+                                build_daily_kernel_batched, day_invariants)
 from ..utils.checks import warn_on_loss
 from .solver import SolverConfig, propagate_pop, propagate_prob
 
@@ -161,10 +165,14 @@ def build_all_kernels(wind_flat, wind_cumsum, hparams, Dparams, Dlparams,
     package's scan over days); returns ``((ndays, D, D), (ndays,) losses)``
     on ``wind_flat``'s device.  The parameters may be tensors that require
     grad; ``branches`` (see ``build_daily_kernel``) spares a host read of
-    each tensor ρ per day."""
+    each tensor ρ per day.  What the days share (the day kernel's packed
+    constants, the local-diffusion block) is made once, before the loop."""
+    inv = day_invariants(Dparams, Dlparams, rad_dist, kcfg,
+                         wind_flat.device, wind_flat.dtype, branches[1])
     days = [build_daily_kernel(wind_flat, wind_cumsum, d, hparams, Dparams,
                                Dlparams, mu_r, n_periods, rad_dist,
-                               start_idx if d == 0 else 0, kcfg, branches)
+                               start_idx if d == 0 else 0, kcfg, branches,
+                               inv)
             for d in range(ndays)]
     # stacked out of place, so the result is differentiable in every
     # parameter (the day kernel's backward keeps only per-minute inputs, so
@@ -181,10 +189,12 @@ def build_all_kernels_batched(wind_flat, wind_cumsum, hparams, Dparams,
     tuples of them), with the select node rule: ``((N, ndays, D, D),
     (N, ndays) losses)``.  On the card with ``kcfg.pallas`` every day is
     one launch of the particle-batched day kernel; nothing reads the
-    card."""
+    card.  The packed constants and the local block are made once."""
+    inv = day_invariants(Dparams, Dlparams, rad_dist, kcfg,
+                         wind_flat.device, wind_flat.dtype, batched=True)
     days = [build_daily_kernel_batched(
         wind_flat, wind_cumsum, d, hparams, Dparams, Dlparams, mu_r,
-        n_periods, rad_dist, start_idx if d == 0 else 0, kcfg)
+        n_periods, rad_dist, start_idx if d == 0 else 0, kcfg, inv)
         for d in range(ndays)]
     return (torch.stack([pmf for pmf, _ in days], dim=1),
             torch.stack([loss for _, loss in days], dim=1))

@@ -9,7 +9,9 @@ crop, loss accounting, the "didn't fly" local-diffusion remainder and the
 sparsify-and-renormalize of ``CalcSol.r_small_vals``.  The result is a
 dense ``(2*rad_res+1)²`` pmf.  Nothing here reads a device value on the
 host when the caller passes the Genz branches of its tensor ρ, so such a
-day loop on CUDA never waits on the card.
+day loop on CUDA never waits on the card.  What every day of one
+evaluation shares (:func:`day_invariants`: the day kernel's packed
+constants and the local-diffusion block) a day loop makes once.
 
 Two modes of the JAX builder are kept: ``ref_trunc`` (the reference's
 adaptive ring-expansion stopping rule, :func:`ring_truncate`, a parity
@@ -30,12 +32,13 @@ import torch
 from ..device import scalar
 from .bvn import SELECT, bvn_cell_masses, bvn_cell_masses_batched
 from .day_kernel import (accumulate_day, accumulate_day_batched,
-                         accumulate_day_batched_plain, accumulate_day_plain)
+                         accumulate_day_batched_plain, accumulate_day_plain,
+                         pack_constants)
 from .flight import h_flight_prob
 
 __all__ = ['KernelConfig', 'build_daily_kernel', 'build_daily_kernel_batched',
-           'day_scatter_inputs', 'finish_day', 'r_small_vals_dense',
-           'ring_truncate']
+           'day_invariants', 'day_scatter_inputs', 'finish_day',
+           'local_block', 'r_small_vals_dense', 'ring_truncate']
 
 _SECONDS_PER_DAY = 3600 * 24
 _NEGVAL = 1e-8  # sparsity threshold, ref CalcSol.py:112
@@ -159,19 +162,42 @@ def day_scatter_inputs(wind_flat, wind_cumsum, day_idx, hparams, mu_r,
     return h_scat, cdf_mu, idx, clip_f, outside_loss
 
 
+def local_block(Dlparams, config: KernelConfig, rad_dist, lead, dtype,
+                device, branch=None):
+    """The "didn't fly" local-diffusion block, ``lead + (2Kl+1, 2Kl+1)``:
+    the same for every day of one evaluation, so a day loop builds it once
+    (:func:`day_invariants`).  ``branch``: see :func:`finish_day`;
+    ``batched_bvn`` takes the select node rule, ``ref_trunc`` the
+    reference's ring expansion."""
+    Kl = config.K_local
+    cell = rad_dist / config.rad_res
+    sl_x, sl_y, sl_rho = Dlparams
+    zero_mu = torch.zeros(tuple(lead) + (2,), dtype=dtype, device=device)
+    if config.batched_bvn:
+        local = bvn_cell_masses_batched(zero_mu, sl_x, sl_y, sl_rho, cell, Kl)
+    else:
+        local = bvn_cell_masses(zero_mu, sl_x, sl_y, sl_rho, cell, Kl, branch)
+    if config.ref_trunc:
+        # the reference builds the local kernel with the same ring
+        # expansion (ParasitoidModel.py:581-584)
+        local = ring_truncate(local, Kl)
+    return local
+
+
 def finish_day(buf, outside_loss, clip_loss, Dlparams, config: KernelConfig,
-               rad_dist, branch=None):
+               rad_dist, branch=None, local=None):
     """Crop the padded buffer, total the loss, add the "didn't fly"
     local-diffusion remainder in place into the centre window, sparsify
     and renormalize.  ``branch``: the Genz branch of the local |ρ| when the
-    caller has read it (see ``ops.bvn.genz_branch``).  Returns ``(pmf,
-    loss)``.  A ``(N, L, L)`` buffer is N particles: the losses are
-    ``(N,)`` and ``Dlparams`` one ``(N,)`` tensor each; ``batched_bvn``
-    builds the local kernel with the select node rule."""
+    caller has read it (see ``ops.bvn.genz_branch``).  ``local``: the
+    block of :func:`local_block` when the caller built it once for all
+    its days, else it is built here.  Returns ``(pmf, loss)``.  A
+    ``(N, L, L)`` buffer is N particles: the losses are ``(N,)`` and
+    ``Dlparams`` one ``(N,)`` tensor each; ``batched_bvn`` builds the
+    local kernel with the select node rule."""
     K, Kl = config.K, config.K_local
     rad_res = config.rad_res
     D = 2 * rad_res + 1
-    cell = rad_dist / rad_res
     lead = buf.shape[:-2]
 
     pmf = buf[..., 2 * K:2 * K + D, 2 * K:2 * K + D]
@@ -181,16 +207,9 @@ def finish_day(buf, outside_loss, clip_loss, Dlparams, config: KernelConfig,
     loss = pad_mass + clip_loss + outside_loss
 
     total_flight_prob = pmf.sum(dim=(-2, -1)) + loss
-    sl_x, sl_y, sl_rho = Dlparams
-    zero_mu = torch.zeros(lead + (2,), dtype=buf.dtype, device=buf.device)
-    if config.batched_bvn:
-        local = bvn_cell_masses_batched(zero_mu, sl_x, sl_y, sl_rho, cell, Kl)
-    else:
-        local = bvn_cell_masses(zero_mu, sl_x, sl_y, sl_rho, cell, Kl, branch)
-    if config.ref_trunc:
-        # the reference builds the local kernel with the same ring
-        # expansion (ParasitoidModel.py:581-584)
-        local = ring_truncate(local, Kl)
+    if local is None:
+        local = local_block(Dlparams, config, rad_dist, lead, buf.dtype,
+                            buf.device, branch)
     stay = torch.where(total_flight_prob < 0.99999, 1.0 - total_flight_prob,
                        torch.zeros_like(total_flight_prob))
     pmf[..., rad_res - Kl:rad_res + Kl + 1,
@@ -198,9 +217,42 @@ def finish_day(buf, outside_loss, clip_loss, Dlparams, config: KernelConfig,
     return r_small_vals_dense(pmf, prob_model=True), loss
 
 
+def _kernel_path(config: KernelConfig):
+    """One parameter set's days go through the CUDA day kernel."""
+    return config.pallas and not config.ref_trunc and not config.batched_bvn
+
+
+def day_invariants(Dparams, Dlparams, rad_dist, config: KernelConfig,
+                   device, dtype, branch=None, batched=False):
+    """What every day of one evaluation shares, made once for its day
+    loop: ``(consts, local)``, the day kernel's packed constants
+    (``ops.day_kernel.pack_constants``; None where the days take the plain
+    accumulate) and the local-diffusion block (:func:`local_block`).
+    ``branch``: the Genz branch of the local |ρ| (see :func:`finish_day`).
+    ``batched``: for :func:`build_daily_kernel_batched`, ``Dparams`` and
+    ``Dlparams`` tuples of ``(N,)`` tensors."""
+    cell = rad_dist / config.rad_res
+    if not batched:
+        consts = (pack_constants(Dparams, cell, device)
+                  if _kernel_path(config) else None)
+        return consts, local_block(Dlparams, config, rad_dist, (), dtype,
+                                   device, branch)
+    dp = _stacked(Dparams, dtype, device)
+    consts = (pack_constants(dp, cell, device, select=True)
+              if config.pallas else None)
+    return consts, local_block(Dlparams, config._replace(batched_bvn=True),
+                               rad_dist, dp.shape[:1], dtype, device)
+
+
+def _stacked(Dparams, dtype, device):
+    """N particles' ``(σx, σy, ρ)`` as one ``(N, 3)`` tensor."""
+    return torch.stack([scalar(v, dtype, device) for v in Dparams], dim=-1)
+
+
 def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
                        Dlparams, mu_r, n_periods, rad_dist, start_idx,
-                       config: KernelConfig, branches=(None, None)):
+                       config: KernelConfig, branches=(None, None),
+                       invariants=(None, None)):
     """One day's dispersal pmf, ``(2*rad_res+1)²``, and its loss.
 
     Args:
@@ -219,6 +271,8 @@ def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
             caller has read them (``ops.bvn.genz_branch``); a ``None`` is
             read from its ρ where a BVN needs it (the CUDA day kernel reads
             ρ on the device and needs no branch).
+        invariants: ``(consts, local)`` of :func:`day_invariants` when the
+            caller made them once for its days; each None is made here.
 
     ``config.pallas`` selects the CUDA day kernel (CUDA tensors only);
     otherwise, and always with ``ref_trunc`` or ``batched_bvn``, the plain
@@ -234,9 +288,10 @@ def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
     h_scat, cdf_mu, idx, clip_f, outside_loss = day_scatter_inputs(
         wind_flat, wind_cumsum, day_idx, hparams, mu_r, n_periods,
         start_idx, config, rad_dist)
-    if config.pallas and not config.ref_trunc and not config.batched_bvn:
+    consts, local = invariants
+    if _kernel_path(config):
         buf, clip_loss = accumulate_day(h_scat, cdf_mu, idx, clip_f, Dparams,
-                                        cell, K, D + 4 * K)
+                                        cell, K, D + 4 * K, consts=consts)
     else:
         buf, clip_loss = accumulate_day_plain(
             h_scat, cdf_mu, idx, clip_f, Dparams, cell, K, D + 4 * K,
@@ -244,12 +299,13 @@ def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
             branch=SELECT if config.batched_bvn else branches[0],
             ref_trunc=config.ref_trunc)
     return finish_day(buf, outside_loss, clip_loss, Dlparams, config,
-                      rad_dist, branches[1])
+                      rad_dist, branches[1], local)
 
 
 def build_daily_kernel_batched(wind_flat, wind_cumsum, day_idx, hparams,
                                Dparams, Dlparams, mu_r, n_periods, rad_dist,
-                               start_idx, config: KernelConfig):
+                               start_idx, config: KernelConfig,
+                               invariants=(None, None)):
     """One day's dispersal pmf for N parameter sets at once, ``(N, D, D)``,
     and the ``(N,)`` losses, with the select node rule (the JAX builder
     under ``vmap`` with ``batched_bvn``).  Every parameter is an ``(N,)``
@@ -257,7 +313,8 @@ def build_daily_kernel_batched(wind_flat, wind_cumsum, day_idx, hparams,
     ``n_periods`` integer).  On the card with ``config.pallas`` the day
     is one launch of the particle-batched CUDA kernel for the whole
     population; otherwise the plain batched accumulate runs.  Nothing
-    here reads the card."""
+    here reads the card.  ``invariants``: ``day_invariants(...,
+    batched=True)`` when the caller made them once for its days."""
     if config.ref_trunc:
         raise ValueError('ref_trunc is a parity tool of one parameter set: '
                          'build_daily_kernel takes it')
@@ -271,14 +328,16 @@ def build_daily_kernel_batched(wind_flat, wind_cumsum, day_idx, hparams,
     h_scat, cdf_mu, idx, clip_f, outside_loss = day_scatter_inputs(
         wind_flat, wind_cumsum, day_idx, tuple(col(v) for v in hparams),
         col(mu_r), col(n_periods), start_idx, config, rad_dist)
-    dp = torch.stack([scalar(v, wind_flat.dtype, wind_flat.device)
-                      for v in Dparams], dim=-1)
+    dp = _stacked(Dparams, wind_flat.dtype, wind_flat.device)
+    consts, local = invariants
     if config.pallas:
         buf, clip_loss = accumulate_day_batched(h_scat, cdf_mu, idx, clip_f,
-                                                dp, cell, K, D + 4 * K)
+                                                dp, cell, K, D + 4 * K,
+                                                consts=consts)
     else:
         buf, clip_loss = accumulate_day_batched_plain(
             h_scat, cdf_mu, idx, clip_f, dp, cell, K, D + 4 * K,
             chunk=min(config.chunk, T))
     return finish_day(buf, outside_loss, clip_loss, Dlparams,
-                      config._replace(batched_bvn=True), rad_dist)
+                      config._replace(batched_bvn=True), rad_dist,
+                      local=local)

@@ -61,7 +61,7 @@ __all__ = ['LAUNCHES', 'LAUNCHES_BATCHED', 'LAUNCHES_BWD', 'LAYOUT',
            'accumulate_day', 'accumulate_day_batched',
            'accumulate_day_batched_plain', 'accumulate_day_bwd',
            'accumulate_day_bwd_plain', 'accumulate_day_plain',
-           'lattice_probe', 'pass_ms', 'pass_ms_bwd']
+           'lattice_probe', 'pack_constants', 'pass_ms', 'pass_ms_bwd']
 
 # kernel launches so far (one per day accumulated on the card, one per
 # day's backward, and one per day of a particle-batched population); a run
@@ -92,7 +92,8 @@ _ROWS = (('kLoSn', _LO_NODES), ('kLoW', _LO_NODES), ('kLoDen', _LO_NODES),
          ('kLoInvDen', _LO_NODES), ('kHiXs', _HI_NODES),
          ('kHiRs', _HI_NODES), ('kHiW', _HI_NODES), ('kHiInvXs', _HI_NODES),
          ('kHiInvEp', _HI_NODES), ('kHiInvRs', _HI_NODES))
-LAYOUT = dict(kA=5, kASq=6, kInvA=16, kInvASq=17, kScalars=_N_SCALARS,
+LAYOUT = dict(kA=5, kASq=6, kCtLoss=14, kInvA=16, kInvASq=17,
+              kScalars=_N_SCALARS,
               **dict(zip([name for name, _ in _ROWS] + ['kConsts'],
                          accumulate([_N_SCALARS] + [n for _, n in _ROWS]))))
 _SMEM_LIMIT = 232448                 # dynamic shared memory per CTA, H100
@@ -304,6 +305,27 @@ def _pack_constants(Dparams, cell, device, ct_loss=None, select=False):
     return out
 
 
+def pack_constants(Dparams, cell, device, select=False):
+    """The kernels' day-invariant constants (:func:`_pack_constants` with
+    no loss cotangent) for a caller to pack once per evaluation and pass
+    to every day's :func:`accumulate_day` (or
+    :func:`accumulate_day_batched`) as ``consts=``; the backward writes
+    its loss cotangent into a copy of the row (:func:`_with_ct_loss`).
+    Packed without autograd: the kernels' backward gives dσ, dρ and
+    dcell itself."""
+    with torch.no_grad():
+        return _pack_constants(Dparams, cell, device, select=select)
+
+
+def _with_ct_loss(consts, ct_loss):
+    """A copy of a forward row of :func:`pack_constants` with the loss
+    cotangent in its ``kCtLoss`` slot: one copy kernel, the bits of
+    ``_pack_constants(..., ct_loss)``."""
+    at = LAYOUT['kCtLoss']
+    ctl = scalar(ct_loss, torch.float32, consts.device).reshape(1)
+    return torch.cat([consts[:at], ctl, consts[at + 1:]])
+
+
 def _cuda_call(lib, fn, smem, K, dev, *args):
     """Launch ``fn`` of the kernel library, whose CTAs need ``smem`` bytes
     of shared memory at half-width ``K``, on ``dev``'s current stream.
@@ -321,11 +343,13 @@ def _cuda_call(lib, fn, smem, K, dev, *args):
 
 
 def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk,
-                  select=False):
-    """Packed constants, scratch and outputs of one forward launch, and the
-    C arguments up to the stream (see ``parasitoids_day_accumulate``).  All
-    come from the caching allocator, so a day loop reuses the same memory
-    every day; the partials are sized from the shapes alone (tiles ×
+                  select=False, consts=None):
+    """Packed constants (``consts`` when the caller packed them once, see
+    :func:`pack_constants`), scratch and outputs of one forward launch,
+    and the C arguments up to the stream (see
+    ``parasitoids_day_accumulate``).  All come from the caching
+    allocator, so a day loop reuses the same memory every day; the
+    partials are sized from the shapes alone (tiles ×
     ⌈T / chunk⌉ × 32², about 90 MB at the headline shapes), of which the
     kernel writes and reads only those of the tiles in each chunk's box
     that its blocks meet.  Inputs with a leading particle axis, ``(N, T)``
@@ -341,7 +365,8 @@ def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk,
         raise ValueError('chunk {} out of range for T = {}'.format(chunk, T))
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(
-        consts=_pack_constants(Dparams, cell, dev, select=select),
+        consts=(_pack_constants(Dparams, cell, dev, select=select)
+                if consts is None else consts),
         scratch=torch.empty(lead + (T, n, n), **f32),
         bsum=torch.empty(lead + (T,), **f32),
         partial=torch.empty(lead + (tiles, nchunks, _TILE, _TILE), **f32),
@@ -356,11 +381,12 @@ def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk,
     return out, args
 
 
-def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
+def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
+            consts=None):
     from ._build import load
     lib = load('day_kernel')
     out, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len,
-                              _CHUNK)
+                              _CHUNK, consts=consts)
     _cuda_call(lib, 'parasitoids_day_accumulate',
                lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args)
     _count('LAUNCHES')
@@ -369,13 +395,15 @@ def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
 
 
 def accumulate_day_batched(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
-                           buf_len):
+                           buf_len, consts=None):
     """N particles' day accumulates at once (the contract of
     :func:`accumulate_day_batched_plain`) with the select node rule, read
     per particle on the device: on CUDA tensors one launch of the CUDA
     kernel for the whole population (the particle on its grid, no host
     read), on CPU tensors the plain twin.  f32 only; no gradient (an input
-    that requires one raises)."""
+    that requires one raises).  ``consts``: the ``(N, kConsts)`` rows of
+    ``pack_constants(Dparams, cell, device, select=True)`` when the caller
+    packed them once, else they are packed here."""
     if h_scat.ndim != 2:
         raise ValueError('h_scat must be (N, T), got {}'.format(
             tuple(h_scat.shape)))
@@ -393,7 +421,7 @@ def accumulate_day_batched(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
     from ._build import load
     lib = load('day_kernel')
     out, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len,
-                              _CHUNK, select=True)
+                              _CHUNK, select=True, consts=consts)
     _cuda_call(lib, 'parasitoids_day_accumulate',
                lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args)
     _count('LAUNCHES_BATCHED')
@@ -465,9 +493,11 @@ def lattice_probe(Dparams, mu, cell, K, select=False):
 
 
 def _backward_args(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
-                   cell, K, buf_len, ring):
-    """Packed constants, scratch and outputs of one backward launch, and the
-    C arguments up to the stream (see ``parasitoids_day_accumulate_bwd``)."""
+                   cell, K, buf_len, ring, consts=None):
+    """Packed constants (``consts``, the forward's row of
+    :func:`pack_constants`, with the loss cotangent written into a copy),
+    scratch and outputs of one backward launch, and the C arguments up to
+    the stream (see ``parasitoids_day_accumulate_bwd``)."""
     dev = h_scat.device
     T = h_scat.shape[0]
     if ct_buf.shape != (buf_len, buf_len) or ct_buf.dtype != torch.float32 \
@@ -476,7 +506,8 @@ def _backward_args(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
                          'on {1}'.format(buf_len, dev))
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(
-        consts=_pack_constants(Dparams, cell, dev, ct_loss),
+        consts=(_pack_constants(Dparams, cell, dev, ct_loss)
+                if consts is None else _with_ct_loss(consts, ct_loss)),
         dh=torch.empty(T, **f32), dmu=torch.empty((T, 2), **f32),
         dclip=torch.empty(T, **f32),
         part=torch.empty((T, 4), **f32),  # per-minute dσx, dσy, dρ, dcell
@@ -504,12 +535,12 @@ def _bwd_ring(lib, K):
 
 
 def _launch_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
-                cell, K, buf_len):
+                cell, K, buf_len, consts=None):
     from ._build import load
     lib = load('day_kernel')
     ring = _bwd_ring(lib, K)
     out, args = _backward_args(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
-                               Dparams, cell, K, buf_len, ring)
+                               Dparams, cell, K, buf_len, ring, consts)
     _cuda_call(lib, 'parasitoids_day_accumulate_bwd',
                lib.parasitoids_day_bwd_smem_bytes(K, ring), K,
                h_scat.device, *args)
@@ -587,56 +618,64 @@ class _AccumulateDay(torch.autograd.Function):
     (K1/K2 forward, K3/K4 backward) for CUDA tensors, the plain twins for
     CPU tensors.  Differentiable in h, μ, clip, the (3,) diffusion tensor
     and the cell side; ``idx`` is an integer input and gets no gradient.
-    The graph keeps only the per-minute inputs (6 floats a minute)."""
+    The graph keeps only the per-minute inputs (6 floats a minute) and the
+    packed constants, which carry no gradient."""
 
     @staticmethod
-    def forward(ctx, h_scat, cdf_mu, idx, clipped, dp, cell, K, buf_len):
-        ctx.save_for_backward(h_scat, cdf_mu, idx, clipped, dp, cell)
+    def forward(ctx, h_scat, cdf_mu, idx, clipped, dp, cell, consts, K,
+                buf_len):
+        ctx.save_for_backward(h_scat, cdf_mu, idx, clipped, dp, cell, consts)
         ctx.K, ctx.buf_len = K, buf_len
         if h_scat.device.type == 'cpu':
             return accumulate_day_plain(h_scat, cdf_mu, idx, clipped, dp,
                                         cell, K, buf_len)
-        return _launch(h_scat, cdf_mu, idx, clipped, dp, cell, K, buf_len)
+        return _launch(h_scat, cdf_mu, idx, clipped, dp, cell, K, buf_len,
+                       consts)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_buf, ct_loss):
-        h_scat, cdf_mu, idx, clipped, dp, cell = ctx.saved_tensors
+        h_scat, cdf_mu, idx, clipped, dp, cell, consts = ctx.saved_tensors
         dh, dmu, dclip, dD, dcell = _backward(
             ct_buf.contiguous(), ct_loss, h_scat, cdf_mu, idx, clipped, dp,
-            cell, ctx.K, ctx.buf_len)
-        return dh, dmu, None, dclip, dD, dcell, None, None
+            cell, ctx.K, ctx.buf_len, consts)
+        return dh, dmu, None, dclip, dD, dcell, None, None, None
 
 
 def accumulate_day_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
-                       Dparams, cell, K, buf_len):
+                       Dparams, cell, K, buf_len, consts=None):
     """The backward of :func:`accumulate_day` (the contract of
     :func:`accumulate_day_bwd_plain`), called directly: the inputs are
     checked as the forward checks them, then the CUDA kernel K3/K4 runs
-    for CUDA tensors and the plain version for CPU tensors."""
+    for CUDA tensors and the plain version for CPU tensors.  ``consts``:
+    the forward's row of :func:`pack_constants`, else packed here."""
     _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
     return _backward(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,
-                     cell, K, buf_len)
+                     cell, K, buf_len, consts)
 
 
 def _backward(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams, cell,
-              K, buf_len):
+              K, buf_len, consts=None):
     if h_scat.device.type == 'cpu':
         return accumulate_day_bwd_plain(ct_buf, ct_loss, h_scat, cdf_mu, idx,
                                         clipped, Dparams, cell, K, buf_len)
     return _launch_bwd(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
-                       Dparams, cell, K, buf_len)
+                       Dparams, cell, K, buf_len, consts)
 
 
-def accumulate_day(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len):
+def accumulate_day(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
+                   consts=None):
     """Accumulate one day's minutes (the contract of
     :func:`accumulate_day_plain`): the CUDA kernels for CUDA tensors, the
     plain versions for CPU tensors.  f32 only.  ``Dparams`` (numbers, 0-d
     tensors or a (3,) tensor) is stacked into one (3,) tensor and ``cell``
-    made a 0-d tensor, so gradients reach σx, σy, ρ and the cell side."""
+    made a 0-d tensor, so gradients reach σx, σy, ρ and the cell side.
+    ``consts``: the row of ``pack_constants(Dparams, cell, device)`` when
+    the caller packed it once for all its days; else the forward and the
+    backward each pack their own.  The CPU path takes no constants."""
     _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
     dev = h_scat.device
     dp = torch.stack([scalar(v, torch.float32, dev) for v in Dparams])
     return _AccumulateDay.apply(h_scat, cdf_mu, idx, clipped, dp,
-                                scalar(cell, torch.float32, dev), K,
+                                scalar(cell, torch.float32, dev), consts, K,
                                 buf_len)

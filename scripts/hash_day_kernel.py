@@ -24,6 +24,9 @@ on days 0, 9, 17 at ρ = 0.253, 0.5, 0.8, 0.93, -0.93, 0.99, -0.99 and at
 K = 88 (12.5 m cells) on day 9, against a seeded white-noise cotangent
 (smoke [6]).  Times (``--time``): day 9, K1 at ρ = 0.253, K2 at 0.99, the
 batched launch for the 8 prior particles, K3 and K4 likewise, 20 reps.
+A tree whose day loop packs the kernels' constants once
+(``day_kernel.pack_constants``) launches with the row packed that way,
+and its backward writes the loss cotangent into a copy of it.
 """
 
 import argparse
@@ -72,13 +75,23 @@ def forward_outputs(lib, day_kernel, h, mu, idx, clip, Dp, cell, K, buf_len,
     """Buffer, block sums and loss of one launch (batched inputs lead with
     the particle axis) through the library's C entry point."""
     batched = h.ndim == 2
-    out, args = day_kernel._forward_args(h, mu, idx, Dp, cell, K, buf_len,
-                                         day_kernel._CHUNK, select=batched)
+    out, args = day_kernel._forward_args(
+        h, mu, idx, Dp, cell, K, buf_len, day_kernel._CHUNK, select=batched,
+        **packed_once(day_kernel, Dp, cell, h.device, select=batched))
     day_kernel._cuda_call(lib, 'parasitoids_day_accumulate',
                           lib.parasitoids_day_smem_bytes(K), K, h.device,
                           *args)
     loss = torch.sum(clip * h * (1.0 - out['bsum']), dim=-1)
     return out['buf'], out['bsum'], loss
+
+
+def packed_once(day_kernel, Dp, cell, device, select=False):
+    """``{'consts': row}`` packed as the tree's day loop packs it once,
+    or ``{}`` for a tree that packs at every launch."""
+    if not hasattr(day_kernel, 'pack_constants'):
+        return {}
+    return {'consts': day_kernel.pack_constants(Dp, cell, device,
+                                                select=select)}
 
 
 def batched_inputs(setup, day, torch):
@@ -153,7 +166,8 @@ def run_tree(root, timing):
             for rho in rhos:
                 a = (ct_buf, ct_loss, h, mu, idx, clip,
                      (p.Dparams[0], p.Dparams[1], rho), cell, K, buf_len)
-                outs = day_kernel.accumulate_day_bwd(*a)
+                outs = day_kernel.accumulate_day_bwd(
+                    *a, **packed_once(day_kernel, a[6], cell, h.device))
                 tag = 'K{} K={} day {} rho {:+.3f}'.format(
                     4 if abs(rho) >= 0.925 else 3, K, day, rho)
                 for name, t in zip(('dh', 'dmu', 'dclip', 'dD', 'dcell'),

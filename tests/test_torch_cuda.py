@@ -678,3 +678,185 @@ def test_lattice_division_changes_no_bit(cuda_device, K, select):
     counts = day_kernel.lattice_probe(Dp, mu, PROBE_CELL, K, select=select)
     assert counts['corners'] == Dp.shape[0] * (2 * K + 2) ** 2
     assert counts['differ'] == 0, counts
+
+
+# ----------------------------------------------------------------------
+# the evaluation replayed as CUDA graphs (utils/graphs.py), 101^2 and 18
+# days: each replay bitwise its eager run
+# ----------------------------------------------------------------------
+
+_GRAPH_OV = ('domain_info=(10000.0,50)', 'interp_num=2', 'kernel_rad=6',
+             'kernel_rad_local=3')
+
+
+def _graph_setups(device):
+    """A setup on the card (its forward replays graphs) and a shallow copy
+    of it that runs the eager path."""
+    import copy
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    from parasitoids_tpu_torch.bayes.model import BayesSetup
+    setup = BayesSetup(tm.map_cli_params(_GRAPH_OV), device=device)
+    eager = copy.copy(setup)
+    eager._replays_graphs = lambda: False
+    assert setup._replays_graphs() and setup.ndays == 18
+    return setup, eager
+
+
+def _graph_flat(proj):
+    return torch.cat([p.reshape(-1) for p in (*proj[0], *proj[1], proj[2])])
+
+
+def _graph_value_and_grad(setup, z, use_sprd=True):
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    neg, _, _ = tm._make_objective(setup, use_sprd)
+    z = z.clone().requires_grad_()
+    v = neg(z)
+    v.backward()
+    return v.detach(), z.grad
+
+
+def test_graph_replay_is_bitwise_eager_without_gradient(cuda_device):
+    # two parameter sets in a row (a stale captured input fails), then the
+    # first again
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    setup, eager = _graph_setups(cuda_device)
+    _, constrain, _ = tm._make_objective(setup, True)
+    z0 = tm.initial_z(setup, True)
+    outs = []
+    for z in (z0, z0 + 0.01, z0):
+        m, _, sprd = constrain(z)
+        with torch.no_grad():
+            got = _graph_flat(setup.forward_projections(_as_model(m), sprd))
+            want = _graph_flat(eager.forward_projections(_as_model(m), sprd))
+        assert torch.equal(got, want)
+        outs.append(got)
+    assert not torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    assert len(setup.graphs.entries) == 1
+
+
+def test_graph_replay_is_bitwise_eager_with_gradient(cuda_device):
+    # the projections and every gradient component, two parameter sets
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    setup, eager = _graph_setups(cuda_device)
+    _, constrain, _ = tm._make_objective(setup, True)
+    z0 = tm.initial_z(setup, True)
+    for z in (z0, z0 - 0.02):
+        (va, ga), (vb, gb) = [_graph_value_and_grad(s, z)
+                              for s in (setup, eager)]
+        assert torch.equal(va, vb) and torch.equal(ga, gb)
+        assert bool(torch.isfinite(ga).all()) and float(ga.abs().max()) > 0
+        proj, grad = [], []
+        for s in (setup, eager):
+            zz = z.clone().requires_grad_()
+            m, _, sprd = constrain(zz)
+            p = _graph_flat(s.forward_projections(_as_model(m), sprd))
+            proj.append(p.detach())
+            grad.append(torch.autograd.grad(p.sum(), zz)[0])
+        assert torch.equal(proj[0], proj[1]) and torch.equal(*grad)
+
+
+def test_graph_replay_batched_is_bitwise_eager(cuda_device):
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    from parasitoids_tpu_torch.bayes.priors import sample_prior_model
+    setup, eager = _graph_setups(cuda_device)
+    bs, be = setup.with_batched_bvn(), eager.with_batched_bvn()
+    for seed in (18, 19):
+        m = _as_model(sample_prior_model(torch.Generator().manual_seed(seed),
+                                         4).to(cuda_device))
+        for sprd in (None, 0.3):
+            with torch.no_grad():
+                got = bs.forward_projections(m, sprd)
+                want = be.forward_projections(m, sprd)
+            assert got[2].shape[0] == 4
+            assert torch.equal(_graph_flat(got), _graph_flat(want))
+    assert len(setup.graphs.entries) == 2
+
+
+def test_graph_results_survive_the_next_replay(cuda_device):
+    # a result is a clone: the next replay leaves it as it was
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    setup, _ = _graph_setups(cuda_device)
+    _, constrain, _ = tm._make_objective(setup, True)
+    z0 = tm.initial_z(setup, True)
+    with torch.no_grad():
+        m0, _, s0 = constrain(z0)
+        m1, _, s1 = constrain(z0 + 0.01)
+        first = setup.forward_projections(_as_model(m0), s0)
+        kept = _graph_flat(first).clone()
+        second = setup.forward_projections(_as_model(m1), s1)
+    torch.cuda.synchronize()
+    assert torch.equal(_graph_flat(first), kept)
+    assert not torch.equal(_graph_flat(second), kept)
+    v0, g0 = _graph_value_and_grad(setup, z0)
+    g_kept = g0.clone()
+    _graph_value_and_grad(setup, z0 + 0.01)
+    torch.cuda.synchronize()
+    assert torch.equal(g0, g_kept)
+
+
+def test_graph_replay_counts_18_launches(cuda_device):
+    # a replay adds the launches it holds (the capture's own do not count):
+    # 18 K1 a forward, 18 K3 a backward
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    setup, _ = _graph_setups(cuda_device)
+    _, constrain, _ = tm._make_objective(setup, True)
+    z0 = tm.initial_z(setup, True)
+    for _ in range(2):               # the first evaluation captures
+        before = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+        with torch.no_grad():
+            m, _, sprd = constrain(z0)
+            setup.forward_projections(_as_model(m), sprd)
+        assert (day_kernel.LAUNCHES - before[0],
+                day_kernel.LAUNCHES_BWD - before[1]) == (18, 0)
+    for _ in range(2):
+        before = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+        _graph_value_and_grad(setup, z0)
+        assert (day_kernel.LAUNCHES - before[0],
+                day_kernel.LAUNCHES_BWD - before[1]) == (18, 18)
+    assert len(setup.graphs.entries) == 2
+
+
+def test_graph_backward_after_another_replay_raises(cuda_device):
+    # a gradient graph's backward reads its forward's memory: after a
+    # second forward replay of the same key the first backward raises
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    setup, _ = _graph_setups(cuda_device)
+    neg, _, _ = tm._make_objective(setup, True)
+    z0 = tm.initial_z(setup, True)
+    _graph_value_and_grad(setup, z0)                  # captures
+    za = z0.clone().requires_grad_()
+    zb = (z0 + 0.01).requires_grad_()
+    va, vb = neg(za), neg(zb)
+    vb.backward()
+    with pytest.raises(RuntimeError, match='captured graph'):
+        va.backward()
+
+
+def test_graph_capture_failure_raises_and_runs_nothing_eagerly(
+        cuda_device, monkeypatch):
+    # a host read inside the captured region fails the capture: the
+    # evaluation raises, no graph is kept and no launch is counted
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    from parasitoids_tpu_torch.bayes import model as tmodel
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    setup, _ = _graph_setups(cuda_device)
+    real = tmodel.propagate_pop
+
+    def reads_the_card(kernels, *a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            float(kernels.sum())
+        return real(kernels, *a, **k)
+
+    monkeypatch.setattr(tmodel, 'propagate_pop', reads_the_card)
+    _, constrain, _ = tm._make_objective(setup, False)
+    m, _, _ = constrain(tm.initial_z(setup, False))
+    before = (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD)
+    with torch.no_grad(), pytest.raises(RuntimeError):
+        setup.forward_projections(_as_model(m))
+    torch.cuda.synchronize()
+    assert (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD) == before
+    assert not setup.graphs.entries

@@ -183,11 +183,13 @@ def test_port_has_no_import_of_the_jax_package():
     files += [os.path.join(ROOT, 'chip_smoke.py')] + [
         os.path.join(ROOT, 'scripts', f)
         for f in os.listdir(os.path.join(ROOT, 'scripts'))
-        if f.startswith(('profile_torch', 'time_day_kernel'))]
+        if f.startswith(('profile_torch', 'time_day_kernel',
+                         'hash_day_kernel', 'compare_torch_gradient'))]
     assert len(files) > 46
     for mod in ('bayes/identify', 'bayes/loo', 'bayes/map_fit',
                 'bayes/predictive', 'bayes/sensitivity', 'bayes/spread',
-                'bayes/summary', 'bayes/vi', 'parallel/ensemble'):
+                'bayes/summary', 'bayes/vi', 'parallel/ensemble',
+                'utils/graphs'):
         assert os.path.join(ROOT, 'parasitoids_tpu_torch',
                             mod + '.py') in files, mod
     hits = ['{}:{}'.format(os.path.relpath(f, ROOT), i + 1)

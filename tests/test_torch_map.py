@@ -192,10 +192,11 @@ def test_log_posterior_reads_rho_once_per_evaluation(setups, monkeypatch):
     z = z0.clone().requires_grad_()
     neg(z).backward()
     assert torch.isfinite(z.grad).all()
-    # each day's flight BVN (the CPU's plain accumulate; on the card it is
-    # in the kernel, which reads rho on the device) and local BVN, then the
-    # pre-spread day's two; the backward is closed-form and builds none
-    assert seen == want * (ts.ndays + 1)
+    # the local BVN, built once for every day, then each day's flight BVN
+    # (the CPU's plain accumulate; on the card it is in the kernel, which
+    # reads rho on the device), then the pre-spread day's two; the
+    # backward is closed-form and builds none
+    assert seen == [want[1]] + [want[0]] * ts.ndays + want
 
 
 def test_map_fit_matches_jax(setups):
