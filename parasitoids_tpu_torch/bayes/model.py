@@ -45,7 +45,7 @@ from ..models.forward import (ForwardSetup, build_all_kernels,
 from ..models.observe import ObservationOps
 from ..models.solver import propagate_pop
 from ..ops.bvn import bvn_cell_masses, bvn_cell_masses_batched, genz_branch
-from ..utils import graphs
+from ..utils import graphs, trace
 from .priors import ModelParams, ObsParams, log_prior_model, log_prior_obs
 
 __all__ = ['BayesSetup', 'poisson_logpmf', 'poisson_loglik',
@@ -381,7 +381,8 @@ class BayesSetup:
             vals.append(prior.to(dtype))
         if gate is not None:
             vals.append(gate.to(dtype))
-        got = torch.stack([v.detach() for v in vals]).tolist()
+        with trace.span('model.host_read'):
+            got = torch.stack([v.detach() for v in vals]).tolist()
         out = ((genz_branch(abs(got[0])), genz_branch(abs(got[1]))),
                got[2] if prior is not None else None)
         return out if gate is None else out + (got[-1],)

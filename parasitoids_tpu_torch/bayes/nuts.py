@@ -42,6 +42,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
+
 __all__ = ['NUTSConfig', 'NUTSDraws', 'GibbsDraws', 'VALUE_AND_GRADS',
            'draw_transition', 'draw_gibbs', 'nuts_sample',
            'nuts_sample_stepwise', 'make_transformed_logpdf',
@@ -219,12 +221,18 @@ def value_and_grad(logpdf, args=()):
                 return None
             gate = None
         zz = z.detach().requires_grad_()
-        with torch.enable_grad():
-            lp = (logpdf(zz, *args, gate=gate) if gated
-                  else logpdf(zz, *args))
-            if lp is None:
-                return None
-            grad, = torch.autograd.grad(lp, zz)
+        lp = None
+        ev = trace.begin('nuts.eval')
+        try:
+            with torch.enable_grad():
+                lp = (logpdf(zz, *args, gate=gate) if gated
+                      else logpdf(zz, *args))
+                if lp is None:
+                    return None
+                grad, = torch.autograd.grad(lp, zz)
+        finally:
+            # a gate that read 0 ran no evaluation: no span
+            trace.end(ev, keep=lp is not None)
         VALUE_AND_GRADS += 1
         return lp.detach(), grad
     return lpg
@@ -252,6 +260,14 @@ def _nuts_step(lpg, inv_mass, step_size, max_depth, z, lp, grad, draws,
     optional list that receives ``(log u, threshold)`` of every
     multinomial and subtree choice, for tests that compare choices only
     where they are clear of their threshold."""
+    with trace.span('nuts.transition', request=True):
+        return _transition(lpg, inv_mass, step_size, max_depth, z, lp, grad,
+                           draws, max_delta, decisions)
+
+
+def _transition(lpg, inv_mass, step_size, max_depth, z, lp, grad, draws,
+                max_delta, decisions):
+    """The body of :func:`_nuts_step`."""
     dtype = z.dtype
     neg_inf = torch.full((), -math.inf, dtype=dtype, device=z.device)
     zero = torch.zeros((), dtype=dtype, device=z.device)

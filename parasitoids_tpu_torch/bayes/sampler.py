@@ -41,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from .model import BayesSetup, _as_model, _as_obs
 from .priors import (STEP_SCALES, initial_model_params, initial_obs_params,
                      log_prior_model, log_prior_obs)
@@ -258,15 +259,16 @@ def _obs_sweep(setup: BayesSetup, obs_eps, obs_log_u, o_vec, prior_o, ll_cur,
     on the last axis, ``(N, n_moves)``."""
     n_obs = _n_obs(setup)
     acc_o = torch.zeros_like(prior_o)
-    for i in range(n_obs * n_sweeps):
-        o_prop, prior_p, ll_p, ratio = _obs_move(
-            setup, i % n_obs, obs_eps[..., i], o_vec, prior_o, ll_cur, proj,
-            beta, cfg, obs_mask, obs)
-        acc = obs_log_u[..., i] < ratio
-        o_vec = torch.where(acc[..., None], o_prop, o_vec)
-        prior_o = torch.where(acc, prior_p, prior_o)
-        ll_cur = torch.where(acc, ll_p, ll_cur)
-        acc_o = acc_o + acc.to(acc_o.dtype)
+    with trace.span('am.obs_sweep'):
+        for i in range(n_obs * n_sweeps):
+            o_prop, prior_p, ll_p, ratio = _obs_move(
+                setup, i % n_obs, obs_eps[..., i], o_vec, prior_o, ll_cur,
+                proj, beta, cfg, obs_mask, obs)
+            acc = obs_log_u[..., i] < ratio
+            o_vec = torch.where(acc[..., None], o_prop, o_vec)
+            prior_o = torch.where(acc, prior_p, prior_o)
+            ll_cur = torch.where(acc, ll_p, ll_cur)
+            acc_o = acc_o + acc.to(acc_o.dtype)
     return o_vec, prior_o, ll_cur, acc_o
 
 
@@ -357,15 +359,17 @@ def _mcmc_step(setup: BayesSetup, state: ChainState, cfg: MCMCConfig,
     """
     dtype, dev = state.m.dtype, state.m.device
     n_moves = _n_obs(setup) * cfg.obs_sweeps
-    if draws is None:
-        draws = draw_step(state.key, n_moves, dtype, dev)
-    new_state = _accept_and_sweep(
-        setup, state, cfg, beta, draws,
-        *_model_proposal(setup, state, cfg, beta, draws.eps, obs_mask, obs),
-        obs_mask, obs)
-    sample = torch.cat([new_state.m, new_state.o,
-                        (new_state.prior_m + new_state.prior_o +
-                         new_state.loglik).reshape(1)])
+    with trace.span('am.step', request=True):
+        if draws is None:
+            draws = draw_step(state.key, n_moves, dtype, dev)
+        new_state = _accept_and_sweep(
+            setup, state, cfg, beta, draws,
+            *_model_proposal(setup, state, cfg, beta, draws.eps, obs_mask,
+                             obs),
+            obs_mask, obs)
+        sample = torch.cat([new_state.m, new_state.o,
+                            (new_state.prior_m + new_state.prior_o +
+                             new_state.loglik).reshape(1)])
     return new_state, sample
 
 

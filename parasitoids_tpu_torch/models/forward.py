@@ -26,6 +26,7 @@ from ..device import pick_device, pick_dtype, pin_full_f32
 from ..io import get_wind_data, pack_wind
 from ..ops.daily_kernel import (KernelConfig, build_daily_kernel,
                                 build_daily_kernel_batched, day_invariants)
+from ..utils import trace
 from ..utils.checks import warn_on_loss
 from .solver import SolverConfig, propagate_pop, propagate_prob
 
@@ -167,18 +168,19 @@ def build_all_kernels(wind_flat, wind_cumsum, hparams, Dparams, Dlparams,
     grad; ``branches`` (see ``build_daily_kernel``) spares a host read of
     each tensor ρ per day.  What the days share (the day kernel's packed
     constants, the local-diffusion block) is made once, before the loop."""
-    inv = day_invariants(Dparams, Dlparams, rad_dist, kcfg,
-                         wind_flat.device, wind_flat.dtype, branches[1])
-    days = [build_daily_kernel(wind_flat, wind_cumsum, d, hparams, Dparams,
-                               Dlparams, mu_r, n_periods, rad_dist,
-                               start_idx if d == 0 else 0, kcfg, branches,
-                               inv)
-            for d in range(ndays)]
-    # stacked out of place, so the result is differentiable in every
-    # parameter (the day kernel's backward keeps only per-minute inputs, so
-    # no per-day checkpoint is needed)
-    return (torch.stack([pmf for pmf, _ in days]),
-            torch.stack([loss for _, loss in days]))
+    with trace.span('forward.day_loop'):
+        inv = day_invariants(Dparams, Dlparams, rad_dist, kcfg,
+                             wind_flat.device, wind_flat.dtype, branches[1])
+        days = [build_daily_kernel(wind_flat, wind_cumsum, d, hparams,
+                                   Dparams, Dlparams, mu_r, n_periods,
+                                   rad_dist, start_idx if d == 0 else 0,
+                                   kcfg, branches, inv)
+                for d in range(ndays)]
+        # stacked out of place, so the result is differentiable in every
+        # parameter (the day kernel's backward keeps only per-minute inputs,
+        # so no per-day checkpoint is needed)
+        return (torch.stack([pmf for pmf, _ in days]),
+                torch.stack([loss for _, loss in days]))
 
 
 def build_all_kernels_batched(wind_flat, wind_cumsum, hparams, Dparams,
@@ -190,14 +192,15 @@ def build_all_kernels_batched(wind_flat, wind_cumsum, hparams, Dparams,
     (N, ndays) losses)``.  On the card with ``kcfg.pallas`` every day is
     one launch of the particle-batched day kernel; nothing reads the
     card.  The packed constants and the local block are made once."""
-    inv = day_invariants(Dparams, Dlparams, rad_dist, kcfg,
-                         wind_flat.device, wind_flat.dtype, batched=True)
-    days = [build_daily_kernel_batched(
-        wind_flat, wind_cumsum, d, hparams, Dparams, Dlparams, mu_r,
-        n_periods, rad_dist, start_idx if d == 0 else 0, kcfg, inv)
-        for d in range(ndays)]
-    return (torch.stack([pmf for pmf, _ in days], dim=1),
-            torch.stack([loss for _, loss in days], dim=1))
+    with trace.span('forward.day_loop'):
+        inv = day_invariants(Dparams, Dlparams, rad_dist, kcfg,
+                             wind_flat.device, wind_flat.dtype, batched=True)
+        days = [build_daily_kernel_batched(
+            wind_flat, wind_cumsum, d, hparams, Dparams, Dlparams, mu_r,
+            n_periods, rad_dist, start_idx if d == 0 else 0, kcfg, inv)
+            for d in range(ndays)]
+        return (torch.stack([pmf for pmf, _ in days], dim=1),
+                torch.stack([loss for _, loss in days], dim=1))
 
 
 def forward_fields(wind_flat, wind_cumsum, hparams, Dparams, Dlparams, mu_r,
@@ -233,7 +236,7 @@ def simulate(params: Params, setup: ForwardSetup | None = None,
     dev = setup.wind_flat.device
     hparams = (params.lam, *params.g_params, *params.f_params)
 
-    tic = time.time()
+    tic = time.perf_counter()
     kernels, losses = build_all_kernels(
         setup.wind_flat, setup.wind_cumsum, hparams, params.Dparams,
         params.Dlparams, params.mu_r, params.n_periods, setup.rad_dist,
@@ -241,9 +244,9 @@ def simulate(params: Params, setup: ForwardSetup | None = None,
         setup.ndays)
     _sync(dev)
     if timing is not None:
-        timing['kernel_phase'] = time.time() - tic
+        timing['kernel_phase'] = time.perf_counter() - tic
 
-    tic = time.time()
+    tic = time.perf_counter()
     if params.PROB_MODEL:
         fields = propagate_prob(kernels, setup.scfg)
     else:
@@ -253,7 +256,7 @@ def simulate(params: Params, setup: ForwardSetup | None = None,
             setup.scfg)
     _sync(dev)
     if timing is not None:
-        timing['conv_phase'] = time.time() - tic
+        timing['conv_phase'] = time.perf_counter() - tic
 
     days = list(setup.days)[:setup.ndays]
     warn_on_loss(losses.cpu().numpy(), days)   # ref ParasitoidModel.py:547-558

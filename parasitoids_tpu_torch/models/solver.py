@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.daily_kernel import r_small_vals_dense
+from ..utils import trace
 
 __all__ = ['SolverConfig', 'signal_fft', 'filter_fft', 'fft_conv_once',
            'propagate_prob', 'propagate_prob_logdepth', 'propagate_pop',
@@ -197,6 +198,12 @@ def propagate_pop(kernels, r_dur: int, r_number, dist_weights,
         (ndays, D, D) expected populations, thresholded at 1e-8, or
         (N, ndays, D, D).
     """
+    with trace.span('solver.propagate'):
+        return _propagate_pop(kernels, r_dur, r_number, dist_weights, config)
+
+
+def _propagate_pop(kernels, r_dur, r_number, dist_weights, config):
+    """The body of :func:`propagate_pop`."""
     D, P = config.dom_len, config.fft_len
     ndays = kernels.shape[-3]
     lead = kernels.shape[:-3]

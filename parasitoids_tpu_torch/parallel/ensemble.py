@@ -24,6 +24,7 @@ import torch
 from ..bayes.model import BayesSetup, _as_model
 from ..models.forward import build_all_kernels
 from ..models.solver import propagate_pop
+from ..utils import trace
 
 __all__ = ['ensemble_projections', 'ensemble_fields']
 
@@ -72,7 +73,8 @@ def _strip(tree, B):
 
 
 def _projections_one(setup: BayesSetup, theta):
-    return setup.forward_projections(_as_model(theta))
+    with trace.span('ensemble.member', request=True):
+        return setup.forward_projections(_as_model(theta))
 
 
 def ensemble_projections(setup: BayesSetup, thetas, mesh=None):
@@ -100,16 +102,17 @@ def _fields_one(setup: BayesSetup, theta, days=None):
     """The ``(ndays, D, D)`` population fields of one member, or only
     ``days`` of them."""
     s = setup.setup
-    m = _as_model(theta)
-    branches, _ = setup._branches(m)
-    n_per = torch.round(m.n_periods).to(torch.int64)
-    kernels, _ = build_all_kernels(
-        s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
-        m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
-        setup.ndays, branches)
-    fields = propagate_pop(kernels, setup.r_dur, setup.r_number,
-                           setup.dist_weights, s.scfg)
-    return fields if days is None else fields[days]
+    with trace.span('ensemble.member', request=True):
+        m = _as_model(theta)
+        branches, _ = setup._branches(m)
+        n_per = torch.round(m.n_periods).to(torch.int64)
+        kernels, _ = build_all_kernels(
+            s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
+            m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
+            setup.ndays, branches)
+        fields = propagate_pop(kernels, setup.r_dur, setup.r_number,
+                               setup.dist_weights, s.scfg)
+        return fields if days is None else fields[days]
 
 
 def ensemble_fields(setup: BayesSetup, thetas, mesh=None, days=None):

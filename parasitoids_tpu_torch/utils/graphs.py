@@ -44,6 +44,13 @@ vector, and the pre-spread factor where it is given) and its arguments:
   off again and adds, at each replay, what the capture recorded (at each
   backward replay, what its backward recorded): the counts read as
   eager runs read them.
+* **Spans** (``utils/trace.py``).  A replay is ``graphs.replay``
+  (copy-in, replay, clone-out), a gradient replay's backward
+  ``graphs.replay_bwd`` (from its node's pre-hook to its hook, on
+  autograd's thread), a capture ``graphs.capture``, timed by the same
+  clock reads as its ``capture_s``.  No Python runs inside a replayed
+  graph, so the spans of the day loop and the propagation appear only
+  in captures.
 * **Failure.**  A capture that fails raises.  Nothing falls back to the
   eager path on the card.  A capture collects Python's garbage first and
   runs with the cyclic collector paused: a dead setup's graphs freed by a
@@ -69,6 +76,7 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from ..ops import day_kernel
+from . import trace
 
 __all__ = ['GraphCache', 'evaluate', 'graph_key']
 
@@ -161,12 +169,13 @@ def _capture_forward(fn, static):
         launches = _since(before)
 
     def replay(args):
-        for s, a in zip(static, args):
-            s.copy_(a)
-        with torch.cuda.device(dev):
-            graph.replay()
-        _add(launches)
-        return tree_map(torch.clone, out)
+        with trace.span('graphs.replay'):
+            for s, a in zip(static, args):
+                s.copy_(a)
+            with torch.cuda.device(dev):
+                graph.replay()
+            _add(launches)
+            return tree_map(torch.clone, out)
     return replay
 
 
@@ -189,24 +198,32 @@ def _capture_grad(fn, static):
     def replay(args):
         generation[0] += 1
         mine = generation[0]
-        with torch.cuda.device(args[0].device):
-            out = graphed(*args)
-        _add(launches)
-        node = next(o.grad_fn for o in tree_leaves(out)
-                    if o.grad_fn is not None)
+        with trace.span('graphs.replay'):
+            with torch.cuda.device(args[0].device):
+                out = graphed(*args)
+            _add(launches)
+            node = next(o.grad_fn for o in tree_leaves(out)
+                        if o.grad_fn is not None)
+            bwd = [None]        # the backward's span, on autograd's thread
 
-        def before_backward(grads):
-            if generation[0] != mine:
-                raise RuntimeError(
-                    'a backward through a captured graph must follow its '
-                    'forward before that graph is replayed again: {} '
-                    'replays came between'.format(generation[0] - mine))
-            _add(launches_bwd)
+            def before_backward(grads):
+                if generation[0] != mine:
+                    raise RuntimeError(
+                        'a backward through a captured graph must follow '
+                        'its forward before that graph is replayed again: '
+                        '{} replays came between'.format(
+                            generation[0] - mine))
+                bwd[0] = trace.begin('graphs.replay_bwd')
+                _add(launches_bwd)
 
-        node.register_prehook(before_backward)
-        node.register_hook(lambda grad_in, grad_out: tuple(
-            None if g is None else g.clone() for g in grad_in))
-        return tree_map(torch.clone, out)
+            def after_backward(grad_in, grad_out):
+                out = tuple(None if g is None else g.clone() for g in grad_in)
+                trace.end(bwd[0])
+                return out
+
+            node.register_prehook(before_backward)
+            node.register_hook(after_backward)
+            return tree_map(torch.clone, out)
     return replay
 
 
@@ -227,7 +244,9 @@ def evaluate(cache: GraphCache, key, fn, args):
                   for a in args]
         before = _counts()
         pools = _pools(dev)
-        tic = time.perf_counter()
+        # one pair of clock reads: the capture's span and its capture_s
+        tic = time.perf_counter_ns()
+        span = trace.begin('graphs.capture', tic)
         collecting = gc.isenabled()
         gc.collect()
         gc.disable()
@@ -241,8 +260,9 @@ def evaluate(cache: GraphCache, key, fn, args):
             if collecting:
                 gc.enable()
             _add(_since(before), -1)
-        seconds = time.perf_counter() - tic
-        entry = _Entry(replay, seconds, sum(
+            toc = time.perf_counter_ns()
+            trace.end(span, toc)
+        entry = _Entry(replay, (toc - tic) * 1e-9, sum(
             n for p, n in _pools(dev).items() if p not in pools))
         cache.entries[full] = entry
     return entry.replay(args)

@@ -860,3 +860,86 @@ def test_graph_capture_failure_raises_and_runs_nothing_eagerly(
     torch.cuda.synchronize()
     assert (day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD) == before
     assert not setup.graphs.entries
+
+
+# ----------------------------------------------------------------------
+# spans on the card (utils/trace.py)
+# ----------------------------------------------------------------------
+
+def test_graph_replay_spans_and_the_backward_on_autograds_thread(
+        cuda_device):
+    # a graphed value+gradient records its replay on the caller's thread
+    # and its backward's replay on autograd's device thread, both in the
+    # request; the capture's span is its capture_s
+    import threading
+    from parasitoids_tpu_torch.utils import trace
+    setup, _ = _graph_setups(cuda_device)
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    z0 = tm.initial_z(setup, True)
+    trace.clear()
+    trace.enable()
+    try:
+        for _ in range(2):               # the first evaluation captures
+            with trace.span('request', request=True):
+                _graph_value_and_grad(setup, z0)
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    recs = trace.records()
+    trace.clear()
+    named = {}
+    for r in recs:
+        named.setdefault(r.name, []).append(r)
+    cap, = named['graphs.capture']
+    entry, = setup.graphs.entries.values()
+    assert cap.seconds == pytest.approx(entry.capture_s, rel=1e-12)
+    replays, bwds = named['graphs.replay'], named['graphs.replay_bwd']
+    assert len(replays) == len(bwds) == 2
+    me = threading.get_ident()
+    reqs = [r.request for r in named['request']]
+    assert len(set(reqs)) == 2
+    for rep, bwd, req in zip(replays, bwds, reqs):
+        assert rep.thread == me and rep.request == req
+        assert bwd.thread != me and bwd.request == req
+        assert bwd.start >= rep.end
+
+
+def test_profiled_propagation_span_has_device_time(cuda_device):
+    # in an eager forward the operations launched inside solver.propagate
+    # (found through the profiler's launch-to-kernel link) took device time
+    from torch.profiler import ProfilerActivity, profile
+    from parasitoids_tpu_torch.bayes import map_fit as tm
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    from parasitoids_tpu_torch.utils import trace
+    _, eager = _graph_setups(cuda_device)
+    _, constrain, _ = tm._make_objective(eager, False)
+    m, _, _ = constrain(tm.initial_z(eager, False))
+    with torch.no_grad():
+        eager.forward_projections(_as_model(m))      # warm
+        torch.cuda.synchronize()
+        trace.enable()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eager.forward_projections(_as_model(m))
+                torch.cuda.synchronize()
+        finally:
+            trace.disable()
+            trace.clear()
+    from torch.autograd import DeviceType
+    events = list(prof.events())
+    # the span as a host event (the profiler adds a device-side
+    # annotation of the same name)
+    spans = [e for e in events if e.name == 'solver.propagate' and
+             e.device_type == DeviceType.CPU]
+    assert len(spans) == 1
+
+    def under(e):
+        while e is not None:
+            if e.name == 'solver.propagate':
+                return True
+            e = e.cpu_parent
+        return False
+    device_us = sum(k.duration for e in events if under(e)
+                    for k in e.kernels)
+    assert device_us > 0
