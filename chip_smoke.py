@@ -1033,13 +1033,17 @@ def phase_am_cli(dev, card, work):
         state = sampler.unstack_states(s_a)[0]
         n_moves = sampler._n_obs(setup)
         draws = sampler.draw_step(state.key, n_moves, state.m.dtype, dev)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode('error')
-        try:
+
+        def sweep():
             with torch.no_grad():
                 sampler._obs_sweep(setup, draws.obs_eps, draws.obs_log_u,
                                    state.o, state.prior_o, state.loglik,
                                    state.proj, 1.0, sampler.MCMCConfig(1))
+        sweep()             # the first sweep captures the sweep's graph
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            sweep()
         finally:
             torch.cuda.set_sync_debug_mode('default')
         check(True, 'the observation sweep ({} moves) made no synchronizing '

@@ -41,15 +41,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils import trace
+from ..device import scalar
+from ..utils import graphs, trace
 from .model import BayesSetup, _as_model, _as_obs
 from .priors import (STEP_SCALES, initial_model_params, initial_obs_params,
                      log_prior_model, log_prior_obs)
 
 __all__ = ['MCMCConfig', 'ChainState', 'StepDraws', 'FORWARDS',
-           'BATCHED_FORWARDS', 'chain_generator', 'draw_step',
-           'init_chain_state', 'run_mcmc', 'mcmc_step', 'mcmc_step_batched',
-           'stack_states', 'unstack_states']
+           'BATCHED_FORWARDS', 'SWEEPS', 'SWEEP_REPLAYS', 'chain_generator',
+           'draw_step', 'init_chain_state', 'run_mcmc', 'mcmc_step',
+           'mcmc_step_batched', 'stack_states', 'unstack_states']
 
 _N_MODEL = 15
 _DISCRETE_IDX = 13        # n_periods position in the block
@@ -64,6 +65,10 @@ FORWARDS = 0
 # particle: N forward simulations, one batched launch a day); a run reads
 # it beside ``ops.day_kernel.LAUNCHES_BATCHED``
 BATCHED_FORWARDS = 0
+# observation sweeps run by ``_obs_sweep``, and of those the replays of a
+# captured graph (``_obs_sweep_graphed``; a key's first sweep captures)
+SWEEPS = 0
+SWEEP_REPLAYS = 0
 
 
 class MCMCConfig(NamedTuple):
@@ -256,20 +261,93 @@ def _obs_sweep(setup: BayesSetup, obs_eps, obs_log_u, o_vec, prior_o, ll_cur,
     ``obs_eps`` and ``obs_log_u`` hold one normal and one log-uniform per
     coordinate move.  Nothing here reads the card.  Returns ``(o_vec,
     prior_o, ll_cur, n_accepts)``.  Stacked particles carry their draws
-    on the last axis, ``(N, n_moves)``."""
+    on the last axis, ``(N, n_moves)``.
+
+    Where the setup's forward replays graphs (``BayesSetup._replays_graphs``:
+    on the card, through the day kernel, without a forward mesh) the
+    sweep replays a captured CUDA graph of :func:`_obs_sweep_eager` too
+    (:func:`_obs_sweep_graphed`, which lists the graph's arguments),
+    captured at a key's first sweep, with the eager loop's bits;
+    elsewhere the loop runs op by op."""
+    global SWEEPS
+    SWEEPS += 1
+    with trace.span('am.obs_sweep'):
+        sweep = (_obs_sweep_graphed if setup._replays_graphs() else
+                 _obs_sweep_eager)
+        return sweep(setup, obs_eps, obs_log_u, o_vec, prior_o, ll_cur, proj,
+                     beta, cfg, obs_mask, obs, n_sweeps)
+
+
+def _obs_sweep_eager(setup: BayesSetup, obs_eps, obs_log_u, o_vec, prior_o,
+                     ll_cur, proj, beta, cfg: MCMCConfig, obs_mask=None,
+                     obs=None, n_sweeps=1):
+    """:func:`_obs_sweep`'s loop of coordinate moves, op by op: what a
+    sweep's graph captures."""
     n_obs = _n_obs(setup)
     acc_o = torch.zeros_like(prior_o)
-    with trace.span('am.obs_sweep'):
-        for i in range(n_obs * n_sweeps):
-            o_prop, prior_p, ll_p, ratio = _obs_move(
-                setup, i % n_obs, obs_eps[..., i], o_vec, prior_o, ll_cur,
-                proj, beta, cfg, obs_mask, obs)
-            acc = obs_log_u[..., i] < ratio
-            o_vec = torch.where(acc[..., None], o_prop, o_vec)
-            prior_o = torch.where(acc, prior_p, prior_o)
-            ll_cur = torch.where(acc, ll_p, ll_cur)
-            acc_o = acc_o + acc.to(acc_o.dtype)
+    for i in range(n_obs * n_sweeps):
+        o_prop, prior_p, ll_p, ratio = _obs_move(
+            setup, i % n_obs, obs_eps[..., i], o_vec, prior_o, ll_cur,
+            proj, beta, cfg, obs_mask, obs)
+        acc = obs_log_u[..., i] < ratio
+        o_vec = torch.where(acc[..., None], o_prop, o_vec)
+        prior_o = torch.where(acc, prior_p, prior_o)
+        ll_cur = torch.where(acc, ll_p, ll_cur)
+        acc_o = acc_o + acc.to(acc_o.dtype)
     return o_vec, prior_o, ll_cur, acc_o
+
+
+def _blocks(tree):
+    """The blocks of a ``(rel, sent, grid)`` triple (projections, observed
+    data or a likelihood mask) as one list."""
+    rel, sent, grid = tree
+    return [*rel, *sent, grid]
+
+
+def _triple(blocks, n_rel):
+    """:func:`_blocks`' list as ``(rel, sent, grid)`` again."""
+    return tuple(blocks[:n_rel]), tuple(blocks[n_rel:-1]), blocks[-1]
+
+
+def _obs_sweep_graphed(setup: BayesSetup, obs_eps, obs_log_u, o_vec, prior_o,
+                       ll_cur, proj, beta, cfg: MCMCConfig, obs_mask=None,
+                       obs=None, n_sweeps=1):
+    """:func:`_obs_sweep_eager` through ``utils.graphs.evaluate``.
+
+    A shallow copy of the setup (``with_observations``, ``with_held_out``,
+    ``with_batched_bvn``) shares its graphs, so every tensor a copy may
+    replace is an argument, copied in at each replay: the draws, the
+    observation block, its prior and likelihood, the projections, the
+    observed data (``obs``, else the setup's own), the mask (``obs_mask``,
+    else the setup's own, where there is one) and ``beta`` as a 0-d
+    tensor, so that one graph serves every temperature.  The key holds
+    what stays a Python value (the move count, ``obs_scale``, whether a
+    mask is scored, the observation model); ``graphs.graph_key`` adds the
+    shapes, so one chain and stacked particles have graphs of their own.
+    Counts the sweep in ``SWEEP_REPLAYS`` where its graph was captured
+    already."""
+    global SWEEP_REPLAYS
+    mask = obs_mask if obs_mask is not None else setup.obs_mask
+    data = obs if obs is not None else (setup.obs_release,
+                                        setup.obs_sentinel, setup.obs_grid)
+    n_rel, n = len(proj[0]), len(_blocks(proj))
+    args = [obs_eps, obs_log_u, o_vec, prior_o, ll_cur,
+            scalar(beta, o_vec.dtype, o_vec.device), *_blocks(proj),
+            *_blocks(data)]
+    if mask is not None:
+        args += _blocks(mask)
+    key = ('obs_sweep', _n_obs(setup), n_sweeps, cfg.obs_scale,
+           mask is not None, setup.obs_model)
+
+    def fn(eps, log_u, o, prior, ll, b, *blocks):
+        proj, data, *mask = [_triple(blocks[i:i + n], n_rel)
+                             for i in range(0, len(blocks), n)]
+        return _obs_sweep_eager(setup, eps, log_u, o, prior, ll, proj, b, cfg,
+                                mask[0] if mask else None, data, n_sweeps)
+
+    if graphs.graph_key(key, args) in setup.graphs.entries:
+        SWEEP_REPLAYS += 1
+    return graphs.evaluate(setup.graphs, key, fn, args)
 
 
 def _model_proposal(setup: BayesSetup, state: ChainState, cfg: MCMCConfig,

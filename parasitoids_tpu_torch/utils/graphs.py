@@ -8,11 +8,15 @@ evaluation is thousands of small launches from Python, and the card
 waits on the host.  Here the evaluation after its host read (the day
 loop, the pre-spread day, the propagation and the projections) is
 captured once per key as a CUDA graph and replayed after that: one
-launch from the host per evaluation.  ``utils/cache.py`` of the JAX
-package, the XLA compile cache, has no twin; this module fills its role.
+launch from the host per evaluation.  The AM sampler's observation
+sweep, which scores the likelihood and the observation priors between
+forwards, replays the same way (``bayes/sampler._obs_sweep_graphed``).
+``utils/cache.py`` of the JAX package, the XLA compile cache, has no
+twin; this module fills its role.
 
 :func:`evaluate` takes a function of tensors (one stacked parameter
-vector, and the pre-spread factor where it is given) and its arguments:
+vector and the pre-spread factor where it is given, or the sweep's
+arguments below) and its arguments:
 
 * **Key.**  The caller's key (which path, the Genz branches the
   function was built for, the particle count), whether a gradient is
@@ -26,12 +30,22 @@ vector, and the pre-spread factor where it is given) and its arguments:
   projections) while the next replay overwrites the graph's memory.
 * **Gradient** (``torch.cuda.make_graphed_callables``).  The forward and
   its backward, the day kernel's K3/K4 included, are captured as two
-  graphs inside one autograd node; the likelihood and the priors stay
-  eager around it.  The outputs and the gradients it returns are clones.
+  graphs inside one autograd node; a value+gradient's likelihood and
+  priors stay eager around it.  The outputs and the gradients it
+  returns are clones.
   A backward reads the intermediates its own forward left in the graph's
   memory, so it must follow its forward before that key's next forward
   replay; one that does not raises rather than return another
   evaluation's gradient.
+* **The observation sweep.**  Its key is ``('obs_sweep', n_obs,
+  n_sweeps, obs_scale, mask scored, observation model)``, and
+  :func:`graph_key` adds the shapes (one chain or stacked particles).  A
+  graph reads the memory it was captured on, and a setup's shallow
+  copies (``with_observations``, ``with_held_out``) share its cache while
+  they replace its observed data or its mask.  So the data and the mask,
+  like the draws, the state, the projections and ``beta``, are arguments
+  copied in at each replay, and a copy never scores the data of the
+  setup that captured.
 * **Memory.**  Each key has a memory pool of its own, held while the
   cache lives (a setup's).  A shared pool would let one key's replay
   overwrite another's intermediates, so a value-only evaluation between

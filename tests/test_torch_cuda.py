@@ -863,6 +863,146 @@ def test_graph_capture_failure_raises_and_runs_nothing_eagerly(
 
 
 # ----------------------------------------------------------------------
+# the AM observation sweep replayed as a CUDA graph
+# (bayes/sampler._obs_sweep_graphed), at the small configuration: each
+# replay bitwise the eager loop
+# ----------------------------------------------------------------------
+
+def _sweep_args(setup, state, n, seed):
+    """One sweep's arguments from ``state`` (its observation block, prior,
+    likelihood and projections), or ``n`` particles stacked around it
+    (their blocks jittered by 5%), and a sweep's draws, from ``seed``."""
+    from parasitoids_tpu_torch.bayes import sampler
+    from parasitoids_tpu_torch.bayes.priors import log_prior_obs
+    dev = state.o.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    o, proj, lead = state.o, state.proj, ()
+    if n:
+        lead = (n,)
+        o = o * (1.0 + 0.05 * torch.randn(lead + o.shape, generator=gen,
+                                          device=dev))
+        proj = (tuple(torch.stack([p] * n) for p in proj[0]),
+                tuple(torch.stack([p] * n) for p in proj[1]),
+                torch.stack([proj[2]] * n))
+    obs_o = sampler._as_obs(o, setup.n_sent)
+    with torch.no_grad():
+        prior_o = log_prior_obs(obs_o, setup.field_areas,
+                                setup.min_field_area, setup.obs_model)
+        ll = setup.log_likelihood(proj, obs_o)
+    shape = lead + (sampler._n_obs(setup),)
+    return (torch.randn(shape, generator=gen, device=dev),
+            torch.log(torch.rand(shape, generator=gen, device=dev)),
+            o, prior_o, ll, proj)
+
+
+def _sweep_start(setup):
+    from parasitoids_tpu_torch.bayes import sampler
+    return sampler.init_chain_state(
+        setup, sampler.chain_generator(0, 0, setup.setup.wind_flat.device))
+
+
+def _sweep_keys(setup):
+    return [k for k in setup.graphs.entries if k[0][0] == 'obs_sweep']
+
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize('n, beta', [(0, 1.0), (0, 0.5), (8, 1.0)],
+                         ids=['chain', 'tempered', 'stacked8'])
+def test_sweep_graph_is_bitwise_eager(cuda_device, n, beta):
+    # two sets of inputs in a row (a stale captured input fails), then the
+    # first again: every replay gives the eager loop's bits
+    from parasitoids_tpu_torch.bayes import sampler
+    setup = _am_setup(cuda_device)
+    state = _sweep_start(setup)
+    cfg = sampler.MCMCConfig(1)
+    outs = []
+    with torch.no_grad():
+        for seed in (1, 2, 1):
+            args = _sweep_args(setup, state, n, seed)
+            got = sampler._obs_sweep(setup, *args, beta, cfg)
+            assert _equal(got, sampler._obs_sweep_eager(setup, *args, beta,
+                                                        cfg))
+            assert bool((got[3] > 0).all())
+            outs.append(got)
+    assert not _equal(outs[0], outs[1]) and _equal(outs[0], outs[2])
+    assert len(_sweep_keys(setup)) == 1
+
+
+def test_sweep_graph_copies_replay_their_own_data(cuda_device):
+    # a setup, its with_observations copy and its with_held_out copy share
+    # one GraphCache; interleaved, each replay scores its own data and mask
+    from parasitoids_tpu_torch.bayes import sampler
+    setup = _am_setup(cuda_device)
+    other = {'release': [a.cpu().numpy() + 1 for a in setup.obs_release],
+             'sentinel': [a.cpu().numpy() + 1 for a in setup.obs_sentinel],
+             'grid': setup.obs_grid.cpu().numpy() + 1}
+    n_points = sum(int(a.numel()) for a in (
+        *setup.obs_release, *setup.obs_sentinel, setup.obs_grid))
+    keep = np.random.default_rng(2).random(n_points) < 0.7
+    copies = [setup, setup.with_observations(other),
+              setup.with_held_out(keep)]
+    assert all(c.graphs is setup.graphs for c in copies)
+    state = _sweep_start(setup)
+    cfg = sampler.MCMCConfig(1)
+    with torch.no_grad():
+        for seed in (1, 2, 3):
+            args = _sweep_args(setup, state, 0, seed)
+            wants = []
+            for c in copies:
+                got = sampler._obs_sweep(c, *args, 1.0, cfg)
+                wants.append(sampler._obs_sweep_eager(c, *args, 1.0, cfg))
+                assert _equal(got, wants[-1])
+            assert not _equal(wants[0], wants[1])
+            assert not _equal(wants[0], wants[2])
+    assert len(_sweep_keys(setup)) == 2          # unmasked and masked
+
+
+def test_sweep_replay_never_waits_and_a_chain_is_bitwise_eager(cuda_device):
+    # 12 AM steps through the forward's and the sweep's graphs give the
+    # eager copy's trace bit for bit; a replay makes no synchronizing call
+    import copy
+    from parasitoids_tpu_torch.bayes import sampler
+    setup = _am_setup(cuda_device)
+    eager = copy.copy(setup)
+    eager._replays_graphs = lambda: False
+    traces = []
+    for s in (setup, eager):
+        state, tr = sampler.run_mcmc(s, _sweep_start(s),
+                                     sampler.MCMCConfig(12))
+        traces.append(tr)
+    assert torch.equal(*traces) and bool(torch.isfinite(traces[0]).all())
+    assert len(_sweep_keys(setup)) == 1
+    args = _sweep_args(setup, state, 0, 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        with torch.no_grad():
+            sampler._obs_sweep(setup, *args, 0.5, sampler.MCMCConfig(1))
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert len(_sweep_keys(setup)) == 1          # it replayed
+
+
+def test_sweep_replays_count_every_sweep_after_the_capture(cuda_device):
+    # the first sweep captures; every later one is a replay
+    from parasitoids_tpu_torch.bayes import sampler
+    setup = _am_setup(cuda_device)
+    state = _sweep_start(setup)
+    counts = []
+    for _ in range(2):
+        before = (sampler.SWEEPS, sampler.SWEEP_REPLAYS)
+        state, _ = sampler.run_mcmc(setup, state, sampler.MCMCConfig(5))
+        counts.append((sampler.SWEEPS - before[0],
+                       sampler.SWEEP_REPLAYS - before[1]))
+    assert counts == [(5, 4), (5, 5)]
+    (_, _, pool_bytes), = [e for e in setup.graphs.summary()
+                           if e[0][0][0] == 'obs_sweep']
+    assert pool_bytes > 0
+
+# ----------------------------------------------------------------------
 # spans on the card (utils/trace.py)
 # ----------------------------------------------------------------------
 

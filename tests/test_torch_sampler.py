@@ -34,6 +34,7 @@ from parasitoids_tpu_torch.bayes import priors as tp
 from parasitoids_tpu_torch.bayes import sampler as ts
 from parasitoids_tpu_torch.bayes.model import BayesSetup
 from parasitoids_tpu_torch.models.forward import setup_from_numpy
+from parasitoids_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.filterwarnings(
     'ignore:simulation covers:RuntimeWarning')
@@ -472,3 +473,128 @@ def test_step_reads_the_device_once_and_the_sweep_never(plain, monkeypatch):
     assert len(calls) == 1
     assert torch.isfinite(sample).all()
     assert float(new.count) == 2.0 and float(new.accepts_o) >= 0
+
+
+# ----------------------------------------------------------------------
+# the sweep's dispatch: the eager loop on the CPU, and the function that
+# a CUDA graph captures on the card (``_obs_sweep_graphed``, run as it is
+# on the CPU) with the loop's bits.  Replay itself needs the card:
+# ``tests/test_torch_cuda.py -k sweep``.
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def sweep_start(plain):
+    return ts.init_chain_state(plain, ts.chain_generator(0, 0, 'cpu'))
+
+
+def _sweep_args(setup, state, stacked, seed=1):
+    """One sweep's arguments from ``state``: its observation block, prior,
+    likelihood and projections, or three particles stacked around it
+    (their blocks jittered by 5%), and a sweep's draws."""
+    n_obs = ts._n_obs(setup)
+    gen = torch.Generator().manual_seed(seed)
+    o, proj = state.o, state.proj
+    lead = ()
+    if stacked:
+        lead = (3,)
+        o = o * (1.0 + 0.05 * torch.randn(lead + o.shape, generator=gen))
+        proj = tuple(tuple(torch.stack([p] * 3) for p in group)
+                     for group in proj[:2]) + (torch.stack([proj[2]] * 3),)
+    obs_o = ts._as_obs(o, setup.n_sent)
+    prior_o = tp.log_prior_obs(obs_o, setup.field_areas,
+                               setup.min_field_area, setup.obs_model)
+    ll = setup.log_likelihood(proj, obs_o)
+    obs_eps = torch.randn(lead + (n_obs,), generator=gen)
+    obs_log_u = torch.log(torch.rand(lead + (n_obs,), generator=gen))
+    return obs_eps, obs_log_u, o, prior_o, ll, proj
+
+
+def _other_obs(setup):
+    """Observed data of the setup's shapes, each count one more."""
+    return {'release': [a.numpy() + 1 for a in setup.obs_release],
+            'sentinel': [a.numpy() + 1 for a in setup.obs_sentinel],
+            'grid': setup.obs_grid.numpy() + 1}
+
+
+def _keep(setup, seed=2):
+    n = sum(int(a.numel()) for a in (*setup.obs_release,
+                                     *setup.obs_sentinel, setup.obs_grid))
+    return np.random.default_rng(seed).random(n) < 0.7
+
+
+def _sweep_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize('masked', [False, True], ids=['', 'mask'])
+@pytest.mark.parametrize('given', [False, True], ids=['', 'obs'])
+@pytest.mark.parametrize('stacked', [False, True], ids=['chain', 'stacked'])
+def test_sweep_dispatch_is_the_eager_loop_on_the_cpu(plain, sweep_start,
+                                                     stacked, given, masked):
+    # the dispatcher runs the loop on the CPU, and the function a graph
+    # captures unpacks its arguments into the same sweep: equal bits, for
+    # the setup's data and mask or those given
+    args = _sweep_args(plain, sweep_start, stacked)
+    cfg = ts.MCMCConfig(1)
+    obs = plain.obs_pytree(_other_obs(plain)) if given else None
+    mask = plain.split_point_mask(_keep(plain)) if masked else None
+    sweeps, replays = ts.SWEEPS, ts.SWEEP_REPLAYS
+    with torch.no_grad():
+        base = ts._obs_sweep_eager(plain, *args, 0.5, cfg)
+        want = ts._obs_sweep_eager(plain, *args, 0.5, cfg, mask, obs)
+        got = ts._obs_sweep(plain, *args, 0.5, cfg, mask, obs)
+        graphed = ts._obs_sweep_graphed(plain, *args, 0.5, cfg, mask, obs)
+    assert ts.SWEEPS == sweeps + 1 and ts.SWEEP_REPLAYS == replays
+    assert _sweep_equal(got, want) and _sweep_equal(graphed, want)
+    assert bool((base[3] > 0).all())             # moves were accepted
+    assert _sweep_equal(want, base) == (not given and not masked)
+    assert want[0].shape == args[2].shape
+
+
+@pytest.mark.parametrize('copy_kind', ['observations', 'held_out'])
+def test_graphed_sweep_scores_a_copys_own_data(plain, sweep_start,
+                                               copy_kind):
+    # a shallow copy shares the setup's graphs: the function they capture
+    # scores the copy's own data and mask, which it takes as arguments
+    other = (plain.with_observations(_other_obs(plain))
+             if copy_kind == 'observations'
+             else plain.with_held_out(_keep(plain)))
+    assert other.graphs is plain.graphs
+    args = _sweep_args(plain, sweep_start, False)
+    cfg = ts.MCMCConfig(1)
+    with torch.no_grad():
+        got = ts._obs_sweep_graphed(other, *args, 1.0, cfg)
+        want = ts._obs_sweep_eager(other, *args, 1.0, cfg)
+        own = ts._obs_sweep_eager(plain, *args, 1.0, cfg)
+    assert _sweep_equal(got, want) and not _sweep_equal(want, own)
+
+
+def test_graphed_sweep_keys(plain, sweep_start, monkeypatch):
+    # one graph serves every temperature, the data given or a copy's; a
+    # mask scored, stacked particles and another move count have their own
+    keys = []
+
+    def recorded(cache, key, fn, args):
+        keys.append(graphs.graph_key(key, args))
+        return fn(*args)
+
+    monkeypatch.setattr(graphs, 'evaluate', recorded)
+    cfg = ts.MCMCConfig(1)
+    one, stacked = [_sweep_args(plain, sweep_start, s) for s in (False,
+                                                                 True)]
+    obs = plain.obs_pytree(_other_obs(plain))
+    mask = plain.split_point_mask(_keep(plain))
+    two = tuple(torch.cat([a, a]) for a in one[:2]) + one[2:]
+    with torch.no_grad():
+        for setup, args, beta, kw in (
+                (plain, one, 1.0, {}), (plain, one, 0.5, {}),
+                (plain, one, 0.1, {'obs': obs}),
+                (plain.with_observations(_other_obs(plain)), one, 1.0, {}),
+                (plain, stacked, 1.0, {}), (plain, stacked, 0.5, {}),
+                (plain, one, 1.0, {'obs_mask': mask}),
+                (plain.with_held_out(_keep(plain, 5)), one, 0.5, {}),
+                (plain, two, 1.0, {'n_sweeps': 2})):
+            ts._obs_sweep_graphed(setup, *args, beta, cfg, **kw)
+    assert len(set(keys[:4])) == 1 and len(set(keys[4:6])) == 1
+    assert keys[6] == keys[7]
+    assert len({keys[0], keys[4], keys[6], keys[8]}) == 4
