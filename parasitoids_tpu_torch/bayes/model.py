@@ -466,11 +466,21 @@ class BayesSetup:
         return self._forward_projections_graphed(m, sprd_factor, branches)
 
     def _replays_graphs(self):
-        """Whether :meth:`forward_projections` replays captured graphs: on
-        the card, through the day kernel, without a forward mesh."""
+        """Whether :meth:`forward_projections` and :meth:`population_fields`
+        replay captured graphs: on the card, through the day kernel,
+        without a forward mesh."""
         k = self.setup.kcfg
         return (self.setup.wind_flat.device.type == 'cuda' and k.pallas and
                 not k.ref_trunc and self.forward_mesh is None)
+
+    def _graph_args(self, m: ModelParams, sprd_factor):
+        """The arguments of a graphed evaluation: one stacked parameter
+        vector, and ``sprd_factor`` where it is given."""
+        dtype, dev = self.setup.wind_flat.dtype, self.setup.wind_flat.device
+        args = [torch.stack([scalar(v, dtype, dev) for v in m], dim=-1)]
+        if sprd_factor is not None:
+            args.append(scalar(sprd_factor, dtype, dev))
+        return args
 
     def _forward_projections_graphed(self, m: ModelParams, sprd_factor=None,
                                      branches=None):
@@ -479,14 +489,9 @@ class BayesSetup:
         ``utils.graphs.evaluate``: a replay of the captured graph of its
         key on the card, the function itself on the CPU.  The key holds
         the Genz branches (one parameter set) or the particle count."""
-        s = self.setup
-        dtype, dev = s.wind_flat.dtype, s.wind_flat.device
-        batched = s.kcfg.batched_bvn
-        args = [torch.stack([scalar(v, dtype, dev) for v in m], dim=-1)]
-        if sprd_factor is not None:
-            args.append(scalar(sprd_factor, dtype, dev))
-        key = ('batched', args[0].shape[0]) if batched else \
-            ('single', tuple(branches))
+        args = self._graph_args(m, sprd_factor)
+        key = ('batched', args[0].shape[0]) if self.setup.kcfg.batched_bvn \
+            else ('single', tuple(branches))
 
         def fn(vec, sprd=None):
             return self._forward_projections_eager(_as_model(vec), sprd,
@@ -496,60 +501,90 @@ class BayesSetup:
     def _forward_projections_eager(self, m: ModelParams, sprd_factor=None,
                                    branches=None):
         """:meth:`forward_projections` run eagerly, launch by launch."""
-        s = self.setup
-        if s.kcfg.batched_bvn:
+        if self.setup.kcfg.batched_bvn:
             return self._forward_projections_batched(m, sprd_factor)
         if branches is None:
             branches, _ = self._branches(m)
-        n_per = torch.round(scalar(m.n_periods, s.wind_flat.dtype,
-                                   s.wind_flat.device)).to(torch.int64)
-        if self.forward_mesh is not None:
-            from ..parallel.domain import build_all_kernels_sharded
-            kernels, _ = build_all_kernels_sharded(
-                self.forward_mesh, s.wind_flat, s.wind_cumsum, m.hparams(),
-                m.Dparams(), m.Dlparams(), m.mu_r, n_per, s.rad_dist,
-                s.start_idx, s.kcfg, self.ndays, branches)
-        else:
-            kernels, _ = build_all_kernels(
-                s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
-                m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx,
-                s.kcfg, self.ndays, branches)
-        if sprd_factor is not None:
-            pre = self._pre_spread_kernel(m, sprd_factor, branches)
-            kernels = torch.cat([pre[None], kernels], dim=0)
-            fields = propagate_pop(kernels, self.r_dur, self.r_number,
-                                   self.dist_weights, s.scfg)[1:]
-        else:
-            fields = propagate_pop(kernels, self.r_dur, self.r_number,
-                                   self.dist_weights, s.scfg)
+        return self._project(self._fields_eager(m, sprd_factor, branches))
+
+    def _forward_projections_batched(self, m: ModelParams, sprd_factor):
+        return self._project(self._fields_eager(m, sprd_factor))
+
+    def _project(self, fields):
         rel, sent = self.obs_ops.project_emergence(fields)
         grid = self.obs_ops.project_grid(fields)
         return tuple(rel), tuple(sent), grid
 
-    def _forward_projections_batched(self, m: ModelParams, sprd_factor):
+    def population_fields(self, m: ModelParams, sprd_factor=None,
+                          branches=None, days=None, propagate=None):
+        """The ``(ndays, D, D)`` expected population fields of the forward
+        for a model-parameter block (what :meth:`forward_projections`
+        projects), or only ``days`` of them (0-based), so the full stack
+        is never returned.  ``sprd_factor``, ``branches``: as
+        :meth:`forward_projections`; a pre-spread day is propagated and
+        left out of the fields.  ``propagate``: the propagation,
+        ``models.solver.propagate_pop`` unless given.
+
+        On the card with the day kernel (:meth:`_replays_graphs`) the
+        fields after the host read replay the captured CUDA graph of key
+        ``('fields', branches, days)`` (its first call captures it), and
+        each result is a clone that the next replay leaves as it is; the
+        CPU, a forward mesh and the plain, ``ref_trunc`` and f64 paths run
+        :meth:`_fields_eager`, which gives the same bits."""
+        if branches is None and not self.setup.kcfg.batched_bvn:
+            branches, _ = self._branches(m)
+        branches = None if branches is None else tuple(branches)
+        days = None if days is None else tuple(int(d) for d in days)
+        if not self._replays_graphs():
+            return self._fields_eager(m, sprd_factor, branches, days,
+                                      propagate)
+
+        def fn(vec, sprd=None):
+            return self._fields_eager(_as_model(vec), sprd, branches, days,
+                                      propagate)
+        return graphs.evaluate(self.graphs, ('fields', branches, days), fn,
+                               self._graph_args(m, sprd_factor))
+
+    def _fields_eager(self, m: ModelParams, sprd_factor=None, branches=None,
+                      days=None, propagate=None):
+        """:meth:`population_fields` run eagerly, launch by launch: the
+        day loop (minute-sharded under a forward mesh), the pre-spread
+        day, the propagation.  On a :meth:`with_batched_bvn` copy the
+        fields gain a leading particle axis."""
         s = self.setup
-        dtype, dev = s.wind_flat.dtype, s.wind_flat.device
-        n_per = torch.round(m.n_periods.to(dtype)).to(torch.int64)
-        build = build_all_kernels_batched
-        if self.forward_mesh is not None:
-            from ..parallel.domain import build_all_kernels_batched_sharded
-            build = partial(build_all_kernels_batched_sharded,
-                            self.forward_mesh)
+        propagate = propagate or propagate_pop
+        n_per = torch.round(scalar(m.n_periods, s.wind_flat.dtype,
+                                   s.wind_flat.device)).to(torch.int64)
+        mesh = self.forward_mesh
+        if s.kcfg.batched_bvn:
+            build = build_all_kernels_batched
+            if mesh is not None:
+                from ..parallel.domain import \
+                    build_all_kernels_batched_sharded
+                build = partial(build_all_kernels_batched_sharded, mesh)
+        else:
+            build = partial(build_all_kernels, branches=branches)
+            if mesh is not None:
+                from ..parallel.domain import build_all_kernels_sharded
+                build = partial(build_all_kernels_sharded, mesh,
+                                branches=branches)
         kernels, _ = build(
             s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
             m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
             self.ndays)
         if sprd_factor is not None:
-            pre = self._pre_spread_kernel(m, sprd_factor)
-            kernels = torch.cat([pre[:, None], kernels], dim=1)
-            fields = propagate_pop(kernels, self.r_dur, self.r_number,
-                                   self.dist_weights, s.scfg)[:, 1:]
-        else:
-            fields = propagate_pop(kernels, self.r_dur, self.r_number,
-                                   self.dist_weights, s.scfg)
-        rel, sent = self.obs_ops.project_emergence(fields)
-        grid = self.obs_ops.project_grid(fields)
-        return tuple(rel), tuple(sent), grid
+            pre = self._pre_spread_kernel(m, sprd_factor, branches)
+            kernels = torch.cat([pre.unsqueeze(-3), kernels], dim=-3)
+        fields = propagate(kernels, self.r_dur, self.r_number,
+                           self.dist_weights, s.scfg)
+        if sprd_factor is not None:
+            fields = fields[..., 1:, :, :]
+        if days is not None:
+            # day by day: a list index would copy its indices to the card,
+            # which a captured graph cannot hold
+            fields = torch.stack([fields[..., d, :, :] for d in days],
+                                 dim=-3)
+        return fields
 
     # ------------------------------------------------------------------
     def _obs_logpmf(self, data, rate, o: ObsParams):

@@ -10,9 +10,13 @@ The members run in turn, as the JAX package's ``lax.map`` runs them: a
 θ-batched forward would evaluate every ρ branch of the BVN for every
 member.  Each member reads its own Genz branch through
 ``BayesSetup._branches`` (one host read a member), so member i is exactly
-one ``forward_projections`` call.  With a mesh (``mesh=``) the member axis
-is sharded over its devices: each shard's members run on its device
-through the setup's copy there, exactly as without a mesh, and the
+one ``forward_projections`` call, or for its fields one
+``population_fields`` call.  On the card with the day kernel either
+replays, after that read, the captured CUDA graph of the member's Genz
+branches (``utils/graphs.py``; the first member of a key captures it).
+With a mesh (``mesh=``) the member axis is sharded over its devices: each
+shard's members run on its device through the setup's copy there, exactly
+as without a mesh (each card replaying graphs of its own), and the
 results come back to the lead device.
 """
 
@@ -22,7 +26,6 @@ import numpy as np
 import torch
 
 from ..bayes.model import BayesSetup, _as_model
-from ..models.forward import build_all_kernels
 from ..models.solver import propagate_pop
 from ..utils import trace
 
@@ -100,29 +103,25 @@ def ensemble_projections(setup: BayesSetup, thetas, mesh=None):
 
 def _fields_one(setup: BayesSetup, theta, days=None):
     """The ``(ndays, D, D)`` population fields of one member, or only
-    ``days`` of them."""
-    s = setup.setup
+    ``days`` of them: ``BayesSetup.population_fields`` through the
+    propagation as this module names it, so that one replaced here
+    (``bench_torch/faults.py``) propagates the ensemble's fields."""
     with trace.span('ensemble.member', request=True):
-        m = _as_model(theta)
-        branches, _ = setup._branches(m)
-        n_per = torch.round(m.n_periods).to(torch.int64)
-        kernels, _ = build_all_kernels(
-            s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
-            m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
-            setup.ndays, branches)
-        fields = propagate_pop(kernels, setup.r_dur, setup.r_number,
-                               setup.dist_weights, s.scfg)
-        return fields if days is None else fields[days]
+        return setup.population_fields(_as_model(theta), days=days,
+                                       propagate=propagate_pop)
 
 
 def ensemble_fields(setup: BayesSetup, thetas, mesh=None, days=None):
     """Full per-day population fields for a batch of parameter vectors,
     ``(B, ndays, D, D)`` on the setup's device; ``days`` (0-based indices)
-    keeps only those days of each member, so the full stack never forms.
-    Memory scales with B·ndays·D²: prefer :func:`ensemble_projections`
-    unless the fields themselves are needed.  ``mesh``: as
-    :func:`ensemble_projections`."""
-    idx = None if days is None else list(days)
+    keeps only those days of each member, so the full stack never forms
+    outside a member.  Memory scales with B·ndays·D²: prefer
+    :func:`ensemble_projections` unless the fields themselves are needed.
+    ``mesh``: as :func:`ensemble_projections`.  On the card each member
+    replays the captured graph of its Genz branches and ``days``
+    (``BayesSetup.population_fields``); members without a pre-spread day,
+    as in :func:`ensemble_projections`."""
+    idx = None if days is None else tuple(days)
     with torch.no_grad():
         return _sharded_map(lambda s, th: _fields_one(s, th, idx), setup,
                             _thetas(setup, thetas), mesh)

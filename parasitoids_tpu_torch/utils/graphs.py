@@ -10,7 +10,9 @@ loop, the pre-spread day, the propagation and the projections) is
 captured once per key as a CUDA graph and replayed after that: one
 launch from the host per evaluation.  The AM sampler's observation
 sweep, which scores the likelihood and the observation priors between
-forwards, replays the same way (``bayes/sampler._obs_sweep_graphed``).
+forwards, replays the same way (``bayes/sampler._obs_sweep_graphed``),
+as do a forecast member's fields (``BayesSetup.population_fields``, key
+``('fields', branches, days)``).
 ``utils/cache.py`` of the JAX package, the XLA compile cache, has no
 twin; this module fills its role.
 

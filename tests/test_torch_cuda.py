@@ -863,6 +863,92 @@ def test_graph_capture_failure_raises_and_runs_nothing_eagerly(
 
 
 # ----------------------------------------------------------------------
+# a forecast member's fields replayed as a CUDA graph
+# (BayesSetup.population_fields, parallel/ensemble.ensemble_fields), at
+# the small configuration: each replay bitwise the eager member
+# ----------------------------------------------------------------------
+
+def _members(device):
+    """Three prior draws, the first and last at flight |rho| 0.1 and 0.12
+    (Genz tier 0), the second at 0.5 (tier 1), all at local rho 0."""
+    from parasitoids_tpu_torch.bayes.priors import sample_prior_model
+    th = sample_prior_model(torch.Generator().manual_seed(16), 3)
+    th[:, 8] = torch.tensor([0.55, 0.75, 0.56])      # rho = 2 corr_p - 1
+    th[:, 11] = 0.5
+    return th.to(device)
+
+
+def _field_keys(setup):
+    return [k[0] for k in setup.graphs.entries if k[0][0] == 'fields']
+
+
+def test_fields_replay_is_bitwise_eager(cuda_device):
+    # members of two Genz keys, all days and a subset of them: every
+    # replayed member bitwise the eager member, one graph a key
+    from parasitoids_tpu_torch.parallel import ensemble
+    setup, eager = _graph_setups(cuda_device)
+    th = _members(cuda_device)
+    full = None
+    for days in (None, (17, 0, 5)):
+        with torch.no_grad():
+            got = ensemble.ensemble_fields(setup, th, days=days)
+            want = ensemble.ensemble_fields(eager, th, days=days)
+        assert torch.equal(got, want)
+        if days is None:
+            full = got
+        else:
+            assert torch.equal(got, full[:, list(days)])
+    assert float(full.sum()) > 0 and not torch.equal(full[0], full[2])
+    assert sorted((k[1], k[2] or ()) for k in _field_keys(setup)) == [
+        ((0, 0), ()), ((0, 0), (17, 0, 5)), ((1, 0), ()),
+        ((1, 0), (17, 0, 5))]
+
+
+def test_fields_survive_the_next_member(cuda_device):
+    # a member's fields are a clone: the next member of the same key,
+    # replayed into the same graph memory, leaves them as they were
+    from parasitoids_tpu_torch.bayes.model import _as_model
+    setup, _ = _graph_setups(cuda_device)
+    th = _members(cuda_device)
+    with torch.no_grad():
+        first = setup.population_fields(_as_model(th[0]))
+        kept = first.clone()
+        second = setup.population_fields(_as_model(th[2]))
+        third = setup.population_fields(_as_model(th[0]))
+    torch.cuda.synchronize()
+    assert len(setup.graphs.entries) == 1
+    assert torch.equal(first, kept) and torch.equal(third, kept)
+    assert not torch.equal(second, kept)
+
+
+def test_members_of_one_key_capture_once(cuda_device):
+    # N members of one key: one capture, N replays, and 18 day launches
+    # counted a member as an eager member counts them
+    from parasitoids_tpu_torch.parallel import ensemble
+    from parasitoids_tpu_torch.utils import trace
+    setup, _ = _graph_setups(cuda_device)
+    th = _members(cuda_device)[[0, 2, 0, 2, 0]]
+    before = day_kernel.LAUNCHES
+    trace.clear()
+    trace.enable()
+    try:
+        with torch.no_grad():
+            ensemble.ensemble_fields(setup, th)
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    names = [r.name for r in trace.records()]
+    trace.clear()
+    assert len(setup.graphs.entries) == 1
+    assert names.count('graphs.capture') == 1
+    assert names.count('graphs.replay') == 5
+    assert names.count('ensemble.member') == 5
+    assert day_kernel.LAUNCHES - before == 5 * 18
+    (_, capture_s, pool_bytes), = setup.graphs.summary()
+    assert capture_s > 0 and pool_bytes > 0
+
+
+# ----------------------------------------------------------------------
 # the AM observation sweep replayed as a CUDA graph
 # (bayes/sampler._obs_sweep_graphed), at the small configuration: each
 # replay bitwise the eager loop

@@ -124,3 +124,72 @@ def test_ensemble_mesh_is_not_ported(setups):
     fields = te.ensemble_fields(ts, thetas[:2], mesh=mesh, days=[2])
     assert tuple(fields.shape) == (2, 1, 101, 101)
     assert torch.equal(fields, te.ensemble_fields(ts, thetas[:2], days=[2]))
+
+
+@pytest.mark.parametrize('days', [None, (2, 0)])
+def test_member_fields_are_one_population_fields_call(setups, days):
+    # member i of ensemble_fields is one BayesSetup.population_fields call,
+    # bit for bit, all days or a subset
+    _, ts, thetas = setups
+    got = te.ensemble_fields(ts, thetas[:2], days=days)
+    for i in range(2):
+        with torch.no_grad():
+            one = ts.population_fields(_as_model(torch.from_numpy(
+                thetas[i])), days=days)
+        assert torch.equal(got[i], one)
+
+
+@pytest.mark.parametrize('batched', [False, True])
+@pytest.mark.parametrize('sprd', [None, 0.3])
+def test_projected_fields_are_forward_projections(setups, sprd, batched):
+    # obs_ops over population_fields gives forward_projections' answers
+    # bit for bit: with and without a pre-spread day, one parameter set
+    # and the particle-batched copy
+    _, ts, thetas = setups
+    if batched:
+        ts = ts.with_batched_bvn()
+        m = _as_model(torch.from_numpy(thetas[:3]))
+    else:
+        m = _as_model(torch.from_numpy(thetas[1]))
+    with torch.no_grad():
+        fields = ts.population_fields(m, sprd)
+        rel, sent = ts.obs_ops.project_emergence(fields)
+        grid = ts.obs_ops.project_grid(fields)
+        want = ts.forward_projections(m, sprd)
+    assert tuple(fields.shape[-3:]) == (3, 101, 101)
+    assert fields.ndim == (4 if batched else 3)
+    for a, b in zip((*rel, *sent, grid), (*want[0], *want[1], want[2])):
+        assert torch.equal(a, b)
+
+
+def test_graphed_fields_route_gives_the_eager_bits_on_the_cpu(
+        setups, monkeypatch):
+    # where a setup replays graphs, population_fields hands graphs.evaluate
+    # the stacked parameter vector under the key ('fields', branches,
+    # days); on CPU tensors evaluate runs the function itself: the eager
+    # bits, and nothing captured
+    import copy
+
+    from parasitoids_tpu_torch.utils import graphs
+    _, ts, thetas = setups
+    graphed = copy.copy(ts)
+    graphed._replays_graphs = lambda: True
+    graphed.graphs = graphs.GraphCache()
+    seen = []
+    real = graphs.evaluate
+
+    def spy(cache, key, fn, args):
+        seen.append((key, [tuple(a.shape) for a in args]))
+        return real(cache, key, fn, args)
+
+    monkeypatch.setattr(graphs, 'evaluate', spy)
+    m = _as_model(torch.from_numpy(thetas[2]))
+    branches, _ = ts._branches(m)
+    with torch.no_grad():
+        for days in (None, [1]):
+            got = te.ensemble_fields(graphed, thetas[2:3], days=days)
+            want = ts.population_fields(m, days=days)
+            assert torch.equal(got[0], want)
+    assert seen == [(('fields', branches, None), [(15,)]),
+                    (('fields', branches, (1,)), [(15,)])]
+    assert not graphed.graphs.entries
