@@ -209,22 +209,21 @@ def sfu_rate():
     return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
-def lattice_exps(mu, Dp, cell, K, select=False):
+def lattice_exps(mu, Dp, cell, K):
     """The exps (an erfc counted as one) that the forward's corner lattices
     of these minutes need, counted from this run's data: every corner's
     G-node quadrature on the low-|rho| branch; on the high branch the
     series terms and tail nodes that pass their -80 cut-offs.  Plus Phi of
-    each minute's 2 (2K + 2) edge coordinates.  ``select``: the batched
-    ensemble's node rule (20 nodes to |rho| 0.925).  Returns (exps,
-    corners, whether the high branch ran)."""
+    each minute's 2 (2K + 2) edge coordinates.  Genz's tier by |rho|, the
+    node rule of every launch, single and particle-batched.  Returns
+    (exps, corners, whether the high branch ran)."""
     from parasitoids_tpu_torch.ops.bvn import genz_branch
     from parasitoids_tpu_torch.ops.day_kernel import LAYOUT, _pack_constants
     dev = mu.device
     q = _pack_constants(Dp, cell, dev)
     m, T = 2 * K + 2, mu.shape[0]
     corners = T * m * m
-    ar = abs(float(q[3]))
-    branch = (2 if ar <= 0.925 else 3) if select else genz_branch(ar)
+    branch = genz_branch(abs(float(q[3])))
     if branch < 3:
         return corners * (6, 12, 20)[branch] + 2 * m * T, corners, False
     sig_x, sig_y, sgn, a_sq = (float(q[i]) for i in (0, 1, 4, 6))
@@ -258,13 +257,13 @@ def bound(exps, flops, nbytes, rate):
             'operations' if ops_s >= bytes_s else 'bytes', what)
 
 
-def forward_counts(h, mu, Dp, cell, K, buf_len, select=False):
+def forward_counts(h, mu, Dp, cell, K, buf_len):
     """(exps, f32 operations, bytes) of one day's forward accumulate: its
     exps, about 10 f32 operations per exp (and on the high branch 4 per
     tail node of every corner for its cut-off test), the four-corner
     differences and the scaled add (5 per cell), each input read once and
     the buffer written once."""
-    exps, corners, hi = lattice_exps(mu, Dp, cell, K, select)
+    exps, corners, hi = lattice_exps(mu, Dp, cell, K)
     T, n = h.shape[0], 2 * K + 1
     flops = 10 * exps + 5 * T * n * n + (80 * corners if hi else 0)
     nbytes = T * (4 + 8 + 8 + 4) + 4 * buf_len * buf_len
@@ -291,8 +290,8 @@ def backward_bound(h, mu, Dp, cell, K, buf_len, rate):
 
 # the lattice probe (ops/day_kernel.lattice_probe): every corner of one
 # minute's lattice through the kernel's exact division against the IEEE
-# division, for each rho (Genz's 6-, 12- and 20-node rules and the series;
-# the select rule's 20 nodes and series), three diffusions (the Kalbar
+# division, for each rho (Genz's 6-, 12- and 20-node rules and the series,
+# the node rule of every launch), three diffusions (the Kalbar
 # default, the prior's narrowest, and one of a few metres whose corners
 # reach hundreds of sigmas, the far tails) and three mean offsets (the
 # centre, a sub-cell offset, 0.9 and -0.6 of the window's reach), at
@@ -317,29 +316,27 @@ def probe_cases(K, dev):
     return torch.tensor(rows, **f32), torch.tensor(mus, **f32)
 
 
-def check_lattice_probe(dev, select):
-    """The probe at PROBE_KS for one node rule; fails on any word that
-    differs from the IEEE division's.  Prints the counts."""
+def check_lattice_probe(dev):
+    """The probe at PROBE_KS; fails on any word that differs from the
+    IEEE division's.  Prints the counts."""
     from parasitoids_tpu_torch.ops.day_kernel import lattice_probe
     tot = dict(differ=0, corners=0, ieee=0, bwd_vs_fwd=0)
     want = 0
     for K in PROBE_KS:
         Dp, mu = probe_cases(K, dev)
-        for k, v in lattice_probe(Dp, mu, PROBE_CELL, K,
-                                  select=select).items():
+        for k, v in lattice_probe(Dp, mu, PROBE_CELL, K).items():
             tot[k] += v
         want += Dp.shape[0] * (2 * K + 2) ** 2
-    rule = 'select' if select else 'Genz'
-    print('  lattice probe ({} rule, K = {}): {} corners, {} differing '
+    print('  lattice probe (Genz rule, K = {}): {} corners, {} differing '
           'words, {} corners on the IEEE division (out of the exact '
           'division\'s range), {} corners where block_bwd\'s value differs '
-          "from block_build's".format(rule, ', '.join(map(str, PROBE_KS)),
+          "from block_build's".format(', '.join(map(str, PROBE_KS)),
                                       tot['corners'], tot['differ'],
                                       tot['ieee'], tot['bwd_vs_fwd']))
     check(tot['corners'] == want and tot['differ'] == 0,
-          'lattice probe ({} rule): the exact division gives the IEEE '
+          'lattice probe (Genz rule): the exact division gives the IEEE '
           "division's bits at all {} corners, forward and backward".format(
-              rule, want))
+              want))
     return tot
 
 
@@ -389,7 +386,7 @@ def phase_kernel_vs_plain(dev, card, rate):
                                                       pack_constants, pass_ms)
     print('[3] kernel vs plain on the card (D = 801, T = 1440, K = 44)')
     check_packed_reciprocals(dev)
-    check_lattice_probe(dev, select=False)
+    check_lattice_probe(dev)
     p = kalbar_params()
     cell = p.domain_info[0] / p.domain_info[1]
     p.kernel_rad, p.kernel_rad_local = prior_coverage_windows(cell)
@@ -1998,12 +1995,13 @@ def phase_sbc_and_anneals(dev, card, work):
     return k1, k1_smc + k1_cv, sec_sbc, sec_phase
 
 
-# the batched ensemble against its in-turn forward: the two node rules
-# differ by at most 20-node against 6/12-node quadrature roundoff, held at
-# the JAX package's own tolerance for the two schemes
-# (tests/test_smc.py:356-375)
+# the batched ensemble against its in-turn forward: the day accumulates
+# take the same node rule (each particle's Genz tier), the local and
+# pre-spread blocks the select rule, which differs from Genz's tier by at
+# most 20-node against 6/12-node quadrature roundoff; held at the JAX
+# package's own tolerance for the two schemes (tests/test_smc.py:356-375)
 SCHEME_RTOL, SCHEME_ATOL = 2e-4, 2e-3
-BATCHED_RHOS = (0.253, 0.9, 0.93, -0.99)   # straddling the 0.925 rule
+BATCHED_RHOS = (0.253, 0.6, 0.9, 0.93, -0.99)   # every Genz tier
 
 
 def batched_day(setup, m_vecs, day):
@@ -2031,8 +2029,8 @@ def phase_smc_batched(dev, card, rate, work, smc_sec=None):
     particles, one move a stage, five stages, a stop after stage 3 and a
     resume from the command line's store), ``batched=True``: the
     particle-batched kernel against its plain twin on days 0, 9 and 17
-    (four particles whose rho straddles 0.925, two launches bitwise
-    equal), each particle's batched projections against its own in-turn
+    (five particles whose rho takes every Genz tier, two launches
+    bitwise equal), each particle's batched projections against its own in-turn
     K1 forward, 18 batched launches a move round and no single one, no
     host read inside a move round, the resume bitwise, seconds per
     particle move batched and in turn, and device busy time a round.
@@ -2053,19 +2051,20 @@ def phase_smc_batched(dev, card, rate, work, smc_sec=None):
     bsetup = setup.with_batched_bvn()
     check(bsetup.setup.kcfg.pallas and bsetup.setup.kcfg.K == 44,
           'the batched setup takes the CUDA kernel at K = 44')
-    check_lattice_probe(dev, select=True)
+    check_lattice_probe(dev)
 
     # 1. the batched launch against its plain twin
     m8 = sample_prior_model(torch.Generator().manual_seed(18), 8).to(dev)
     # the checked particles: the model block's initial values, with the
-    # flight diffusion varied and rho straddling the select rule
-    m4 = torch.as_tensor(np.tile(initial_model_params(), (4, 1)),
+    # flight diffusion varied and rho in every Genz tier
+    m5 = torch.as_tensor(np.tile(initial_model_params(),
+                                 (len(BATCHED_RHOS), 1)),
                          dtype=torch.float32).to(dev)
-    m4[:, 6] += torch.tensor([0.0, 20.0, -15.0, 40.0], device=dev)
-    m4[:, 8] = (torch.tensor(BATCHED_RHOS, device=dev) + 1.0) / 2.0
+    m5[:, 6] += torch.tensor([0.0, 20.0, -15.0, 40.0, 10.0], device=dev)
+    m5[:, 8] = (torch.tensor(BATCHED_RHOS, device=dev) + 1.0) / 2.0
     err = {'K1': 0.0, 'K2': 0.0, 'rel': 0.0}
     for day in (0, 9, 17):
-        args = batched_day(setup, m4, day)
+        args = batched_day(setup, m5, day)
         buf, loss = day_kernel.accumulate_day_batched(*args)
         again, loss_again = day_kernel.accumulate_day_batched(*args)
         want_buf, want_loss = day_kernel.accumulate_day_batched_plain(*args)
@@ -2081,8 +2080,8 @@ def phase_smc_batched(dev, card, rate, work, smc_sec=None):
             tol = min(ABS_LIMIT, HI_TOL if branch == 'K2' else BUF_TOL)
             check(np.isfinite(e) and e <= tol and peak > 0 and
                   rel <= REL_LIMIT,
-                  'day {:2d} particle {} rho {:+.3f} ({} by the select '
-                  'rule): max |kernel - plain| = {:.3e} <= {:.0e}; / peak '
+                  'day {:2d} particle {} rho {:+.3f} ({} by its Genz '
+                  'tier): max |kernel - plain| = {:.3e} <= {:.0e}; / peak '
                   '{:.3e} <= {:.0e}'.format(day, i, rho, branch, e, tol, rel,
                                             REL_LIMIT))
             err[branch] = max(err[branch], e)
@@ -2098,7 +2097,7 @@ def phase_smc_batched(dev, card, rate, work, smc_sec=None):
         kernel_ms=float(np.median(passes.sum(axis=1))))
     h, mu, idx, clip, Dp, cell, K, buf_len = args
     counts = np.sum([forward_counts(h[i], mu[i], tuple(Dp[i]), cell, K,
-                                    buf_len, select=True)
+                                    buf_len)
                      for i in range(8)], axis=0)
     timing['bound_ms'], timing['bound_by'], what = bound(*counts, rate)
     # the single-particle K1 launch on the same days, for the ratio
@@ -3019,8 +3018,8 @@ def run(only, work):
         'device_launches_per_nuts_leapfrog_801': nuts_launches,
         'device_busy_sec_per_nuts_leapfrog_801': nuts_busy,
     }, {
-        'name': 'day_accumulate particle-batched (K1/K2 by the select rule, '
-                'one launch a day for the population)',
+        'name': 'day_accumulate particle-batched (K1/K2 by each particle\'s '
+                'Genz tier, one launch a day for the population)',
         'route': 'cuda',
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:157',

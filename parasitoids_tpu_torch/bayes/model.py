@@ -355,8 +355,9 @@ class BayesSetup:
 
     def with_batched_bvn(self):
         """Shallow copy whose forward simulations take N parameter sets at
-        once with the ensemble's select node rule (the JAX method's
-        ``kcfg._replace(batched_bvn=True)``): on the card one launch of
+        once (the JAX method's ``kcfg._replace(batched_bvn=True)``; each
+        particle's day accumulate takes its own Genz tier, the local and
+        pre-spread blocks the select node rule): on the card one launch of
         the particle-batched day kernel a day for the whole population, so
         no host read of any ρ (``forward_projections``).  The copy keeps
         the forward mesh: each of its shards then takes every particle's

@@ -944,9 +944,10 @@ def run_smc_cli(args, setup, devices=()):
     estimator next to PT's TI and stepping-stone (cross-checkable via
     --sampler pt on the same data).  The particles advance in turn on the
     one card: in turn, or with ``PARA_SMC_BATCHED=1`` all at once for
-    each move (one batched forward, the select node rule; the annealer
-    state is the same in both modes, so a resume may flip it).  Returns
-    the final payload with the run's seconds under ``'seconds'``."""
+    each move (one batched forward, each particle's day accumulate by
+    its own Genz tier; the annealer state is the same in both modes, so a
+    resume may flip it).  Returns the final payload with the run's
+    seconds under ``'seconds'``."""
     from .smc import SMCConfig, ess, run_smc
 
     resume = args.new is None

@@ -28,10 +28,11 @@ default they advance in turn; with ``batched=True`` (``PARA_SMC_BATCHED=1``
 on the command line) every move advances the whole population at once
 (``sampler.mcmc_step_batched`` on a ``with_batched_bvn`` setup: one
 batched forward, on the card one launch of the particle-batched day
-kernel a day, no host read), with the select node rule of the JAX
-package's batched path.  The between-stage logic (weights, schedule,
-resampling, covariance retune) is host numpy, a copy of the JAX
-package's, and the same in both modes, so a resume may switch modes;
+kernel a day, no host read), each particle's day accumulate by its own
+Genz tier (the JAX package's batched path takes the select node rule).
+The between-stage logic (weights, schedule, resampling, covariance
+retune) is host numpy, a copy of the JAX package's, and the same in both
+modes, so a resume may switch modes;
 each stage reads the population's log likelihoods in one transfer and
 each move round its acceptance counts in one.  A resample gives every
 particle a generator of its own, derived from its ancestor's state and
@@ -291,8 +292,8 @@ def run_smc(setup: BayesSetup, key, cfg: SMCConfig, mesh=None, seed=0,
     (``key`` is then unused).  ``obs_mask`` (model.py
     ``split_point_mask``) targets a masked likelihood — bayes/cv.py's
     refit folds.  ``batched``: the moves advance every particle at once
-    through ``setup.with_batched_bvn()`` (the select node rule; the anneal
-    is unchanged, so a resume may switch modes either way).
+    through ``setup.with_batched_bvn()`` (the anneal is unchanged, so a
+    resume may switch modes either way).
     ``draws(stage, rnd, i, k)``: optional ``StepDraws`` of particle
     ``i``'s move ``k`` in move round ``rnd`` of ``stage``.
 

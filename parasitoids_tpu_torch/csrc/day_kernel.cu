@@ -21,16 +21,16 @@
 // The same three launches take a particle axis (grid y of block_build and
 // reduce_tiles, grid z of gather_chunk; every array leads with it): one
 // launch a day advances a whole SMC population, each particle with its
-// own constants row.  The ensemble takes the node rule of the JAX
-// package's batched scheme (parasitoids_tpu/ops/bvn.py
-// bvn_upper_grid_select, the Pallas kernel's own rule: 20 nodes where
-// |rho| <= 0.925, the series elsewhere), read per particle from kSelect
-// and rho on the device: JAX runs that scheme on XLA, since a vmap of
-// the Pallas kernel's lax.cond would pay both branches, where a CTA here
-// reads only its own particle's.  The batched launch costs N times one
-// particle's work and scratch (46 MB and 90 MB of partials a particle at
-// K = 44), and its sums keep the single launch's order, so it is bitwise
-// reproducible too.
+// own constants row.  Each particle takes its own Genz tier, read from
+// its rho on the device, so a particle's CTAs run the instructions of the
+// single launch of that particle, in the same order.  (The JAX package's
+// batched scheme, parasitoids_tpu/ops/bvn.py bvn_upper_grid_select, takes
+// 20 nodes wherever |rho| <= 0.925, since a vmap of a lax.cond pays both
+// branches; a CTA here reads only its own particle's rho, so the tier
+// costs no divergence.)  The batched launch costs at most N times one
+// particle's work and N times its scratch (46 MB and 90 MB of partials a
+// particle at K = 44), and its sums keep the single launch's order, so
+// it is bitwise reproducible too.
 //
 // The corner lattice (shared by every launch): on a low branch each thread
 // takes a run of kRun corners of one lattice row and walks the quadrature
@@ -137,12 +137,14 @@
 namespace {
 
 // scalar slots; the backward also reads the raw (unclamped) parameters,
-// 1/s, 1/s^2 and the loss cotangent; kSelect picks the node rule; kInvA
-// and kInvASq are the high branch's 1/a and 1/a^2
+// 1/s, 1/s^2 and the loss cotangent; kSpare is packed as 0 and read by
+// nothing (it keeps kInvA, kInvASq and the node rows where the packer,
+// ops/day_kernel.py LAYOUT, puts them); kInvA and kInvASq are the high
+// branch's 1/a and 1/a^2
 constexpr int kSigX = 0, kSigY = 1, kCell = 2, kRho = 3, kSgn = 4, kA = 5,
               kASq = 6, kAHalf = 7, kAsr = 8, kRawSigX = 9, kRawSigY = 10,
               kRawRho = 11, kInvS = 12, kInvS2 = 13, kCtLoss = 14,
-              kSelect = 15, kInvA = 16, kInvASq = 17;
+              kSpare = 15, kInvA = 16, kInvASq = 17;
 constexpr int kScalars = 18;
 // low-|rho| rows (sn, w, 1 - sn^2, 1 / (1 - sn^2)), each holding the 6-,
 // 12- and 20-node rules back to back; then high-|rho| rows (xs, rs, w,
@@ -349,13 +351,10 @@ __device__ __forceinline__ float corner_high(float h, float y, const float* q,
 }
 
 // Genz's node count by |rho| (6 / 12 / 20 nodes, the series from 0.925),
-// taken on the device: K1/K3 are the low branches, K2/K4 the high one.
-// With kSelect set (the particle-batched ensemble, ops/bvn.py
-// bvn_upper_grid_select) the two-branch rule instead: 20 nodes where
-// |rho| <= 0.925, the series elsewhere.
+// taken on the device for every launch, single and particle-batched:
+// K1/K3 are the low branches, K2/K4 the high one.
 __device__ __forceinline__ int rho_branch(const float* q) {
   const float ar = fabsf(q[kRho]);
-  if (q[kSelect] != 0.f) return ar <= 0.925f ? 2 : 3;
   return (ar >= 0.3f) + (ar >= 0.75f) + (ar >= 0.925f);
 }
 

@@ -188,10 +188,11 @@ def build_all_kernels_batched(wind_flat, wind_cumsum, hparams, Dparams,
                               kcfg: KernelConfig, ndays: int):
     """Every day's dispersal kernel for N parameter sets at once (each
     parameter an ``(N,)`` tensor; ``hparams``, ``Dparams`` and ``Dlparams``
-    tuples of them), with the select node rule: ``((N, ndays, D, D),
-    (N, ndays) losses)``.  On the card with ``kcfg.pallas`` every day is
-    one launch of the particle-batched day kernel; nothing reads the
-    card.  The packed constants and the local block are made once."""
+    tuples of them), each particle's minutes by its own Genz tier and the
+    local block by the select node rule: ``((N, ndays, D, D), (N, ndays)
+    losses)``.  On the card with ``kcfg.pallas`` every day is one launch
+    of the particle-batched day kernel; nothing reads the card.  The
+    packed constants and the local block are made once."""
     with trace.span('forward.day_loop'):
         inv = day_invariants(Dparams, Dlparams, rad_dist, kcfg,
                              wind_flat.device, wind_flat.dtype, batched=True)

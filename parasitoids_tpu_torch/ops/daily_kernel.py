@@ -20,7 +20,9 @@ ensemble).  Both take the plain accumulate for one parameter set, as the
 JAX builder takes its XLA scatter path for them.
 :func:`build_daily_kernel_batched` builds one day for N parameter sets at
 once: one launch of the particle-batched CUDA day kernel on the card
-(``ops.day_kernel.accumulate_day_batched``), its plain twin on the CPU.
+(``ops.day_kernel.accumulate_day_batched``), its plain twin on the CPU,
+each particle's minutes with that particle's own Genz tier; only its
+local-diffusion block keeps the select rule.
 """
 
 from __future__ import annotations
@@ -56,9 +58,11 @@ class KernelConfig(NamedTuple):
     # 0.001, ParasitoidModel.py:329,348) on every block and the local
     # kernel: a parity tool, run through the plain accumulate
     ref_trunc: bool = False
-    # the ensemble's two-branch select node rule (ops/bvn.py
+    # the ensemble's mode: N parameter sets take the particle-batched
+    # accumulate, each particle's minutes by its own Genz tier, and the
+    # local block by the two-branch select node rule (ops/bvn.py
     # bvn_cell_masses_batched); one parameter set takes the plain
-    # accumulate, N sets the particle-batched kernel
+    # accumulate with the select rule throughout, as the JAX builder does
     batched_bvn: bool = False
 
 
@@ -238,8 +242,7 @@ def day_invariants(Dparams, Dlparams, rad_dist, config: KernelConfig,
         return consts, local_block(Dlparams, config, rad_dist, (), dtype,
                                    device, branch)
     dp = _stacked(Dparams, dtype, device)
-    consts = (pack_constants(dp, cell, device, select=True)
-              if config.pallas else None)
+    consts = pack_constants(dp, cell, device) if config.pallas else None
     return consts, local_block(Dlparams, config._replace(batched_bvn=True),
                                rad_dist, dp.shape[:1], dtype, device)
 
@@ -307,10 +310,12 @@ def build_daily_kernel_batched(wind_flat, wind_cumsum, day_idx, hparams,
                                start_idx, config: KernelConfig,
                                invariants=(None, None)):
     """One day's dispersal pmf for N parameter sets at once, ``(N, D, D)``,
-    and the ``(N,)`` losses, with the select node rule (the JAX builder
-    under ``vmap`` with ``batched_bvn``).  Every parameter is an ``(N,)``
-    tensor (``hparams``, ``Dparams`` and ``Dlparams`` tuples of them;
-    ``n_periods`` integer).  On the card with ``config.pallas`` the day
+    and the ``(N,)`` losses (the JAX builder under ``vmap`` with
+    ``batched_bvn``, except that each particle's minutes take its own Genz
+    tier where JAX takes the select node rule; the local block takes the
+    select rule).  Every parameter is an ``(N,)`` tensor (``hparams``,
+    ``Dparams`` and ``Dlparams`` tuples of them; ``n_periods``
+    integer).  On the card with ``config.pallas`` the day
     is one launch of the particle-batched CUDA kernel for the whole
     population; otherwise the plain batched accumulate runs.  Nothing
     here reads the card.  ``invariants``: ``day_invariants(...,

@@ -33,11 +33,12 @@ Two implementations of one contract, forward and backward:
   through it (the ``pallas=False`` path) is that XLA path's gradient.
 
 The particle-batched forward, :func:`accumulate_day_batched`, takes N
-parameter sets' minutes at once (the ensemble's select node rule: 20
-nodes where |ρ| ≤ 0.925, the series elsewhere, read per particle on the
-device): the same three passes with the particle on the grid, one launch
-a day for the whole population; :func:`accumulate_day_batched_plain` is
-its plain twin.  It takes no gradient (SMC's moves take none).
+parameter sets' minutes at once, each particle with its own Genz tier
+read from its ρ on the device (the single launch's rule, so each
+particle's CTAs run that particle's single launch): the same three
+passes with the particle on the grid, one launch a day for the whole
+population; :func:`accumulate_day_batched_plain` is its plain twin.  It
+takes no gradient (SMC's moves take none).
 
 Every scatter start ``idx`` must lie in ``[0, buf_len − (2K+1)]`` (true
 by construction in ``day_scatter_inputs``), so no block is ever clamped.
@@ -54,7 +55,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..device import scalar
-from .bvn import (SELECT, bvn_cell_masses, cell_masses_vjp, corner_rect,
+from .bvn import (bvn_cell_masses, cell_masses_vjp, corner_rect,
                   genz_branch, gl_nodes)
 
 __all__ = ['LAUNCHES', 'LAUNCHES_BATCHED', 'LAUNCHES_BWD', 'LAYOUT',
@@ -169,7 +170,8 @@ def accumulate_day_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
 def accumulate_day_batched_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell,
                                  K, buf_len, chunk=240):
     """Plain twin of :func:`accumulate_day_batched`: N particles' days,
-    each by :func:`accumulate_day_plain` with the select node rule.
+    each by :func:`accumulate_day_plain` with its own Genz tier (read from
+    the particle's ρ, one host read a particle).
 
     Args:
         h_scat (N, T), cdf_mu (N, T, 2), idx (N, T, 2) int32,
@@ -181,8 +183,7 @@ def accumulate_day_batched_plain(h_scat, cdf_mu, idx, clipped, Dparams, cell,
         (buf (N, buf_len, buf_len), loss (N,)).
     """
     outs = [accumulate_day_plain(h_scat[i], cdf_mu[i], idx[i], clipped[i],
-                                 tuple(Dparams[i]), cell, K, buf_len, chunk,
-                                 branch=SELECT)
+                                 tuple(Dparams[i]), cell, K, buf_len, chunk)
             for i in range(h_scat.shape[0])]
     return (torch.stack([b for b, _ in outs]),
             torch.stack([loss for _, loss in outs]))
@@ -259,7 +260,7 @@ def accumulate_day_bwd_plain(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped,
     return dh, dmu, dclip, dD, dscal[3]
 
 
-def _pack_constants(Dparams, cell, device, ct_loss=None, select=False):
+def _pack_constants(Dparams, cell, device, ct_loss=None):
     """Kernel constants (csrc/day_kernel.cu kConst layout, :data:`LAYOUT`),
     computed on the device from the diffusion parameters with the plain
     twin's expressions (ops/bvn.py): the scalars, the ρ-only rows of the 6-,
@@ -269,10 +270,9 @@ def _pack_constants(Dparams, cell, device, ct_loss=None, select=False):
     divisor's f32 value: the kernel's division needs exactly that).  Every
     branch is packed, so no host read of ρ is needed.  The backward also
     reads the raw parameters (for the clamps' VJPs), 1/s and 1/s² with
-    s² = max(1 − ρ², 1e-12), and the loss cotangent ``ct_loss``.
-    ``select``: the kernel takes the select node rule (kSelect = 1).  A
-    ``(N, 3)`` tensor of diffusion parameters gives ``(N, kConsts)``, one
-    row per particle."""
+    s² = max(1 − ρ², 1e-12), and the loss cotangent ``ct_loss``; the
+    spare slot (``kSpare``) is 0.  A ``(N, 3)`` tensor of diffusion
+    parameters gives ``(N, kConsts)``, one row per particle."""
     f32 = torch.float32
     raw, sig_x, sig_y, rho = _sanitize(Dparams, f32, device)
     asr = torch.asin(rho)[..., None]             # nodes on the last axis
@@ -296,7 +296,7 @@ def _pack_constants(Dparams, cell, device, ct_loss=None, select=False):
     scal = torch.stack([sig_x, sig_y, scalar(cell, f32, device).expand(
         rho.shape), rho, torch.sign(rho), a, a_sq, a_half, asr[..., 0],
         raw[0], raw[1], raw[2], 1.0 / torch.sqrt(s2), 1.0 / s2, ctl,
-        torch.full_like(ctl, float(select)), inv(a), inv(a_sq)], dim=-1)
+        torch.zeros_like(ctl), inv(a), inv(a_sq)], dim=-1)
     assert scal.shape[-1] == _N_SCALARS
     out = torch.cat([scal, *sn, *w, *den, *map(inv, den), xs, rs,
                      wg.expand(xs.shape), inv(xs), inv(2.0 * (1.0 + rs)),
@@ -312,9 +312,13 @@ def pack_constants(Dparams, cell, device, select=False):
     :func:`accumulate_day_batched`) as ``consts=``; the backward writes
     its loss cotangent into a copy of the row (:func:`_with_ct_loss`).
     Packed without autograd: the kernels' backward gives dσ, dρ and
-    dcell itself."""
+    dcell itself.  ``select`` is accepted and changes nothing: callers
+    written for the batched launch's former two-branch node rule (the
+    benchmark's roofline reader among them) pass it, and every launch now
+    takes each parameter set's own Genz tier."""
+    del select
     with torch.no_grad():
-        return _pack_constants(Dparams, cell, device, select=select)
+        return _pack_constants(Dparams, cell, device)
 
 
 def _with_ct_loss(consts, ct_loss):
@@ -343,7 +347,7 @@ def _cuda_call(lib, fn, smem, K, dev, *args):
 
 
 def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk,
-                  select=False, consts=None):
+                  consts=None):
     """Packed constants (``consts`` when the caller packed them once, see
     :func:`pack_constants`), scratch and outputs of one forward launch,
     and the C arguments up to the stream (see
@@ -365,7 +369,7 @@ def _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len, chunk,
         raise ValueError('chunk {} out of range for T = {}'.format(chunk, T))
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(
-        consts=(_pack_constants(Dparams, cell, dev, select=select)
+        consts=(_pack_constants(Dparams, cell, dev)
                 if consts is None else consts),
         scratch=torch.empty(lead + (T, n, n), **f32),
         bsum=torch.empty(lead + (T,), **f32),
@@ -397,12 +401,12 @@ def _launch(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
 def accumulate_day_batched(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
                            buf_len, consts=None):
     """N particles' day accumulates at once (the contract of
-    :func:`accumulate_day_batched_plain`) with the select node rule, read
-    per particle on the device: on CUDA tensors one launch of the CUDA
-    kernel for the whole population (the particle on its grid, no host
-    read), on CPU tensors the plain twin.  f32 only; no gradient (an input
-    that requires one raises).  ``consts``: the ``(N, kConsts)`` rows of
-    ``pack_constants(Dparams, cell, device, select=True)`` when the caller
+    :func:`accumulate_day_batched_plain`), each particle with its own Genz
+    tier, read from its ρ on the device: on CUDA tensors one launch of the
+    CUDA kernel for the whole population (the particle on its grid, no
+    host read), on CPU tensors the plain twin.  f32 only; no gradient (an
+    input that requires one raises).  ``consts``: the ``(N, kConsts)``
+    rows of ``pack_constants(Dparams, cell, device)`` when the caller
     packed them once, else they are packed here."""
     if h_scat.ndim != 2:
         raise ValueError('h_scat must be (N, T), got {}'.format(
@@ -421,7 +425,7 @@ def accumulate_day_batched(h_scat, cdf_mu, idx, clipped, Dparams, cell, K,
     from ._build import load
     lib = load('day_kernel')
     out, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K, buf_len,
-                              _CHUNK, select=True, consts=consts)
+                              _CHUNK, consts=consts)
     _cuda_call(lib, 'parasitoids_day_accumulate',
                lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args)
     _count('LAUNCHES_BATCHED')
@@ -436,8 +440,8 @@ def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
     recorded around the kernels alone, every rep queued before the first
     is waited on: the wrapper's checks and packing are outside them.  Takes
     :func:`accumulate_day`'s inputs, or :func:`accumulate_day_batched`'s
-    (then the select node rule and ``(N, 3)`` ``Dparams``), on the card;
-    each rep counts as one launch of its kind."""
+    (then ``(N, 3)`` ``Dparams``), on the card; each rep counts as one
+    launch of its kind."""
     from ._build import load
     _check(h_scat, cdf_mu, idx, clipped, K, buf_len)
     batched = h_scat.ndim == 2
@@ -447,7 +451,7 @@ def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
         raise ValueError('reps must be at least 1, got {}'.format(reps))
     lib = load('day_kernel')
     bufs, args = _forward_args(h_scat, cdf_mu, idx, Dparams, cell, K,
-                               buf_len, chunk, select=batched)
+                               buf_len, chunk)
     ms = (ctypes.c_float * (3 * reps))()
     _cuda_call(lib, 'parasitoids_day_accumulate_timed',
                lib.parasitoids_day_smem_bytes(K), K, h_scat.device, *args,
@@ -460,19 +464,19 @@ def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
     return np.frombuffer(ms, dtype=np.float32).reshape(reps, 3).copy()
 
 
-def lattice_probe(Dparams, mu, cell, K, select=False):
+def lattice_probe(Dparams, mu, cell, K):
     """The kernel's check that its lattice division changes no bit (a test
     of the card, on no path of the port): for each of P cases, one
     minute's corner lattice at half-width ``K`` (at most 118) for the
     diffusion ``Dparams[i]`` and mean offset ``mu[i]`` (m), every corner
     as ``block_build`` and as ``block_bwd`` compute it against the same
     corner with IEEE division at every node.  ``Dparams`` is ``(P, 3)``,
-    ``mu`` ``(P, 2)``, f32 on the card; ``select`` takes the batched
-    launch's node rule.  Returns ``dict(differ=, corners=, ieee=,
-    bwd_vs_fwd=)``: the words that differ from their IEEE twins (both
-    modes), the corners compared, the corners whose run took the IEEE
-    division (out of the exact division's range), and the corners where
-    the backward's value differs from the forward's."""
+    ``mu`` ``(P, 2)``, f32 on the card (every launch takes the node rule the
+    probe takes, Genz's tier by |ρ|).  Returns ``dict(differ=, corners=, ieee=,
+    bwd_vs_fwd=)``: the words that differ from their IEEE twins (both modes),
+    the corners compared, the corners whose run took the IEEE division (out of
+    the exact division's range), and the corners where the backward's value
+    differs from the forward's."""
     from ._build import load
     dev = mu.device
     if dev.type != 'cuda':
@@ -482,7 +486,7 @@ def lattice_probe(Dparams, mu, cell, K, select=False):
             Dparams.shape[1] == 3 and mu.shape == (Dparams.shape[0], 2)):
         raise ValueError('Dparams must be (P, 3) and mu (P, 2)')
     lib = load('day_kernel')
-    consts = _pack_constants(Dparams, cell, dev, select=select)
+    consts = _pack_constants(Dparams, cell, dev)
     mu = mu.to(torch.float32).contiguous()
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
     _cuda_call(lib, 'parasitoids_lattice_probe', 0, K, dev,

@@ -160,10 +160,10 @@ def build_all_kernels_batched_sharded(mesh, wind_flat, wind_cumsum, hparams,
                                       rad_dist, start_idx,
                                       config: KernelConfig, ndays: int):
     """The minute-sharded twin of ``models.forward.build_all_kernels_batched``
-    (N parameter sets at once, each parameter an ``(N,)`` tensor, the
-    select node rule): every shard's minutes of every particle through
-    one particle-batched accumulate on its device.  ``((N, ndays, D, D),
-    (N, ndays))`` on the lead device."""
+    (N parameter sets at once, each parameter an ``(N,)`` tensor, each
+    particle's minutes by its own Genz tier): every shard's minutes of
+    every particle through one particle-batched accumulate on its device.
+    ``((N, ndays, D, D), (N, ndays))`` on the lead device."""
     _check_lead(mesh, wind_flat)
     K = config.K
     D = 2 * config.rad_res + 1

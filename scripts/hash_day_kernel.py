@@ -18,15 +18,18 @@ K = 44, buffer 977²): the forward K1/K2 (buffer, block sums, loss) on
 days 0, 9, 17 at ρ = 0.253, 0.93, -0.93, 0.99, -0.99 (smoke [3]); the
 particle-batched launch (buffers, block sums, losses) on days 0, 9, 17
 for 8 particles of the Bayes default's prior (seed 18) with ρ set to
-0.253, 0.9, 0.93, -0.99, 0.0, -0.5, 0.92, -0.93, straddling the select
-rule's 0.925 (smoke [18]); the backward K3/K4 (dh, dμ, dclip, dD, dcell)
+0.253, 0.9, 0.93, -0.99, 0.0, -0.5, 0.92, -0.93, every Genz tier
+(smoke [18]); the backward K3/K4 (dh, dμ, dclip, dD, dcell)
 on days 0, 9, 17 at ρ = 0.253, 0.5, 0.8, 0.93, -0.93, 0.99, -0.99 and at
 K = 88 (12.5 m cells) on day 9, against a seeded white-noise cotangent
 (smoke [6]).  Times (``--time``): day 9, K1 at ρ = 0.253, K2 at 0.99, the
 batched launch for the 8 prior particles, K3 and K4 likewise, 20 reps.
 A tree whose day loop packs the kernels' constants once
 (``day_kernel.pack_constants``) launches with the row packed that way,
-and its backward writes the loss cotangent into a copy of it.
+and its backward writes the loss cotangent into a copy of it.  The
+batched rows are packed with ``select=True``: a tree whose batched launch
+takes the two-branch select node rule needs it, and one whose particles
+take their own Genz tier ignores it.
 """
 
 import argparse
@@ -76,7 +79,7 @@ def forward_outputs(lib, day_kernel, h, mu, idx, clip, Dp, cell, K, buf_len,
     the particle axis) through the library's C entry point."""
     batched = h.ndim == 2
     out, args = day_kernel._forward_args(
-        h, mu, idx, Dp, cell, K, buf_len, day_kernel._CHUNK, select=batched,
+        h, mu, idx, Dp, cell, K, buf_len, day_kernel._CHUNK,
         **packed_once(day_kernel, Dp, cell, h.device, select=batched))
     day_kernel._cuda_call(lib, 'parasitoids_day_accumulate',
                           lib.parasitoids_day_smem_bytes(K), K, h.device,

@@ -19,12 +19,12 @@ window K = 22, 44, 88 (the 10 km domain in cells of 50, 25 and 12.5 m),
 against a seeded random cotangent, with the height of the lattice ring
 that the wrapper picks for each K.
 
-``--particles``: the particle-batched launch (``accumulate_day_batched``,
-the select node rule) on day 9 of the Bayes default (801², K = 44) for the
-first N of the prior's particles (seed 18, as smoke [18] draws them), for
-each N: the three passes' median device milliseconds, their sum, and the
-bound (chip_smoke.py's: the exps, f32 operations and bytes these
-particles' inputs need, at the card's rates).
+``--particles``: the particle-batched launch (``accumulate_day_batched``, each
+particle by its own Genz tier) on day 9 of the Bayes default (801², K = 44) for
+the first N of the prior's particles (seed 18, as smoke [18] draws them), for
+each N: the three passes' median device milliseconds, their sum, and the bound
+(chip_smoke.py's: the exps, f32 operations and bytes these particles' inputs
+need, at the card's rates).
 
 ``--ptxas`` first compiles ``csrc/day_kernel.cu`` with ``-Xptxas -v`` and
 prints each kernel's registers, shared memory and spills.  Needs a CUDA
@@ -151,7 +151,7 @@ def time_particles(args):
         day_kernel.pass_ms(*a, reps=2)                      # warm-up
         ms = np.median(day_kernel.pass_ms(*a, reps=args.reps), axis=0)
         work = np.sum([chip_smoke.forward_counts(
-            h[i], mu[i], tuple(Dp[i]), cell, K, buf_len, select=True)
+            h[i], mu[i], tuple(Dp[i]), cell, K, buf_len)
             for i in range(n)], axis=0)
         b, by, what = chip_smoke.bound(*work, rate)
         print('day 9, {} particle(s): block_build {:.4f} ms, gather {:.4f} '

@@ -3,11 +3,14 @@ BVN (``bvn_cell_masses_batched``), the batched plain accumulate and day
 builder, the batched population propagation, projections and likelihood,
 ``BayesSetup.with_batched_bvn().forward_projections`` over prior draws,
 one batched AM move round and ``run_smc(batched=True)``, against the JAX
-package at the small configuration of test_torch_sampler.py (3 days,
-10 km / 50 cells, interp 2, K 6, Kl 3) or the day-kernel tests' (rad_res
-60, K 10).  On the CPU the particle-batched CUDA kernel's wrapper takes
-its plain twin; the card holds the kernel against it
-(tests/test_torch_cuda.py, chip_smoke.py [18]).
+package (whose batched day accumulate takes the select rule where the
+port's takes each particle's own Genz tier: the two agree at the JAX
+tolerances used here) at the small configuration of
+test_torch_sampler.py (3 days, 10 km / 50 cells, interp 2, K 6, Kl 3) or
+the day-kernel tests' (rad_res 60, K 10).  On the CPU the
+particle-batched CUDA kernel's wrapper takes its plain twin; the card
+holds the kernel against it (tests/test_torch_cuda.py, chip_smoke.py
+[18]).
 """
 
 import numpy as np
@@ -157,6 +160,30 @@ def test_batched_plain_accumulate_matches_jax(day):
                                    atol=DAY_ATOL)
         np.testing.assert_allclose(loss[i].numpy(), np.asarray(wl),
                                    atol=DAY_ATOL)
+
+
+@pytest.mark.parametrize('rho', [0.253, 0.6, 0.8, 0.93, -0.99])
+def test_batched_plain_particle_is_its_own_tier(rho):
+    # each particle of the plain twin is bitwise accumulate_day_plain at
+    # its own Genz tier (branch=None reads it from the particle's rho),
+    # beside a particle of another tier in the same call
+    flat, cs, T = wind()
+    cfg = tdk.KernelConfig(periods=T, **BASE)
+    hp = np.tile(np.array(HPARAMS, np.float32), (2, 1))
+    hp[1, 0] = 0.8
+    h, mu, idx, clip, _ = tdk.day_scatter_inputs(
+        t32(flat), t32(cs), 1, tuple(t32(hp.T.copy())[:, :, None]),
+        t32(np.array([1.1, 0.9], np.float32))[:, None],
+        torch.as_tensor([10, 12])[:, None], 0, cfg, 1500.0)
+    Dp = t32(np.array([[21.1, 10.6, rho], [30.0, 18.0, -0.4 * rho]],
+                      np.float32))
+    L = 2 * BASE['rad_res'] + 1 + 4 * BASE['K']
+    buf, loss = tday.accumulate_day_batched_plain(h, mu, idx, clip, Dp, 25.0,
+                                                  BASE['K'], L)
+    for i in range(2):
+        one, one_loss = tday.accumulate_day_plain(
+            h[i], mu[i], idx[i], clip[i], tuple(Dp[i]), 25.0, BASE['K'], L)
+        assert torch.equal(buf[i], one) and torch.equal(loss[i], one_loss)
 
 
 def test_batched_accumulate_takes_no_gradient():

@@ -596,8 +596,9 @@ def _batched_inputs(device, rhos, K=44, day=9, rad_res=400):
 @pytest.mark.parametrize('day', [0, 9, 17])
 def test_batched_kernel_matches_plain_on_card(cuda_device, day):
     # four particles whose rho straddles 0.925: one launch against the
-    # plain twin (the select rule) at K1's limits (atol 2e-6, 3e-6 where
-    # the series runs), one launch counted, two launches bitwise equal
+    # plain twin (each particle's own Genz tier) at K1's limits (atol
+    # 2e-6, 3e-6 where the series runs), one launch counted, two launches
+    # bitwise equal
     rhos = (0.253, 0.9, 0.93, -0.99)
     args = _batched_inputs(cuda_device, rhos, day=day)
     launches = day_kernel.LAUNCHES_BATCHED
@@ -628,6 +629,42 @@ def test_batched_kernel_particle_is_its_own_launch(cuda_device):
             Dp[i:i + 1], *args[5:])
         assert torch.equal(one[0][0], buf[i]) and torch.equal(one[1][0],
                                                               loss[i])
+
+
+def _kernel_outputs(h, mu, idx, Dp, cell, K, buf_len):
+    """The buffer(s) and block sums of one forward launch, single or
+    particle-batched, as the kernel writes them."""
+    from parasitoids_tpu_torch.ops import _build
+    lib = _build.load('day_kernel')
+    out, args = day_kernel._forward_args(h, mu, idx, Dp, cell, K, buf_len,
+                                         day_kernel._CHUNK)
+    day_kernel._cuda_call(lib, 'parasitoids_day_accumulate',
+                          lib.parasitoids_day_smem_bytes(K), K, h.device,
+                          *args)
+    return out['buf'], out['bsum']
+
+
+@pytest.mark.parametrize('day', [0, 9, 17])
+def test_batched_particle_is_its_single_launch(cuda_device, day):
+    # each particle of one batched launch, one rho in every Genz tier and
+    # one on the series, is bitwise the single launch at that particle's
+    # (sigma_x, sigma_y, rho): the same node rule, the same instructions
+    # in the same order; buffers and block sums as the kernel wrote them,
+    # and the buffer through the public wrappers too
+    rhos = (0.253, 0.6, 0.8, 0.93, -0.99)
+    args = _batched_inputs(cuda_device, rhos, day=day)
+    h, mu, idx, clip, Dp, cell, K, L = args
+    buf, bsum = _kernel_outputs(h, mu, idx, Dp, cell, K, L)
+    wrapped, _ = day_kernel.accumulate_day_batched(*args)
+    assert torch.equal(wrapped, buf)
+    for i in range(len(rhos)):
+        dp = tuple(Dp[i])
+        one, one_sum = _kernel_outputs(h[i], mu[i], idx[i], dp, cell, K, L)
+        assert torch.equal(one, buf[i]) and torch.equal(one_sum, bsum[i]), \
+            rhos[i]
+        alone, _ = day_kernel.accumulate_day(h[i], mu[i], idx[i], clip[i],
+                                             dp, cell, K, L)
+        assert torch.equal(alone, buf[i]), rhos[i]
 
 
 def test_batched_smc_moves_launch_once_a_day(cuda_device):
@@ -667,15 +704,14 @@ def test_batched_smc_moves_launch_once_a_day(cuda_device):
     assert mono['logz'] == resumed['logz']
 
 
-@pytest.mark.parametrize('select', [False, True])
 @pytest.mark.parametrize('K', PROBE_KS)
-def test_lattice_division_changes_no_bit(cuda_device, K, select):
+def test_lattice_division_changes_no_bit(cuda_device, K):
     # the lattice probe: every corner of chip_smoke's probe cases (every
-    # node rule, far tails included) through the kernel's exact division
-    # is bitwise the same corner through the IEEE division, as block_build
-    # and as block_bwd compute it
+    # Genz tier and the series, far tails included) through the kernel's
+    # exact division is bitwise the same corner through the IEEE division,
+    # as block_build and as block_bwd compute it
     Dp, mu = probe_cases(K, cuda_device)
-    counts = day_kernel.lattice_probe(Dp, mu, PROBE_CELL, K, select=select)
+    counts = day_kernel.lattice_probe(Dp, mu, PROBE_CELL, K)
     assert counts['corners'] == Dp.shape[0] * (2 * K + 2) ** 2
     assert counts['differ'] == 0, counts
 

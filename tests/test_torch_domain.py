@@ -223,7 +223,7 @@ def test_forward_mesh_copies_and_refusals(setups):
 
 
 def test_batched_forward_on_a_minute_mesh(setups):
-    # the particle-batched forward (three particles, the select node rule)
+    # the particle-batched forward (three particles, each its Genz tier)
     # with every shard's minutes of every particle in one batched
     # accumulate: within test_domain.py's 2e-6 of the unsharded batched
     # kernels, and the projections of a batched copy of a forward-mesh

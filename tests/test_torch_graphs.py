@@ -127,14 +127,15 @@ def test_local_block_is_built_once_per_forward(setup, monkeypatch, batched):
 @pytest.mark.parametrize('rho', [0.253, 0.6, 0.93, -0.99])
 def test_packed_constants_once_keep_the_bits(rho, select):
     # the row packed once is each launch's own packing, and the backward's
-    # copy with the loss cotangent in its slot is the backward's own
+    # copy with the loss cotangent in its slot is the backward's own; the
+    # batched rows (``select``, which pack_constants accepts and ignores)
+    # are the batched launch's own packing
     cpu = torch.device('cpu')
     Dp = torch.tensor([[171.82, 144.58, rho], [120.0, 90.0, -rho / 2]])
     Dp = Dp if select else tuple(Dp[0])
     row = day_kernel.pack_constants(Dp, 25.0, cpu, select=select)
     assert not row.requires_grad
-    assert torch.equal(row, day_kernel._pack_constants(Dp, 25.0, cpu,
-                                                       select=select))
+    assert torch.equal(row, day_kernel._pack_constants(Dp, 25.0, cpu))
     if not select:
         ct = torch.tensor(-0.37)
         assert torch.equal(day_kernel._with_ct_loss(row, ct),

@@ -55,11 +55,14 @@ def _bits(x):
 @pytest.mark.parametrize('rho', RHOS)
 def test_packed_reciprocals_are_f32_quotients(rho, select):
     # each reciprocal row is 1 / (its divisor's f32 value) in f32, bit for
-    # bit; and every divisor lies in div_exact's range [2^-40, 2^26]
+    # bit; and every divisor lies in div_exact's range [2^-40, 2^26].
+    # ``select`` is accepted and packs the same row either way
     L = day_kernel.LAYOUT
-    q = day_kernel._pack_constants((171.82, 144.58, rho), 25.0,
-                                   torch.device('cpu'),
-                                   select=select).numpy()
+    cpu = torch.device('cpu')
+    q = day_kernel.pack_constants((171.82, 144.58, rho), 25.0, cpu,
+                                  select=select).numpy()
+    np.testing.assert_array_equal(_bits(q), _bits(day_kernel.pack_constants(
+        (171.82, 144.58, rho), 25.0, cpu, select=not select).numpy()))
     lo, hi = 38, 20
 
     def row(name, n):
@@ -77,8 +80,7 @@ def test_packed_reciprocals_are_f32_quotients(rho, select):
         assert np.all(d >= 2.0 ** -40) and np.all(d <= 2.0 ** 26)
     # the same rows, one per particle, for a batch
     Dp = torch.tensor([[171.82, 144.58, rho], [90.0, 120.0, -0.3]])
-    qb = day_kernel._pack_constants(Dp, 25.0, torch.device('cpu'),
-                                    select=select).numpy()
+    qb = day_kernel.pack_constants(Dp, 25.0, cpu, select=select).numpy()
     np.testing.assert_array_equal(_bits(qb[0]), _bits(q))
 
 
