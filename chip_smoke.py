@@ -42,12 +42,9 @@ bitwise, and seconds per particle move batched and in turn; and the
 forward variants: the CLI with ``ref_trunc=true`` (no kernel launch),
 the log-depth propagation against the sequential one, and the
 model-vs-data statistics and figures from card tensors.  Then [20] the
-meshes at the Bayes default: the minute-sharded forward
-(``parallel/domain.py``; four shards of 360 minutes on one card named four
-times, or one shard a card where there are several) against the unsharded
-one, its value+gradient through K1/K3 on every shard, and the chain,
-store, replica, particle (in turn and batched) and draw meshes each
-bitwise their runs without a mesh.  Then [21] the evaluation replayed as
+member meshes at the Bayes default: the chain, store, replica, particle
+(in turn and batched) and draw meshes each bitwise their runs without a
+mesh.  Then [21] the evaluation replayed as
 CUDA graphs (``utils/graphs.py``; every phase before it runs through them
 where the setup is on the card with the day kernel): the no-gradient
 forward, the value+gradient and the batched forward of 8 particles at the
@@ -142,20 +139,6 @@ NUTS_VALUE_RTOL, NUTS_GRAD_L2_LIMIT, NUTS_GRAD_COMP_LIMIT = 1e-5, 1e-3, 1e-3
 # error printed, each limit about ten times the worst reading
 HESS_SYM_LIMIT, HESS_FD_LIMIT = 5e-15, 1e-8
 HESS_FD_STEPS = (1e-5, 3e-6, 1e-6)
-# [20]: the minute-sharded forward at the Bayes default against the
-# unsharded one on the card.  Only the order of the day buffer's sums
-# differs: the kernels are held at [3]'s REL_LIMIT of their peak, the
-# losses and day sums at test_domain.py's 1e-6, and the value and every
-# gradient component at test_domain.py's rtol 5e-4 plus an atol of the
-# largest component.  Readings on an H100 80GB HBM3 at 700 W: kernels
-# 4.8e-8 of the peak, losses 6.0e-8, day sums 8.0e-8, value 1.3e-6 of
-# itself, gradient relative L2 3.1e-5; the flight sig_x component, 0.01
-# of the largest, moved 6.1e-4 of itself (6.1e-6 of the largest): each
-# shard's minutes sum their cancelling terms apart, an f32 summation-order
-# change.  The atol and the L2 limit are about ten times their readings
-MESH_KERNEL_LIMIT = REL_LIMIT
-MESH_LOSS_LIMIT = MESH_SUM_LIMIT = 1e-6
-MESH_GRAD_RTOL, MESH_GRAD_ATOL, MESH_GRAD_L2_LIMIT = 5e-4, 5e-5, 3e-4
 # SMC's batched moves on a mesh of two shards against the stacked batch
 # of 4: positions within the rtol that tests/test_torch_smc.py holds the
 # batched moves to against the moves in turn
@@ -2345,16 +2328,11 @@ def sync_all():
 
 
 def mesh_devices():
-    """The devices of [20]'s meshes: on one card, that card four times for
-    the minute shards (1,440 minutes, 360 a shard) and twice for the
-    members; on more, every card for the minutes and the first two for
-    the members.  Returns (minute devices, member devices, repeated)."""
-    n = torch.cuda.device_count()
-    if n == 1:
-        d = torch.device('cuda', 0)
-        return [d] * 4, [d] * 2, True
-    cards = [torch.device('cuda', i) for i in range(n)]
-    return cards, cards[:2], False
+    """The devices of [20]'s member meshes: on one card, that card twice;
+    on more, the first two.  Returns (member devices, repeated)."""
+    if torch.cuda.device_count() == 1:
+        return [torch.device('cuda', 0)] * 2, True
+    return [torch.device('cuda', i) for i in range(2)], False
 
 
 def payload_equal(a, b):
@@ -2366,171 +2344,38 @@ def payload_equal(a, b):
                     for k in a['history']))
 
 
-def phase_meshes(dev, card, rate, work):
-    """Meshes on the card at the Bayes default (801², 25 m, 18 days,
-    T = 1,440, K = 44, Kl = 20): the minute-sharded forward
-    (``parallel/domain.py``) against the unsharded one, two sharded runs
-    bitwise, 18 K1 launches a shard a forward, a shard's kernel time
-    against its bound; a sharded value+gradient against the unsharded one
-    with 18 K3 launches a shard; then the member meshes, each bitwise its
-    run without a mesh: ``run_chains`` (2 chains × 10 steps), a store
-    written from the mesh and resumed on it, ``run_pt_sharded`` (2 rungs,
-    2 rounds), SMC (4 particles, one stage, in turn and batched) and
+def phase_meshes(dev, card, work):
+    """The member meshes on the card at the Bayes default (801², 25 m, 18
+    days, T = 1,440, K = 44, Kl = 20), each bitwise its run without a
+    mesh: ``run_chains`` (2 chains × 10 steps), a store written from the
+    mesh and resumed on it, ``run_pt_sharded`` (2 rungs, 2 rounds), SMC (4
+    particles, one stage, in turn and batched) and
     ``ensemble_projections`` (4 draws).  Counts zeroed just before each
-    part and read just after.  Returns the kernels line's numbers."""
-    from parasitoids_tpu_torch.bayes import map_fit
+    part and read just after.  Returns the launch counts."""
     from parasitoids_tpu_torch.bayes import run as bayes_run
     from parasitoids_tpu_torch.bayes import sampler, smc, tempering
-    from parasitoids_tpu_torch.bayes.model import _as_model
-    from parasitoids_tpu_torch.bayes.priors import initial_model_params
     from parasitoids_tpu_torch.bayes.store import load_chain, save_chain
-    from parasitoids_tpu_torch.models.forward import build_all_kernels
     from parasitoids_tpu_torch.ops import day_kernel
-    from parasitoids_tpu_torch.ops.daily_kernel import day_scatter_inputs
     from parasitoids_tpu_torch.parallel.chains import (chain_mesh,
                                                        init_chains,
-                                                       run_chains,
-                                                       shard_bounds)
-    from parasitoids_tpu_torch.parallel.domain import (
-        build_all_kernels_sharded, minute_mesh)
+                                                       run_chains)
     from parasitoids_tpu_torch.parallel.ensemble import ensemble_projections
-    print('[20] meshes on the card at the Bayes default (801^2, 18 days, '
-          'T = 1440, K = 44, Kl = 20)')
+    print('[20] member meshes on the card at the Bayes default (801^2, 18 '
+          'days, T = 1440, K = 44, Kl = 20)')
     tic_phase = time.perf_counter()
-    minute_devs, member_devs, repeated = mesh_devices()
-    n = len(minute_devs)
-    print('  {} card(s) visible; minute mesh of {} shards on {}, member '
-          'mesh on {}{} ({})'.format(
-              torch.cuda.device_count(), n,
-              ', '.join(str(d) for d in minute_devs),
-              ', '.join(str(d) for d in member_devs),
-              ': one card named more than once, so the shards run one '
-              'after the other on it and no concurrency across cards is '
-              'measured' if repeated else '', card))
+    member_devs, repeated = mesh_devices()
+    print('  {} card(s) visible; member mesh on {}{} ({})'.format(
+        torch.cuda.device_count(), ', '.join(str(d) for d in member_devs),
+        ': one card named more than once, so the shards run one after the '
+        'other on it and no concurrency across cards is measured'
+        if repeated else '', card))
     setup = bayes_run.build_setup(device=dev)
     s = setup.setup
     check((s.kcfg.K, s.kcfg.K_local, setup.ndays, s.kcfg.periods,
            2 * s.kcfg.rad_res + 1) == (44, 20, 18, 1440, 801) and
           s.kcfg.pallas, 'the Bayes default on the CUDA kernels: K = 44, '
           'Kl = 20, 18 days, T = 1440, 801^2')
-    mesh = minute_mesh(devices=minute_devs)
-    sharded = setup.with_forward_mesh(mesh)
-    m = _as_model(torch.as_tensor(initial_model_params(),
-                                  dtype=torch.float32).to(dev))
-    branches, _ = setup._branches(m)
-    n_per = torch.round(m.n_periods).to(torch.int64)
-    args = (s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
-            m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,
-            setup.ndays, branches)
 
-    # 1. the minute-sharded kernels against the unsharded ones
-    with torch.no_grad():
-        ref, ref_loss = build_all_kernels(*args)
-        zero_counts()
-        got, got_loss = build_all_kernels_sharded(mesh, *args)
-        sync_all()
-        k1_fwd = day_kernel.LAUNCHES
-        again, again_loss = build_all_kernels_sharded(mesh, *args)
-        sync_all()
-    check(k1_fwd == 18 * n, '{} K1 launches for one sharded forward = 18 '
-          'days x {} shards'.format(k1_fwd, n))
-    check(torch.equal(got, again) and torch.equal(got_loss, again_loss),
-          'two sharded forwards bitwise equal (kernels and losses)')
-    diff = (got - ref).abs()
-    peak = float(ref.abs().max())
-    flips = int(((got == 0) != (ref == 0)).sum())
-    kerr = float(diff.max())
-    lerr = float((got_loss - ref_loss).abs().max())
-    serr = float((got.double().sum((1, 2)) -
-                  ref.double().sum((1, 2))).abs().max())
-    print('  sharded vs unsharded kernels: max |d| {:.3e} ({:.3e} of the '
-          'peak {:.3e}), {} cells on one side of the 1e-8 sparsity '
-          'threshold only; losses {:.3e}; day sums {:.3e}'.format(
-              kerr, kerr / peak, peak, flips, lerr, serr))
-    check(np.isfinite(kerr) and kerr <= MESH_KERNEL_LIMIT * peak and
-          lerr <= MESH_LOSS_LIMIT and serr <= MESH_SUM_LIMIT,
-          'sharded kernels within {:.0e} of the peak, losses within {:.0e}, '
-          'day sums within {:.0e} of the unsharded ones'.format(
-              MESH_KERNEL_LIMIT, MESH_LOSS_LIMIT, MESH_SUM_LIMIT))
-
-    # a shard's kernel time against its bound, day 9
-    h, mu, idx, clip, _ = day_scatter_inputs(
-        s.wind_flat, s.wind_cumsum, 9, m.hparams(), m.mu_r, n_per, 0,
-        s.kcfg, s.rad_dist)
-    Dp = tuple(float(v) for v in m.Dparams())
-    cell = s.rad_dist / s.kcfg.rad_res
-    buf_len = s.scfg.dom_len + 4 * s.kcfg.K
-    shard_ms, shard_bound = [], []
-    for d, a, b in shard_bounds(h.shape[0] + (-h.shape[0]) % n, mesh):
-        b = min(b, h.shape[0])
-        part = [x[a:b].contiguous() for x in (h, mu, idx, clip)]
-        shard_ms.append(float(np.median(day_kernel.pass_ms(
-            *part, Dp, cell, s.kcfg.K, buf_len, reps=5).sum(axis=1))))
-        shard_bound.append(forward_bound(part[0], part[1], Dp, cell,
-                                         s.kcfg.K, buf_len, rate)[:2])
-    whole_ms = float(np.median(day_kernel.pass_ms(
-        h, mu, idx, clip, Dp, cell, s.kcfg.K, buf_len, reps=5).sum(axis=1)))
-    print('  day 9, a shard of {} minutes: kernels {} ms (CUDA events '
-          'around the kernels alone, median of 5), bounds {} ms by {}; the '
-          'whole day {:.4f} ms ({})'.format(
-              -(-h.shape[0] // n),
-              ' '.join('{:.4f}'.format(v) for v in shard_ms),
-              ' '.join('{:.4f}'.format(v) for v, _ in shard_bound),
-              shard_bound[0][1], whole_ms, card))
-    with torch.no_grad():
-        sec_fwd = timed(lambda: setup.forward_projections(m))
-        sec_fwd_sh = timed(lambda: sharded.forward_projections(m))
-    print('  {:.4f} s per sharded forward ({} shards) against {:.4f} s '
-          'unsharded (median of 3, forward_projections; {})'.format(
-              sec_fwd_sh, n, sec_fwd, card))
-
-    # 2. a sharded value+gradient against the unsharded one
-    neg, _, _ = map_fit._make_objective(setup, False)
-    neg_sh, _, _ = map_fit._make_objective(sharded, False)
-    z0 = map_fit.initial_z(setup, False)
-    zero_counts()
-    v_sh, g_sh = value_and_grad(neg_sh, z0)
-    sync_all()
-    k1_vg, k3_vg = day_kernel.LAUNCHES, day_kernel.LAUNCHES_BWD
-    check((k1_vg, k3_vg) == (18 * n, 18 * n),
-          '{} K1 and {} K3 launches for one sharded value+gradient = 18 x '
-          '{} shards each'.format(k1_vg, k3_vg, n))
-    v, g = value_and_grad(neg, z0)
-    gmax = np.abs(g).max()
-    dg = np.abs(g_sh - g)
-    worst = float((dg / np.maximum(np.abs(g), 1e-30)).max())
-    dv = abs(v_sh - v) / abs(v)
-    print('  value sharded {!r} unsharded {!r} (rel {:.3e}); gradient '
-          'worst component {:.3e} of its magnitude; per component '
-          '|dg|/|g| {} and |g|/max|g| {}'.format(
-              v_sh, v, dv, worst,
-              np.array2string(dg / np.maximum(np.abs(g), 1e-30),
-                              precision=2),
-              np.array2string(np.abs(g) / gmax, precision=2)))
-    l2 = float(np.linalg.norm(g_sh - g) / np.linalg.norm(g))
-    check(np.isfinite(v_sh) and np.all(np.isfinite(g_sh)) and
-          dv <= MESH_GRAD_RTOL and l2 <= MESH_GRAD_L2_LIMIT and
-          bool(np.all(dg <= MESH_GRAD_RTOL * np.abs(g) +
-                      MESH_GRAD_ATOL * gmax)),
-          'sharded value and every gradient component within {:.0e} of '
-          'the unsharded ones (+ {:.0e} of the largest), gradient relative '
-          'L2 {:.3e} <= {:.0e}'.format(MESH_GRAD_RTOL, MESH_GRAD_ATOL, l2,
-                                       MESH_GRAD_L2_LIMIT))
-    peaks = {}
-    for name, f in (('sharded', neg_sh), ('unsharded', neg)):
-        torch.cuda.reset_peak_memory_stats(dev)
-        value_and_grad(f, z0)
-        sync_all()
-        peaks[name] = torch.cuda.max_memory_allocated(dev)
-    sec_vg = timed(lambda: value_and_grad(neg, z0))
-    sec_vg_sh = timed(lambda: value_and_grad(neg_sh, z0))
-    print('  {:.4f} s per sharded value+gradient against {:.4f} s '
-          'unsharded (median of 3); peak {:.1f} MiB against {:.1f} MiB '
-          'allocated on {} ({})'.format(
-              sec_vg_sh, sec_vg, peaks['sharded'] / 2 ** 20,
-              peaks['unsharded'] / 2 ** 20, dev, card))
-
-    # 3. the member meshes, each bitwise its run without a mesh
     members = chain_mesh(devices=member_devs)
     zero_counts()
     tic = time.perf_counter()
@@ -2642,13 +2487,8 @@ def phase_meshes(dev, card, rate, work):
           'bitwise equal to mesh=None'.format(k1_ens))
     sec_phase = time.perf_counter() - tic_phase
     print('  phase [20]: {:.1f} s'.format(sec_phase))
-    return {'k1': k1_fwd + k1_vg + k1_chains + k1_store + k1_pt + k1_smc +
-            k1_ens, 'k3': k3_vg, 'batched': kb_smc, 'shards': n,
-            'repeated': repeated, 'kernel_err': kerr,
-            'shard_ms': max(shard_ms), 'shard_bound_ms': shard_bound[0][0],
-            'sec_fwd': sec_fwd, 'sec_fwd_sharded': sec_fwd_sh,
-            'sec_vg': sec_vg, 'sec_vg_sharded': sec_vg_sh,
-            'peak_sharded': peaks['sharded'], 'sec_phase': sec_phase}
+    return {'k1': k1_chains + k1_store + k1_pt + k1_smc + k1_ens,
+            'batched': kb_smc, 'repeated': repeated, 'sec_phase': sec_phase}
 
 
 def profiled(fn, reps):
@@ -2888,19 +2728,19 @@ def run(only, work):
                                                                  work)
     bat = phase_smc_batched(dev, card, rate, work, smc_sec)
     trunc_sec, var_k1, p19_phase = phase_variants(dev, card, work)
-    mesh = phase_meshes(dev, card, rate, work)
+    mesh = phase_meshes(dev, card, work)
     graphed = phase_graphs(dev, card)
     check(launches > 0 and min(map_launches) > 0 and am_launches > 0 and
           min(nuts_k1, nuts_k3) > 0 and min(lap_launches) > 0 and
           min(ridge_k1, ridge_k3) > 0 and sum_k1 > 0 and
           min(pt_k1, smc_k1, vi_k1, vi_k3, sbc_k1, small_k1) > 0 and
           bat['launches'] > 0 and var_k1 > 0 and
-          min(mesh['k1'], mesh['k3'], mesh['batched']) > 0,
+          min(mesh['k1'], mesh['batched']) > 0,
           'both kernels launched on their main paths, the forward kernel on '
           'the AM path too, both on the NUTS, Laplace and ridge paths, the '
           'forward kernel on the summary, PT, SMC, SBC and CV paths, both '
           'on the ADVI path, the batched forward on the batched SMC path, '
-          'all three on the mesh paths')
+          'the forward and the batched forward on the mesh paths')
     check_imports()
 
     k1, k2 = timing['K1'], timing['K2']
@@ -2913,13 +2753,8 @@ def run(only, work):
         'launches': (launches + nuts_k1 + lap_launches[0] + ridge_k1 +
                      sum_k1 + pt_k1 + smc_k1 + vi_k1 + sbc_k1 + small_k1 +
                      bat['k1'] + var_k1 + mesh['k1']),
-        'launches_meshes': mesh['k1'], 'mesh_minute_shards': mesh['shards'],
+        'launches_meshes': mesh['k1'],
         'mesh_repeats_one_card': mesh['repeated'],
-        'mesh_max_abs_err_vs_unsharded': mesh['kernel_err'],
-        'ms_per_shard_day9': mesh['shard_ms'],
-        'bound_ms_per_shard_day9': mesh['shard_bound_ms'],
-        'sec_per_forward_801': mesh['sec_fwd'],
-        'sec_per_forward_801_sharded': mesh['sec_fwd_sharded'],
         'sec_phase_20': mesh['sec_phase'],
         'launches_smc_batched_init': bat['k1'],
         'launches_explorer': var_k1,
@@ -2968,11 +2803,7 @@ def run(only, work):
         'source': 'parasitoids_tpu_torch/csrc/day_kernel.cu',
         'replaces': 'parasitoids_tpu/ops/pallas_kernel.py:326',
         'launches': (map_launches[1] + nuts_k3 + lap_launches[1] +
-                     ridge_k3 + vi_k3 + mesh['k3']),
-        'launches_meshes': mesh['k3'],
-        'sec_per_value_and_grad_801_unsharded_20': mesh['sec_vg'],
-        'sec_per_value_and_grad_801_sharded': mesh['sec_vg_sharded'],
-        'peak_bytes_value_and_grad_801_sharded': mesh['peak_sharded'],
+                     ridge_k3 + vi_k3),
         'launches_map_cli': map_launches[1], 'launches_nuts_cli': nuts_k3,
         'launches_vi_cli': vi_k3, 'sec_per_elbo_step_801': vi_sec,
         'launches_laplace_cli': lap_launches[1],
@@ -3081,7 +2912,7 @@ def run_some(only, dev, card, rate, work):
         17: lambda: phase_sbc_and_anneals(dev, card, work),
         18: lambda: phase_smc_batched(dev, card, rate, work),
         19: lambda: phase_variants(dev, card, work),
-        20: lambda: phase_meshes(dev, card, rate, work),
+        20: lambda: phase_meshes(dev, card, work),
         21: lambda: phase_graphs(dev, card)}
     failed = []
     for n in sorted(only | ({9} if 13 in only else set())):

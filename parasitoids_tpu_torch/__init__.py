@@ -25,7 +25,7 @@ Layout mirrors the JAX package:
                    the adaptive-Metropolis sampler, its trace store and
                    command line (``python -m parasitoids_tpu_torch.bayes.run``)
   parallel/        the device mesh; chains, starts, replicas, particles
-                   and draws sharded over it; the minute-sharded forward
+                   and draws sharded over it
   utils/           numerical sanitizers of a run's fields; durable commits
   viz/             per-day plots of a run (``--plot``); MCMC diagnostics
   cli.py           ``python -m parasitoids_tpu_torch [flags] [key=value ...]``

@@ -8,14 +8,12 @@ reparameterization.  As in the reference, ``n_periods`` is held at 30
 Uniform(0, 1) parameter (Bayes_MAP.py:200-205).
 
 Run as ``python -m parasitoids_tpu_torch.bayes.map_fit --MAP | --norm
-[--starts N --seed S] [--polish N] [--shard-forward]``: Adam from the
+[--starts N --seed S] [--polish N]``: Adam from the
 reference's initial values or from several prior draws (in turn, or
 sharded over the visible cards), optionally an L-BFGS polish,
 and with ``--norm`` the Laplace (normal) approximation around the mode
 (ref ``pm.NormApprox``, Bayes_MAP.py:521-569): the covariance is the
 inverse Hessian of the negative log posterior in the unconstrained space.
-``--shard-forward`` spreads each forward simulation's flight minutes over
-the visible cards (``parallel/domain.py``).
 
 The Hessian never goes through the CUDA day kernels, whose backward is
 first order (in JAX too the Pallas ``custom_vjp`` admits no forward mode).
@@ -328,8 +326,7 @@ def plain_twin(setup: BayesSetup, dtype=None) -> BayesSetup:
     the setup's own): the counterpart of JAX's ``xla_twin``.  The setup
     itself when it already is one.  The twin is built from this setup's
     own wind arrays (upcast exactly where ``dtype`` is wider) and keeps
-    its ``sprd_factor``, forward mesh, observed data and held-out
-    ``obs_mask``: a
+    its ``sprd_factor``, observed data and held-out ``obs_mask``: a
     Laplace metric of held-out data must take its curvature from the
     held-out likelihood too."""
     from ..models.forward import setup_from_numpy
@@ -346,7 +343,7 @@ def plain_twin(setup: BayesSetup, dtype=None) -> BayesSetup:
     params = copy.copy(setup.params)
     params.use_pallas = False
     twin = BayesSetup(params, sprd_factor=setup.sprd_factor, dtype=dtype,
-                      forward_setup=fs, forward_mesh=setup.forward_mesh)
+                      forward_setup=fs)
 
     def cast(group):
         return [t.to(dtype) for t in group]
@@ -664,20 +661,10 @@ def main(argv=None, device=None):
                         help='seed of the multi-start prior draws')
     parser.add_argument('--polish', type=int, default=0, metavar='N',
                         help='L-BFGS refinement steps after the Adam fit')
-    parser.add_argument('--shard-forward', action='store_true',
-                        help='shard each forward simulation\'s '
-                             'flight-minute axis over the visible cards '
-                             '(single-fit latency scaling, as on '
-                             'bayes.run); incompatible with --starts > 1, '
-                             'which shards over starts instead')
     parser.add_argument('overrides', nargs='*')
     args = parser.parse_args(argv)
-    if args.shard_forward and args.starts > 1:
-        parser.error('--shard-forward is incompatible with --starts > 1 '
-                     '(multi-start already shards over the mesh)')
     from .. import device as _device
     from ..parallel.chains import chain_mesh
-    from ..parallel.domain import minute_mesh
 
     device = args.device if device is None else device
     setup = BayesSetup(map_cli_params(args.overrides), device=device)
@@ -686,13 +673,6 @@ def main(argv=None, device=None):
         dev, 'CUDA day kernel' if setup.setup.kcfg.pallas
         else 'plain torch'))
     devices = _device.visible_devices(device)
-    if args.shard_forward:
-        if len(devices) > 1:
-            setup = setup.with_forward_mesh(minute_mesh(devices=devices))
-            print('forward pass sharded over {} devices (flight-minute '
-                  'axis)'.format(setup.forward_mesh.size))
-        else:
-            print('--shard-forward: single device, running unsharded')
     tic = time.time()
     if args.starts > 1:
         mesh = None

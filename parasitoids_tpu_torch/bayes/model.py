@@ -179,16 +179,11 @@ class BayesSetup:
         forward_setup: a ready :class:`ForwardSetup`, for example from
             ``setup_from_numpy`` of another package's setup arrays, used
             instead of loading the wind again.
-        forward_mesh: optional 1-D mesh (``parallel.domain.minute_mesh``)
-            led by the setup's device: every forward simulation shards its
-            flight-minute axis over it (latency scaling for single-chain
-            samplers); leave None for chain-sharded sampling.
     """
 
     def __init__(self, params: Params | None = None, sprd_factor=None,
                  dtype=None, device=None,
-                 forward_setup: ForwardSetup | None = None,
-                 forward_mesh=None):
+                 forward_setup: ForwardSetup | None = None):
         if params is None:
             params = _kalbar_default_params()
         self.params = params
@@ -198,7 +193,6 @@ class BayesSetup:
         # optional per-observation 0/1 weights (rel, sent, grid) excluding
         # held-out data from the likelihood (with_held_out)
         self.obs_mask = None
-        self.forward_mesh = None
         cell = params.domain_info[0] / params.domain_info[1]
         K, Kl = prior_coverage_windows(cell)
         if params.kernel_rad is None:
@@ -241,9 +235,6 @@ class BayesSetup:
         # captured CUDA graphs of the evaluation (utils/graphs.py), shared
         # by the shallow copies, whose forward is this one's
         self.graphs = graphs.GraphCache()
-        if forward_mesh is not None:
-            self._check_forward_mesh(forward_mesh)
-            self.forward_mesh = forward_mesh
 
     # ------------------------------------------------------------------
     def _check_obs(self, rel, sent, grid):
@@ -315,36 +306,14 @@ class BayesSetup:
         new.obs_mask = self.split_point_mask(keep_flat)
         return new
 
-    def _check_forward_mesh(self, mesh):
-        own = self.setup.wind_flat.device
-        if mesh.devices[0] != own:
-            raise ValueError('a forward mesh must lead with the setup\'s '
-                             'device {}, got {}'.format(own, mesh))
-
-    def with_forward_mesh(self, mesh):
-        """Shallow copy routing every forward simulation through the
-        minute-sharded builder (``parallel/domain.py``) on ``mesh``, whose
-        first device must be the setup's; ``None`` routes it back.  Every
-        later copy (``with_held_out``, ``with_observations``,
-        ``map_fit.plain_twin``) carries the mesh."""
-        if mesh is not None:
-            self._check_forward_mesh(mesh)
-        new = copy.copy(self)
-        new.forward_mesh = mesh
-        return new
-
     def on_device(self, device):
         """This setup with every tensor on ``device``: itself where it
         lies there already, else a copy made once and kept while this
         setup lives.  A chain, replica, particle or member sharded onto a
-        device evaluates its posterior through the copy there.  A setup
-        with a forward mesh stays on its mesh's lead device."""
+        device evaluates its posterior through the copy there."""
         device = torch.device(device)
         if device == self.setup.wind_flat.device:
             return self
-        if self.forward_mesh is not None:
-            raise ValueError('a setup with a forward mesh runs on its lead '
-                             'device, not {}'.format(device))
         copies = _ON_DEVICE.setdefault(self, {})
         if device not in copies:
             new = copy.copy(self)
@@ -359,9 +328,7 @@ class BayesSetup:
         particle's day accumulate takes its own Genz tier, the local and
         pre-spread blocks the select node rule): on the card one launch of
         the particle-batched day kernel a day for the whole population, so
-        no host read of any ρ (``forward_projections``).  The copy keeps
-        the forward mesh: each of its shards then takes every particle's
-        minutes of its block in one batched launch."""
+        no host read of any ρ (``forward_projections``)."""
         new = copy.copy(self)
         new.setup = self.setup._replace(
             kcfg=self.setup.kcfg._replace(batched_bvn=True))
@@ -456,8 +423,8 @@ class BayesSetup:
 
         On the card with the day kernel, the evaluation after its host
         read replays a captured CUDA graph (``utils/graphs.py``; the first
-        evaluation of a key captures it), its gradient too; the CPU, a
-        forward mesh and the plain, ``ref_trunc`` and f64 paths run
+        evaluation of a key captures it), its gradient too; the CPU and
+        the plain, ``ref_trunc`` and f64 paths run
         :meth:`_forward_projections_eager`, which gives the same bits."""
         s = self.setup
         if branches is None and not s.kcfg.batched_bvn:
@@ -468,11 +435,10 @@ class BayesSetup:
 
     def _replays_graphs(self):
         """Whether :meth:`forward_projections` and :meth:`population_fields`
-        replay captured graphs: on the card, through the day kernel,
-        without a forward mesh."""
+        replay captured graphs: on the card, through the day kernel."""
         k = self.setup.kcfg
         return (self.setup.wind_flat.device.type == 'cuda' and k.pallas and
-                not k.ref_trunc and self.forward_mesh is None)
+                not k.ref_trunc)
 
     def _graph_args(self, m: ModelParams, sprd_factor):
         """The arguments of a graphed evaluation: one stacked parameter
@@ -530,7 +496,7 @@ class BayesSetup:
         fields after the host read replay the captured CUDA graph of key
         ``('fields', branches, days)`` (its first call captures it), and
         each result is a clone that the next replay leaves as it is; the
-        CPU, a forward mesh and the plain, ``ref_trunc`` and f64 paths run
+        CPU and the plain, ``ref_trunc`` and f64 paths run
         :meth:`_fields_eager`, which gives the same bits."""
         if branches is None and not self.setup.kcfg.batched_bvn:
             branches, _ = self._branches(m)
@@ -549,26 +515,15 @@ class BayesSetup:
     def _fields_eager(self, m: ModelParams, sprd_factor=None, branches=None,
                       days=None, propagate=None):
         """:meth:`population_fields` run eagerly, launch by launch: the
-        day loop (minute-sharded under a forward mesh), the pre-spread
-        day, the propagation.  On a :meth:`with_batched_bvn` copy the
-        fields gain a leading particle axis."""
+        day loop, the pre-spread day, the propagation.  On a
+        :meth:`with_batched_bvn` copy the fields gain a leading particle
+        axis."""
         s = self.setup
         propagate = propagate or propagate_pop
         n_per = torch.round(scalar(m.n_periods, s.wind_flat.dtype,
                                    s.wind_flat.device)).to(torch.int64)
-        mesh = self.forward_mesh
-        if s.kcfg.batched_bvn:
-            build = build_all_kernels_batched
-            if mesh is not None:
-                from ..parallel.domain import \
-                    build_all_kernels_batched_sharded
-                build = partial(build_all_kernels_batched_sharded, mesh)
-        else:
-            build = partial(build_all_kernels, branches=branches)
-            if mesh is not None:
-                from ..parallel.domain import build_all_kernels_sharded
-                build = partial(build_all_kernels_sharded, mesh,
-                                branches=branches)
+        build = (build_all_kernels_batched if s.kcfg.batched_bvn else
+                 partial(build_all_kernels, branches=branches))
         kernels, _ = build(
             s.wind_flat, s.wind_cumsum, m.hparams(), m.Dparams(),
             m.Dlparams(), m.mu_r, n_per, s.rad_dist, s.start_idx, s.kcfg,

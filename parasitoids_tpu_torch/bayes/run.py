@@ -30,9 +30,9 @@ automatically when >= 2 chains.  NUTS's ``--mass laplace`` fixes a dense
 metric from the Laplace covariance at a MAP fit and ``--mass ridge``
 samples in that covariance's eigenbasis, the map kept in a
 ``<db>.whiten.npz`` sidecar that a ``--resume`` reads.  The argument
-parser is the JAX module's, so ``--help`` reads the same;
-``--shard-forward`` spreads each forward simulation's flight minutes over
-the visible cards (``parallel/domain.py``).
+parser is the JAX module's, so ``--help`` reads the same, less the JAX
+module's minute-sharding option: the port spreads no forward simulation
+over cards.
 """
 
 from __future__ import annotations
@@ -225,13 +225,6 @@ parser.add_argument('--checkpoint-every', type=int, default=1000,
                          'an interrupted run resumes exactly from the last '
                          'checkpoint (ref PyMC mcmc.commit/db.close '
                          'behavior, Bayes_Run.py:500-503)')
-parser.add_argument('--shard-forward', action='store_true',
-                    help='shard each forward simulation over all devices '
-                         '(minute-axis partial sums merged by psum, '
-                         'parallel/domain.py) — latency scaling for '
-                         'single-chain samplers; incompatible with the '
-                         'population-sharded pt/smc samplers, and disables '
-                         'chain-over-device sharding')
 parser.add_argument('overrides', nargs='*',
                     help='Params key=value overrides (e.g. interp_num=30)')
 
@@ -615,12 +608,10 @@ def run_nuts(args, setup, devices=()):
                                               os.path.basename(db))):
                 last_commit[0] = now
 
-    # the chains shard over the cards when they divide over them, and not
-    # when each forward is already spread over them (--shard-forward)
+    # the chains shard over the cards when they divide over them
     mesh = None
     n_dev = len(devices)
-    if (n_dev > 1 and args.chains % n_dev == 0
-            and setup.forward_mesh is None):
+    if n_dev > 1 and args.chains % n_dev == 0:
         from ..parallel.chains import chain_mesh
         mesh = chain_mesh(devices=devices)
         print('  chains sharded over {} devices'.format(n_dev))
@@ -1156,9 +1147,6 @@ def main(argv=None, device=None):
         # samplers, so there is no Metropolis-within-Gibbs sweep to repeat
         parser.error('--obs-sweeps only applies to the am/pt/smc samplers'
                      ' (nuts/vi update the observation block jointly)')
-    if args.shard_forward and args.sampler in ('pt', 'smc'):
-        parser.error('--shard-forward is incompatible with the '
-                     'population-sharded pt/smc samplers')
     from .. import device as _device
     device = args.device if device is None else device
     setup = build_setup(args.overrides, device=device)
@@ -1167,11 +1155,6 @@ def main(argv=None, device=None):
         dev, 'CUDA day kernel' if setup.setup.kcfg.pallas
         else 'plain torch'))
     devices = _device.visible_devices(device)
-    if args.shard_forward and len(devices) > 1:
-        from ..parallel.domain import minute_mesh
-        setup = setup.with_forward_mesh(minute_mesh(devices=devices))
-        print('forward simulations minute-sharded over {} devices'.format(
-            len(devices)))
     if args.sampler == 'nuts':
         return run_nuts(args, setup, devices)
     if args.sampler == 'pt':
@@ -1183,9 +1166,8 @@ def main(argv=None, device=None):
     from ..parallel.chains import chain_mesh, init_chains
 
     n_dev = len(devices)
-    mesh = chain_mesh(devices=devices) if (
-        args.chains > 1 and n_dev > 1 and args.chains % n_dev == 0 and
-        setup.forward_mesh is None) else None
+    mesh = (chain_mesh(devices=devices) if args.chains > 1 and n_dev > 1
+            and args.chains % n_dev == 0 else None)
     if mesh is not None:
         print('  chains sharded over {} devices'.format(n_dev))
     if mesh is None and args.chains > 1 and n_dev > 1 \

@@ -295,6 +295,79 @@ def _swap_sweep_stacked(states, betas, parity, u):
     return states, acc, att
 
 
+def _swap_sweep_listed(reps, betas, parity, u):
+    """:func:`_swap_sweep_stacked` on the replicas ``reps`` (one
+    ``ChainState`` each, in ladder order, all on one device)."""
+    states, acc, att = _swap_sweep_stacked(stack_states(reps), betas, parity,
+                                           u)
+    return unstack_states(states), acc, att
+
+
+def _round_prog(setups, cfg: PTConfig, swap, lead):
+    """A one-round program ``round_fn(reps, betas_np, betas_t, parity, u,
+    draws) -> (reps, traces, lls, accepts, attempts)``: replica ``t``
+    advances by ``cfg.swap_every`` steps through ``setups[t]``, one
+    replica after the other, then ``swap`` makes the sweep (skipped for
+    one rung); traces and logliks come back stacked on ``lead``.
+    ``draws(t)``: the replica's replayed ``StepDraws`` or None."""
+    T = len(setups)
+
+    def round_fn(reps, betas_np, betas_t, parity, u, draws):
+        out, tr, ll = [], [], []
+        for t, r in enumerate(reps):
+            r, (rows, lls) = _advance(setups[t], r, float(betas_np[t]), cfg,
+                                      draws(t))
+            out.append(r)
+            tr.append(rows.to(lead))
+            ll.append(lls.to(lead))
+        if T > 1:
+            out, acc, att = swap(out, betas_t, parity, u)
+        else:
+            acc = att = torch.zeros(0, dtype=torch.float32, device=lead)
+        return out, torch.stack(tr), torch.stack(ll), acc, att
+
+    return round_fn
+
+
+def _run_rounds(round_fn, states, devices, betas, swap_seed, cfg: PTConfig,
+                round_offset, draws, swap_u):
+    """The round loop of :func:`run_pt` and :func:`run_pt_sharded`: the
+    stacked ``states``' replica ``t`` on ``devices[t]``, then
+    ``cfg.n_rounds`` calls of the one-round program ``round_fn``
+    (:func:`_round_prog`), each with its global round's swap uniforms and
+    parity.  Returns :func:`run_pt`'s results on ``devices[0]``."""
+    from ..parallel.chains import to_device
+    betas_np = np.asarray(betas, np.float32)
+    T = betas_np.shape[0]
+    lead = devices[0]
+    betas_t = torch.as_tensor(betas_np).to(lead)
+    reps = [to_device(s, d) for s, d in zip(unstack_states(states), devices)]
+    zero = torch.zeros(max(T - 1, 0), dtype=torch.float32, device=lead)
+    att, acc = zero, zero.clone()
+    traces, lls = [], []
+    for r in range(cfg.n_rounds):
+        rr = int(round_offset) + r
+        u = None
+        if T > 1:
+            u = (swap_u(rr) if swap_u is not None
+                 else swap_uniforms(swap_seed, rr, T - 1, lead)).to(lead)
+        reps, tr, ll, pa, pt_att = round_fn(
+            reps, betas_np, betas_t, rr % 2, u,
+            lambda t: None if draws is None else draws(rr, t))
+        att, acc = att + pt_att, acc + pa
+        traces.append(tr)
+        lls.append(ll)
+    # rounds of (T, swap_every, ...) -> (T, rounds*swap_every, ...)
+    dim = states.m.shape[-1] + states.o.shape[-1] + 1
+    traces = (torch.cat(traces, dim=1) if traces
+              else torch.zeros((T, 0, dim), device=lead))
+    lls = torch.cat(lls, dim=1) if lls else torch.zeros((T, 0), device=lead)
+    states = stack_states([to_device(s, lead, generators=False)
+                           for s in reps])
+    return states, traces, {'swap_attempts': att, 'swap_accepts': acc,
+                            'loglik': lls}
+
+
 @torch.no_grad()
 def run_pt(setup: BayesSetup, states, betas, swap_seed, cfg: PTConfig,
            round_offset=0, draws=None, swap_u=None):
@@ -319,38 +392,11 @@ def run_pt(setup: BayesSetup, states, betas, swap_seed, cfg: PTConfig,
     (:func:`swap_uniforms` otherwise) — a test replays another stream
     through them.
     """
-    betas_np = np.asarray(betas, np.float32)
-    T = betas_np.shape[0]
-    dev = states.m.device
-    betas_t = torch.as_tensor(betas_np).to(dev)
-    zero = torch.zeros(max(T - 1, 0), dtype=torch.float32, device=dev)
-    att, acc = zero, zero.clone()
-    traces, lls = [], []
-    for r in range(cfg.n_rounds):
-        rr = int(round_offset) + r
-        reps, tr, ll = [], [], []
-        for t, s in enumerate(unstack_states(states)):
-            s, (rows, l) = _advance(setup, s, float(betas_np[t]), cfg,
-                                    None if draws is None else draws(rr, t))
-            reps.append(s)
-            tr.append(rows)
-            ll.append(l)
-        states = stack_states(reps)
-        if T > 1:
-            u = (swap_u(rr) if swap_u is not None
-                 else swap_uniforms(swap_seed, rr, T - 1, dev))
-            states, pa, pt_att = _swap_sweep_stacked(states, betas_t, rr % 2,
-                                                     u.to(dev))
-            att, acc = att + pt_att, acc + pa
-        traces.append(torch.stack(tr))
-        lls.append(torch.stack(ll))
-    # rounds of (T, swap_every, ...) -> (T, rounds*swap_every, ...)
-    dim = states.m.shape[-1] + states.o.shape[-1] + 1
-    traces = (torch.cat(traces, dim=1) if traces
-              else torch.zeros((T, 0, dim), device=dev))
-    lls = torch.cat(lls, dim=1) if lls else torch.zeros((T, 0), device=dev)
-    return states, traces, {'swap_attempts': att, 'swap_accepts': acc,
-                            'loglik': lls}
+    devices = [states.m.device] * len(betas)
+    return _run_rounds(
+        _round_prog([setup] * len(betas), cfg, _swap_sweep_listed,
+                    devices[0]),
+        states, devices, betas, swap_seed, cfg, round_offset, draws, swap_u)
 
 
 def _pick(take_next, nxt, take_prev, prv, own):
@@ -393,35 +439,15 @@ def _swap_step_collective(reps, betas, parity, u):
 
 def _sharded_pt_prog(setup, cfg: PTConfig, mesh, T):
     """The one-round program of :func:`run_pt_sharded` on ``mesh`` (one
-    device per rung): ``round_fn(reps, betas_np, betas_t, parity, u,
-    draws) -> (reps, traces, lls, accepts, attempts)`` advances replica
-    ``t`` on device ``t`` through the setup's copy there by
-    ``cfg.swap_every`` steps, then swaps (:func:`_swap_step_collective`,
-    skipped for one rung); traces and logliks come back stacked on the
-    lead device.
-    ``draws(t)``: the replica's replayed ``StepDraws`` or None."""
+    device per rung; :func:`_round_prog`): replica ``t`` advances on device
+    ``t`` through the setup's copy there, and the sweep is
+    :func:`_swap_step_collective`."""
     if mesh.size != T:
         raise ValueError('run_pt_sharded wants one temperature per device '
                          '(got {} temps over {} devices)'.format(T,
                                                                  mesh.size))
-    lead = mesh.devices[0]
-    setups = [setup.on_device(d) for d in mesh.devices]
-
-    def round_fn(reps, betas_np, betas_t, parity, u, draws):
-        out, tr, ll = [], [], []
-        for t, r in enumerate(reps):
-            r, (rows, lls) = _advance(setups[t], r, float(betas_np[t]), cfg,
-                                      draws(t))
-            out.append(r)
-            tr.append(rows.to(lead))
-            ll.append(lls.to(lead))
-        if T > 1:
-            out, acc, att = _swap_step_collective(out, betas_t, parity, u)
-        else:
-            acc = att = torch.zeros(0, dtype=torch.float32, device=lead)
-        return out, torch.stack(tr), torch.stack(ll), acc, att
-
-    return round_fn
+    return _round_prog([setup.on_device(d) for d in mesh.devices], cfg,
+                       _swap_step_collective, mesh.devices[0])
 
 
 @torch.no_grad()
@@ -437,35 +463,6 @@ def run_pt_sharded(setup: BayesSetup, states, betas, swap_seed,
     neighbouring devices (:func:`_swap_step_collective`).  Traces, the
     swap counts and the returned stacked states gather on the lead device;
     each replica's generator stays on its device."""
-    from ..parallel.chains import to_device
-    betas_np = np.asarray(betas, np.float32)
-    T = betas_np.shape[0]
-    run_round = _sharded_pt_prog(setup, cfg, mesh, T)
-    lead = mesh.devices[0]
-    betas_t = torch.as_tensor(betas_np).to(lead)
-    reps = [to_device(s, d)
-            for s, d in zip(unstack_states(states), mesh.devices)]
-    zero = torch.zeros(max(T - 1, 0), dtype=torch.float32, device=lead)
-    att, acc = zero, zero.clone()
-    traces, lls = [], []
-    for r in range(cfg.n_rounds):
-        rr = int(round_offset) + r
-        u = None
-        if T > 1:
-            u = (swap_u(rr) if swap_u is not None
-                 else swap_uniforms(swap_seed, rr, T - 1, lead)).to(lead)
-        reps, tr, ll, pa, pt_att = run_round(
-            reps, betas_np, betas_t, rr % 2, u,
-            lambda t: None if draws is None else draws(rr, t))
-        if T > 1:
-            att, acc = att + pt_att, acc + pa
-        traces.append(tr)
-        lls.append(ll)
-    states = stack_states([to_device(s, lead, generators=False)
-                           for s in reps])
-    dim = states.m.shape[-1] + states.o.shape[-1] + 1
-    traces = (torch.cat(traces, dim=1) if traces
-              else torch.zeros((T, 0, dim), device=lead))
-    lls = torch.cat(lls, dim=1) if lls else torch.zeros((T, 0), device=lead)
-    return states, traces, {'swap_attempts': att, 'swap_accepts': acc,
-                            'loglik': lls}
+    return _run_rounds(_sharded_pt_prog(setup, cfg, mesh, len(betas)),
+                       states, mesh.devices, betas, swap_seed, cfg,
+                       round_offset, draws, swap_u)

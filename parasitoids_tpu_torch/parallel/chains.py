@@ -30,10 +30,10 @@ from ..bayes.sampler import (MCMCConfig, chain_generator, init_chain_state,
                              run_mcmc, stack_states, unstack_states)
 from ..bayes.transforms import MODEL_TRANSFORMS
 
-__all__ = ['Mesh', 'axis_mesh', 'chain_mesh', 'visible_mesh', 'init_chains',
+__all__ = ['Mesh', 'chain_mesh', 'visible_mesh', 'init_chains',
            'shard_chain_states', 'run_chains', 'shard_bounds',
            'member_devices', 'to_device',
-           'take_rows', 'concat_rows', 'psum', 'move_generator']
+           'take_rows', 'concat_rows', 'move_generator']
 
 _N_PERIODS_SLOT = 13
 
@@ -61,21 +61,15 @@ class Mesh:
                                      ', '.join(str(d) for d in self.devices))
 
 
-def axis_mesh(axis, n_devices=None, devices=None):
-    """1-D mesh over ``axis``: ``devices`` (which may repeat one), else
-    the first ``n_devices`` of ``device.visible_devices()`` (all by
-    default) — the shared constructor behind chain_mesh and
-    domain.minute_mesh."""
+def chain_mesh(n_devices=None, devices=None):
+    """1-D mesh over a ``chains`` axis: ``devices`` (which may repeat
+    one), else the first ``n_devices`` of ``device.visible_devices()``
+    (all by default)."""
     if devices is None:
         devices = _device.visible_devices()
         if n_devices is not None:
             devices = devices[:n_devices]
-    return Mesh(devices, axis)
-
-
-def chain_mesh(n_devices=None, devices=None):
-    """1-D mesh over a ``chains`` axis."""
-    return axis_mesh('chains', n_devices, devices)
+    return Mesh(devices, 'chains')
 
 
 def visible_mesh(device=None):
@@ -173,17 +167,6 @@ def concat_rows(parts, device):
         return _rebuild(first, [concat_rows(list(ps), device)
                                 for ps in zip(*parts)])
     return first
-
-
-def psum(parts, mesh):
-    """The sum of the shards' partial tensors ``parts`` on the mesh's lead
-    device, added in shard order: the same bits on every run (no atomic
-    adds), as exact resume needs."""
-    lead = mesh.devices[0]
-    total = parts[0].to(lead)
-    for p in parts[1:]:
-        total = total + p.to(lead)
-    return total
 
 
 def init_chains(setup: BayesSetup, seed, n_chains, jitter=0.05):

@@ -236,14 +236,6 @@ def test_observation_structures(setups):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     with pytest.raises(ValueError, match='keep_flat'):
         ts.split_point_mask(np.append(keep, True))
-    # the forward-mesh copy (once refused): a mesh led by another device is
-    # refused, None routes the forward back, the original is untouched
-    from parasitoids_tpu_torch.parallel.domain import minute_mesh
-    fm = ts.with_forward_mesh(minute_mesh(devices=['cpu'] * 2))
-    assert fm.forward_mesh.size == 2 and ts.forward_mesh is None
-    assert fm.with_forward_mesh(None).forward_mesh is None
-    with pytest.raises(ValueError, match='lead'):
-        ts.with_forward_mesh(minute_mesh(devices=['meta', 'meta']))
     # the ensemble-batched copy (once refused): its kernel configuration is
     # JAX's with_batched_bvn() one, and the original is untouched
     tb, jb = ts.with_batched_bvn(), js.with_batched_bvn()
@@ -272,19 +264,6 @@ def test_cli_writes_the_report(tmp_path, capsys):
     assert report.startswith('MAP fit: logp = ')
     for name in (*tp.MODEL_PARAM_NAMES, *tp.OBS_PARAM_NAMES, 'sprd_factor'):
         assert '{} = '.format(name) in report
-
-
-@pytest.mark.parametrize('flags', [['--MAP', '--shard-forward',
-                                    '--starts', '2']])
-def test_cli_refuses_what_is_not_ported(flags, capsys):
-    # (the name is the test's from before the sharded forward was ported)
-    # --shard-forward runs (test_torch_parallel.py); with --starts > 1 it
-    # is refused, as the JAX command line refuses it
-    with pytest.raises(SystemExit) as exc:
-        tm.main(flags + list(MAP_SMALL), device='cpu')
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert 'incompatible with --starts > 1' in err
 
 
 @pytest.mark.parametrize('flags', [['--norm'], ['--norm', '--polish', '2'],

@@ -74,15 +74,9 @@ def test_mesh_type_and_its_default_devices(monkeypatch):
 
 
 def test_psum_and_row_helpers():
-    # the partial sums add in shard order (the same bits as a left fold);
-    # rows taken per shard concatenate back; generators stay where they
-    # are and move only between cards
-    rng = np.random.default_rng(0)
-    parts = [torch.from_numpy(rng.standard_normal((5, 7)).astype(np.float32))
-             for _ in range(4)]
-    mesh = chains.chain_mesh(devices=['cpu'] * 4)
-    want = ((parts[0] + parts[1]) + parts[2]) + parts[3]
-    assert torch.equal(chains.psum(parts, mesh), want)
+    # (the name is the test's from before the minute-sharded forward and
+    # its partial sums went) rows taken per shard concatenate back;
+    # generators stay where they are and move only between cards
     gens = tuple(torch.Generator() for _ in range(4))
     tree = (torch.arange(8).reshape(4, 2), (torch.ones(4), gens), gens)
     pieces = [chains.take_rows(tree, a, b)
@@ -239,21 +233,14 @@ def test_loo_rounds_draws_to_the_mesh(setup, trace_file):
 
 
 def test_map_cli_mesh(tmp_path, monkeypatch, capsys):
-    # --starts over the devices (the fit bitwise the one in turn), and
-    # --shard-forward over them, or unsharded on one device
+    # --starts over the devices: the fit bitwise the one in turn
     out = ['-o', str(tmp_path / 'm.txt')]
     ref = tm.main(['--MAP', '--steps', '2', '--starts', '2'] + out + TINY)
-    tm.main(['--MAP', '--steps', '1', '--shard-forward'] + out + TINY)
-    assert '--shard-forward: single device, running unsharded' in \
-        capsys.readouterr().out
     _see(monkeypatch, 2)
     got = tm.main(['--MAP', '--steps', '2', '--starts', '2'] + out + TINY)
     assert 'starts sharded over 2 devices' in capsys.readouterr().out
     np.testing.assert_array_equal(got['start_logps'], ref['start_logps'])
     np.testing.assert_array_equal(got['z'], ref['z'])
-    fit = tm.main(['--MAP', '--steps', '1', '--shard-forward'] + out + TINY)
-    assert 'forward pass sharded over 2 devices' in capsys.readouterr().out
-    assert np.isfinite(fit['logp'])
 
 
 def test_cv_cli_mesh(tmp_path, monkeypatch, capsys):

@@ -128,44 +128,6 @@ def test_burn_in_checkpoint_holds_no_samples_yet(tmp_path, capsys):
     assert _meta(db)['n_samples'] == 0
 
 
-@pytest.mark.parametrize('flags,words', [
-    (['--shard-forward'], ('minute-sharded over 8 devices',)),
-    (['--sampler', 'nuts', '--shard-forward', '--max-depth', '2', '--init',
-      'prior'], ('minute-sharded over 8 devices',)),
-    (['--sampler', 'vi', '--shard-forward', '--vi-mc', '1', '--vi-is', '4',
-      '--init', 'prior'], ('minute-sharded over 8 devices',)),
-    (['--sampler', 'pt', '--shard-forward'], ('incompatible',)),
-    (['--sampler', 'smc', '--shard-forward'], ('incompatible',))])
-def test_cli_refuses_what_is_not_ported(flags, words, capsys, tmp_path,
-                                        monkeypatch):
-    # (the name is the test's from before the minute-sharded forward was
-    # ported) with eight visible devices (the CPU named eight times) the
-    # AM, NUTS and VI paths run every forward minute-sharded over them;
-    # the population samplers refuse it as the JAX CLI does
-    from parasitoids_tpu_torch import device
-    from parasitoids_tpu_torch.parallel import domain
-    if 'incompatible' in words:
-        with pytest.raises(SystemExit) as exc:
-            trun.main(CPU + ['--new', '2', '1', 'unused'] + flags + TINY)
-        assert exc.value.code == 2
-        assert 'incompatible' in capsys.readouterr().err
-        return
-    monkeypatch.setattr(device, 'visible_devices',
-                        lambda d=None: [device.pick_device('cpu')] * 8)
-    calls = []
-    real = domain.build_all_kernels_sharded
-    monkeypatch.setattr(domain, 'build_all_kernels_sharded',
-                        lambda mesh, *a, **k: calls.append(mesh.size) or
-                        real(mesh, *a, **k))
-    db = str(tmp_path / 'sharded')
-    trun.main(CPU + ['--new', '2', '1', db] + flags + TINY)
-    out = capsys.readouterr().out
-    assert all(w in out for w in words)
-    assert calls and set(calls) == {8}
-    assert 'chains sharded' not in out
-    assert np.isfinite(_traces(db)).all()
-
-
 @pytest.mark.parametrize('sampler,flags', [
     ('pt', ['--temps', '2', '--swap-every', '1']),
     ('smc', ['--ess-target', '0.01', '--moves', '1', '--min-accepts', '0',
@@ -190,10 +152,14 @@ def test_obs_sweeps_rejects_nonpositive():
 
 
 def test_parser_has_the_jax_modules_options():
-    # --help reads the same: every option of the JAX module, plus --device
-    def options(parser):
-        return {s for a in parser._actions for s in a.option_strings}
+    # --help reads the same: every option of the JAX module, plus --device,
+    # less the one that minute-shards each forward, which the port has not
+    def options(parser, minutes=False):
+        return {s for a in parser._actions for s in a.option_strings
+                if minutes == ('minute-axis' in (a.help or ''))}
 
+    assert len(options(jrun.parser, minutes=True)) == 1
+    assert not options(trun.parser, minutes=True)
     assert options(trun.parser) == options(jrun.parser) | {'--device'}
     assert trun.parser.prog == 'parasitoids_tpu_torch.bayes.run'
 

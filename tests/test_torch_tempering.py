@@ -622,6 +622,31 @@ def test_sharded_entry_points_raise(name, plain):
                 assert torch.equal(acc, wacc) and torch.equal(att, watt)
 
 
+@pytest.mark.parametrize('T', [1, 2])
+def test_sharded_run_is_run_pt_at_short_ladders(T, plain):
+    # the shared round loop at its edges: one rung makes no swap, two make
+    # one pair, which the odd rounds leave unpaired; run_pt_sharded on a
+    # mesh that names the CPU once per rung is run_pt bit for bit
+    from parasitoids_tpu_torch.parallel.chains import chain_mesh
+    betas = tt.geometric_ladder(T, beta_min=0.1)
+    cfg = tt.PTConfig(n_rounds=3, swap_every=2)
+    mesh = chain_mesh(devices=['cpu'] * T)
+    st_a, tr_a, s_a = tt.run_pt(plain, tt.init_pt_states(plain, 5, T), betas,
+                                3, cfg)
+    st_b, tr_b, s_b = tt.run_pt_sharded(
+        plain, tt.init_pt_states(plain, 5, T), betas, 3, cfg, mesh)
+    assert tr_a.shape == (T, 6, tr_a.shape[-1])
+    assert torch.equal(tr_a, tr_b)
+    for k in s_a:
+        assert torch.equal(s_a[k], s_b[k]), k
+    for f in ('m', 'o', 'loglik', 'prior_m', 'm2', 'log_scale'):
+        assert torch.equal(getattr(st_a, f), getattr(st_b, f)), f
+    assert all(torch.equal(a.get_state(), b.get_state())
+               for a, b in zip(st_a.key, st_b.key))
+    np.testing.assert_array_equal(s_a['swap_attempts'].numpy(),
+                                  [2.0] * (T - 1))
+
+
 OV = list(MAP_SMALL)
 
 
