@@ -272,17 +272,20 @@ def backward_bound(h, mu, Dp, cell, K, buf_len, rate):
 
 
 # the lattice probe (ops/day_kernel.lattice_probe): every corner of one
-# minute's lattice through the kernel's exact division against the IEEE
-# division, for each rho (Genz's 6-, 12- and 20-node rules and the series,
-# the node rule of every launch), three diffusions (the Kalbar
+# minute's lattice, for each rho (Genz's 6-, 12- and 20-node rules and the
+# series, the node rule of every launch), three diffusions (the Kalbar
 # default, the prior's narrowest, and one of a few metres whose corners
 # reach hundreds of sigmas, the far tails) and three mean offsets (the
 # centre, a sub-cell offset, 0.9 and -0.6 of the window's reach), at
-# K = 6, 44, 88.  No word may differ.
+# K = 6, 44, 88.  On the series (|rho| >= 0.925) every corner through the
+# kernel's exact division against the IEEE division: no word may differ.
+# On the low branches every corner against its float64 twin within
+# low_corner_gap's bound.
 PROBE_RHOS = (0.0, 0.253, -0.253, 0.5, -0.5, 0.9, -0.9, 0.93, -0.93, -0.99)
 PROBE_SIGMAS = ((171.82, 144.58), (21.1, 10.6), (3.0, 2.0))
 PROBE_KS = (6, 44, 88)
 PROBE_CELL = 25.0
+F32_EPS = 2.0 ** -23                      # an ulp is at most this share
 
 
 def probe_cases(K, dev):
@@ -299,40 +302,129 @@ def probe_cases(K, dev):
     return torch.tensor(rows, **f32), torch.tensor(mus, **f32)
 
 
+def f32_fma(x, y, z):
+    """fma(x, y, z) in f32, elementwise in numpy: x y + z rounded once.
+    The product of two f32 values is exact in f64, its sum with z is
+    carried exactly as s + err (TwoSum), and a sum s that lies on a
+    midpoint of two f32 values rounds by the sign of err."""
+    x, y, z = (np.asarray(v, np.float32).astype(np.float64)
+               for v in (x, y, z))
+    p = x * y
+    s = p + z
+    bz = s - p
+    err = (p - (s - bz)) + (z - bz)
+    r = s.astype(np.float32)
+    lo = np.where(r.astype(np.float64) <= s, r,
+                  np.nextafter(r, np.float32(-np.inf)))
+    hi = np.nextafter(lo, np.float32(np.inf))
+    mid = (s - lo.astype(np.float64)) == (hi.astype(np.float64) - s)
+    return np.where(mid & (err > 0), hi, np.where(mid & (err < 0), lo, r))
+
+
+def corner_hk_hs(h, k):
+    """The kernel's f32 h k and (h^2 + k^2) / 2 at corners (h, k), rounded
+    as csrc/day_kernel.cu's upper_low_run rounds them."""
+    h, k = np.asarray(h, np.float32), np.asarray(k, np.float32)
+    return h * k, f32_fma(h, h, k * k) * np.float32(0.5)
+
+
+def low_corner_gap(lattice, edges, q, G):
+    """(|U - U64|, bound) at every corner of one low-branch minute of the
+    probe: ``lattice`` (m, m) block_build's corners, ``edges`` (4, m) its
+    f32 xe, ye, Phi(-xe), Phi(-ye), ``q`` the minute's packed constants
+    row, G its Genz tier's node count.  U64 is the float64 twin of the
+    plain op's corner (ops/bvn.py _upper_lowcorr) from the kernel's own f32
+    inputs: hk and hs as the kernel rounds them, the packed sn, w,
+    1 - sn^2 and asr / (4 pi), the edges and their Phi.  The bound: each
+    node term w e, e = exp(x), within (|x2| + 6) 2^-23 of itself, x2 = x
+    log2(e) the MUFU's argument (test_torch_lattice_division's CPU bound,
+    |x2| 2^-23 + 4 ulp, plus the 2 ulp of ex2.approx; the whole term where
+    x2 < -125, since ex2.approx.ftz flushes results below 2^-126); the
+    G fused adds, the closing multiply, the product Phi(-h) Phi(-k) and
+    the final add each one f32 rounding of what they round; 2^-20 of the
+    bound and 4 times the least subnormal for what is left."""
+    from parasitoids_tpu_torch.ops.day_kernel import LAYOUT
+    off = {6: 0, 12: 6, 20: 18}[G]
+    f64 = np.float64
+    xe, ye, px, py = np.asarray(edges, np.float32)
+    h, k = xe[None, :], ye[:, None]                  # row r, column c
+    hk, hs = corner_hk_hs(h, k)
+
+    def row(name):
+        return q[LAYOUT[name] + off:LAYOUT[name] + off + G].astype(f64)
+    sn, w, den = row('kLoSn'), row('kLoW'), row('kLoDen')
+    x = (sn * hk.astype(f64)[..., None] - hs.astype(f64)[..., None]) / den
+    x2 = x * np.log2(np.e)
+    terms = w * np.exp(x)
+    per = np.where(x2 < -125.0, 1.0, (np.abs(x2) + 6.0) * F32_EPS)
+    total = terms.sum(-1)
+    asr4pi = abs(f64(q[LAYOUT['kAsr4Pi']]))
+    phi = px.astype(f64)[None, :] * py.astype(f64)[:, None]
+    u64 = phi + f64(q[LAYOUT['kAsr4Pi']]) * total
+    half = F32_EPS / 2
+    tot_gap = (terms * per).sum(-1) + G * half * (terms * (1 + per)).sum(-1)
+    bound = (asr4pi * (tot_gap * (1 + half) + half * total) +
+             half * (phi + np.abs(u64))) * (1 + 2.0 ** -20) + 4 * 2.0 ** -149
+    return np.abs(np.asarray(lattice, np.float32).astype(f64) - u64), bound
+
+
 def check_lattice_probe(dev):
-    """The probe at PROBE_KS; fails on any word that differs from the
-    IEEE division's.  Prints the counts."""
-    from parasitoids_tpu_torch.ops.day_kernel import lattice_probe
+    """The probe at PROBE_KS; fails on any word of the series that differs
+    from the IEEE division's, and on any low-branch corner farther from
+    its float64 twin than low_corner_gap's bound.  Prints the counts and,
+    per Genz tier, the largest gap over its bound."""
+    from parasitoids_tpu_torch.ops.bvn import genz_branch
+    from parasitoids_tpu_torch.ops.day_kernel import (_pack_constants,
+                                                      lattice_probe)
     tot = dict(differ=0, corners=0, ieee=0, bwd_vs_fwd=0)
     want = 0
+    worst = {6: 0.0, 12: 0.0, 20: 0.0}
+    low = 0
     for K in PROBE_KS:
         Dp, mu = probe_cases(K, dev)
-        for k, v in lattice_probe(Dp, mu, PROBE_CELL, K).items():
-            tot[k] += v
+        out = lattice_probe(Dp, mu, PROBE_CELL, K)
+        for k in tot:
+            tot[k] += out[k]
         want += Dp.shape[0] * (2 * K + 2) ** 2
+        q = _pack_constants(Dp, PROBE_CELL, dev).cpu().numpy()
+        lat, edges = out['lattice'].cpu().numpy(), out['edges'].cpu().numpy()
+        for i, rho in enumerate(Dp[:, 2].tolist()):
+            branch = genz_branch(abs(rho))
+            if branch == 3:
+                continue
+            G = (6, 12, 20)[branch]
+            gap, bound = low_corner_gap(lat[i], edges[i], q[i], G)
+            low += int((gap > bound).sum())
+            worst[G] = max(worst[G], float((gap / bound).max()))
     print('  lattice probe (Genz rule, K = {}): {} corners, {} differing '
-          'words, {} corners on the IEEE division (out of the exact '
-          'division\'s range), {} corners where block_bwd\'s value differs '
-          "from block_build's".format(', '.join(map(str, PROBE_KS)),
-                                      tot['corners'], tot['differ'],
-                                      tot['ieee'], tot['bwd_vs_fwd']))
+          'words on the series, {} corners on the IEEE division (out of the '
+          'exact division\'s range), {} corners where block_bwd\'s value '
+          "differs from block_build's; low branches against their float64 "
+          'twin: {} corners past the bound, largest gap / bound by node '
+          'count {}'.format(', '.join(map(str, PROBE_KS)), tot['corners'],
+                            tot['differ'], tot['ieee'], tot['bwd_vs_fwd'],
+                            low, {G: round(v, 4) for G, v in worst.items()}))
     check(tot['corners'] == want and tot['differ'] == 0,
           'lattice probe (Genz rule): the exact division gives the IEEE '
-          "division's bits at all {} corners, forward and backward".format(
-              want))
+          "division's bits at every corner of the series, forward and "
+          'backward ({} corners probed)'.format(want))
+    check(low == 0, 'lattice probe: every low-branch corner within its '
+          'bound of the float64 twin')
     return tot
 
 
 def check_packed_reciprocals(dev):
     """The reciprocal rows packed on the card are the f32 IEEE quotients
-    1 / d of their divisors, bit for bit (numpy on the host)."""
+    1 / d of their divisors, and the exponent scales and asr / (4 pi) the
+    f32 roundings of their f64 quotients, bit for bit (numpy on the
+    host)."""
     from parasitoids_tpu_torch.ops.day_kernel import LAYOUT, _pack_constants
     Dp, _ = probe_cases(44, dev)
     q = _pack_constants(Dp, 25.0, dev).cpu().numpy()
     f = np.float32
     rs = q[:, LAYOUT['kHiRs']:LAYOUT['kHiRs'] + 20]
-    pairs = [('kLoDen', 'kLoInvDen', 38), ('kHiXs', 'kHiInvXs', 20),
-             (None, 'kHiInvEp', 20), ('kHiRs', 'kHiInvRs', 20)]
+    pairs = [('kHiXs', 'kHiInvXs', 20), (None, 'kHiInvEp', 20),
+             ('kHiRs', 'kHiInvRs', 20)]
     bad = 0
     for d_at, r_at, n in pairs:
         d = f(2) * (f(1) + rs) if d_at is None else \
@@ -343,9 +435,16 @@ def check_packed_reciprocals(dev):
                        (LAYOUT['kASq'], LAYOUT['kInvASq'])):
         bad += int(((f(1) / q[:, d_at]).view(np.uint32) !=
                     q[:, r_at].view(np.uint32)).sum())
-    check(bad == 0, 'the reciprocals packed on the card are the f32 IEEE '
-          'quotients of their divisors ({} rows of {} floats)'.format(
-              q.shape[0], q.shape[1]))
+    den = q[:, LAYOUT['kLoDen']:LAYOUT['kLoDen'] + 38].astype(np.float64)
+    scale = q[:, LAYOUT['kLoL2Den']:LAYOUT['kLoL2Den'] + 38]
+    bad += int(((np.log2(np.e) / den).astype(f).view(np.uint32) !=
+                scale.view(np.uint32)).sum())
+    asr = q[:, LAYOUT['kAsr']].astype(np.float64)
+    bad += int(((asr / (4 * np.pi)).astype(f).view(np.uint32) !=
+                q[:, LAYOUT['kAsr4Pi']].view(np.uint32)).sum())
+    check(bad == 0, 'the reciprocals, exponent scales and asr / (4 pi) '
+          'packed on the card are the f32 roundings of their quotients ({} '
+          'rows of {} floats)'.format(q.shape[0], q.shape[1]))
 
 
 def kalbar_params(pop=True):

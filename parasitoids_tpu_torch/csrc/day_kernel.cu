@@ -34,17 +34,24 @@
 //
 // The corner lattice (shared by every launch): on a low branch each thread
 // takes a run of kRun corners of one lattice row and walks the quadrature
-// nodes outermost, so a node's constants (sn, w, 1 - sn^2 and its
-// reciprocal, a float4 of a node table in static shared memory, apart
-// from the lattice) are loaded once a run; each corner still sums its
-// nodes in order.  Every division by a per-node or per-rho constant
-// multiplies by its reciprocal (packed on the host) and corrects once
-// (div_exact): the correctly rounded quotient, the IEEE division's
-// own bits, for one MUFU (the exp) a node instead of two (the exp and the
-// division's reciprocal) and no slow-path check.  A run whose corners
-// leave div_exact's range divides as before.  The Pallas kernel
-// multiplies by 1/(1 - sn^2) without the correction, which would move
-// far-tail cells; here no output bit moves.
+// nodes outermost, so a node's constants (sn, w and the exponent scale
+// log2(e) / (1 - sn^2), a float4 of a node table in static shared memory,
+// apart from the lattice) are loaded once a run; each corner still sums
+// its nodes in order.  A low-branch node term is
+//     w exp((sn hk - hs) / (1 - sn^2)) = w 2^(a L),  a = fma(hk, sn, -hs),
+// three f32 instructions and one MUFU op (ex2.approx.ftz): the numerator
+// rounds once, so it stays accurate where sn hk and hs nearly cancel, the
+// packed scale L folds the division and the base change into one multiply,
+// and ex2 needs no range reduction (the exponent is never positive: hs >=
+// |hk| >= sn hk).  The term is within |a L| 2^-23 + 6 ulp of its exact
+// value (the three roundings, and ex2's 2 ulp; terms below 2^-126 flush
+// to 0, far under the 1e-8 sparsity floor), where libdevice's expf of the
+// quotient cost about 12 issue slots a node.  The closing division by 4 pi
+// multiplies by the packed asr / (4 pi).  On the high branch every
+// division by a per-node or per-rho constant multiplies by its reciprocal
+// (packed on the host) and corrects once (div_exact): the correctly
+// rounded quotient, the IEEE division's own bits, with no slow-path check;
+// a corner that leaves div_exact's range divides as before.
 //
 // Design (three launches, deterministic, no atomics):
 //   1. block_build: one CTA per minute.  The upper-orthant probabilities on
@@ -68,9 +75,9 @@
 // What bounds it: block_build issues (2K+2)^2 * G exps per minute (MUFU
 // throughput; G = 6 at prior-typical rho, 70 M exps a day at K = 44,
 // T = 1440, about 17 us on an H100; about 2 exps per node on the high
-// branch), and about 13 FP32 instructions per node beside each exp (the
-// exp's range reduction, the division's three, the sum's FMA), so the
-// FP32 pipe stands near the MUFU bound.  The gather was latency-bound:
+// branch), and three FP32 instructions per low-branch node beside each
+// exp, so the MUFU, not instruction issue, bounds the node loop.
+// The gather was latency-bound:
 // the wind keeps a day's blocks within about a hundred of the 961 tiles,
 // and the busiest tile meets ~1,000 of the 1,440 minutes.  A
 // tile-stationary gather walks those minutes in one CTA, one dependent
@@ -114,8 +121,8 @@
 //   2. bwd_reduce: one CTA sums the (T, 4) partials in minute order and
 //      applies the VJPs of the sigma and rho clamps.
 // What bounds it: instruction throughput, not memory or occupancy.  A
-// corner costs the forward's rebuild (G exps and G divisions) plus two
-// normcdf and one exp; on an H100 the
+// corner costs the forward's rebuild (G exps) plus two normcdf and one
+// exp; on an H100 the
 // rebuild and the cell rows alone take about 0.14 ms a day at K = 44,
 // T = 1440, the derivatives 0.06 ms more, and 3, 4 or 5 CTAs an SM differ
 // by 3%.  Shared memory is O(ring K), 50 KB at K = 44 with a ring of 64
@@ -123,8 +130,7 @@
 // of 256 threads an SM) nor K: the wrapper halves the ring as K grows,
 // and the backward runs wherever block_build's K^2 lattice fits, and
 // beyond.  The rebuild is the forward's lattice code (runs, node table,
-// div_exact), so what is left is that arithmetic: the exps and their
-// range reduction.
+// the ex2 node terms), so what is left is that arithmetic: the exps.
 //
 // Parameters are packed by parasitoids_tpu_torch/ops/day_kernel.py
 // (_pack_constants) into one float vector; the layout is kConst* below.
@@ -137,30 +143,32 @@
 namespace {
 
 // scalar slots; the backward also reads the raw (unclamped) parameters,
-// 1/s, 1/s^2 and the loss cotangent; kSpare is packed as 0 and read by
-// nothing (it keeps kInvA, kInvASq and the node rows where the packer,
-// ops/day_kernel.py LAYOUT, puts them); kInvA and kInvASq are the high
+// 1/s, 1/s^2 and the loss cotangent; kAsr4Pi is asr / (4 pi), the f32
+// rounding of the f64 quotient of kAsr's f32 value asin(rho) (kAsr is
+// its operand, read by nothing here); kInvA and kInvASq are the high
 // branch's 1/a and 1/a^2
 constexpr int kSigX = 0, kSigY = 1, kCell = 2, kRho = 3, kSgn = 4, kA = 5,
               kASq = 6, kAHalf = 7, kAsr = 8, kRawSigX = 9, kRawSigY = 10,
               kRawRho = 11, kInvS = 12, kInvS2 = 13, kCtLoss = 14,
-              kSpare = 15, kInvA = 16, kInvASq = 17;
+              kAsr4Pi = 15, kInvA = 16, kInvASq = 17;
 constexpr int kScalars = 18;
-// low-|rho| rows (sn, w, 1 - sn^2, 1 / (1 - sn^2)), each holding the 6-,
-// 12- and 20-node rules back to back; then high-|rho| rows (xs, rs, w,
+// low-|rho| rows (sn, w, 1 - sn^2, log2(e) / (1 - sn^2)), each holding the
+// 6-, 12- and 20-node rules back to back; then high-|rho| rows (xs, rs, w,
 // 1 / xs, 1 / (2 (1 + rs)), 1 / rs) of the 20-node rule.  Every
-// reciprocal is the f32 IEEE quotient of its divisor's f32 value
+// reciprocal is the f32 IEEE quotient of its divisor's f32 value, and
+// each exponent scale the f32 rounding of the f64 quotient of 1 - sn^2's
+// f32 value (1 - sn^2 is read by nothing here: it is that row's operand)
 constexpr int kLoNodes = 6 + 12 + 20;
 constexpr int kHiNodes = 20;
 constexpr int kLoSn = kScalars, kLoW = kLoSn + kLoNodes,
-              kLoDen = kLoW + kLoNodes, kLoInvDen = kLoDen + kLoNodes,
-              kHiXs = kLoInvDen + kLoNodes, kHiRs = kHiXs + kHiNodes,
+              kLoDen = kLoW + kLoNodes, kLoL2Den = kLoDen + kLoNodes,
+              kHiXs = kLoL2Den + kLoNodes, kHiRs = kHiXs + kHiNodes,
               kHiW = kHiRs + kHiNodes, kHiInvXs = kHiW + kHiNodes,
               kHiInvEp = kHiInvXs + kHiNodes, kHiInvRs = kHiInvEp + kHiNodes;
 constexpr int kConsts = kHiInvRs + kHiNodes;   // 290 floats
 
 // The node table a CTA keeps in static shared memory, one float4 a node:
-// low rows {sn, w, 1 - sn^2, 1 / (1 - sn^2)} (6-, 12- and 20-node rules at
+// low rows {sn, w, log2(e) / (1 - sn^2), 0} (6-, 12- and 20-node rules at
 // kNodeLo + 0, 6, 18), high rows {xs, 1 / xs, rs, 1 / rs} at kNodeHiA and
 // {w, 2 (1 + rs), 1 / (2 (1 + rs)), 0} at kNodeHiB.  Apart from the
 // lattice, so that no store to the lattice makes the compiler reload them.
@@ -184,7 +192,6 @@ constexpr int kUnroll = 4;                // partials in flight in the reduce
 constexpr int kMaxChunks = 1024;          // chunks per tile the reduce takes
 
 constexpr float kTwoPi = 6.283185307179586f;
-constexpr float kFourPi = 12.566370614359172f;
 constexpr float kSqrt2Pi = 2.5066282746310002f;
 constexpr float kRhoMax = 1.0f - 1e-6f;   // the |rho| clamp of the BVN op
 
@@ -196,8 +203,8 @@ constexpr float kRhoMax = 1.0f - 1e-6f;   // the |rho| clamp of the BVN op
 // quotient keeps its sign.  The argument needs every intermediate in the
 // normal range: it holds for a = +-0 and for 2^-96 <= |a| <= 2^64 when
 // 2^-40 <= d <= 2^26, and every divisor below lies in [2^-36, 4] (the
-// rho clamp keeps a^2 >= 2e-6 and xs >= 2.4e-11).  Callers check |a| (see
-// low_exact and high_exact) and take the IEEE division elsewhere;
+// rho clamp keeps a^2 >= 2e-6 and xs >= 2.4e-11).  The caller checks its
+// operands (high_exact) and takes the IEEE division elsewhere;
 // parasitoids_lattice_probe holds both to the same bits on the card.
 __device__ __forceinline__ float div_exact(float a, float d, float r) {
   const float q0 = __fmul_rn(a, r);
@@ -224,63 +231,61 @@ __device__ __forceinline__ float qdiv(float a, float d, float r) {
   return __fdiv_rn(a, d);
 }
 
+// 2^x on the MUFU, one instruction and no range reduction: within 2 ulp,
+// subnormal arguments read as 0 and results below 2^-126 flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // The G-node sums of a run of R corners of one lattice row on a low
 // branch, nodes outermost: each node's constants are loaded once for the
 // run, and each corner's sum still takes the nodes in order g = 0 ... G-1.
-template <int G, int R, bool kExact>
+// A term is w 2^(a L), a = sn hk - hs rounded once (see the file's head).
+// The node loop unrolls whole up to 60 terms; block_build's 20-node rule
+// (100 terms a run) unrolled whole spilled registers and ran at half the
+// speed of 4 nodes at a time on an H100.
+template <int G, int R>
 __device__ __forceinline__ void low_nodes(float (&total)[R],
                                           const float (&hk)[R],
                                           const float (&hs)[R],
                                           const float4* nodes) {
-#pragma unroll
+#pragma unroll (G * R > 60 ? 4 : G)
   for (int g = 0; g < G; ++g) {
-    const float4 nd = node(nodes + g);  // sn, w, 1 - sn^2, 1 / (1 - sn^2)
+    const float4 nd = node(nodes + g);  // sn, w, log2(e) / (1 - sn^2), 0
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const float a = __fmaf_rn(hk[j], nd.x, -hs[j]);
-      total[j] = __fmaf_rn(nd.y, expf(qdiv<kExact>(a, nd.z, nd.w)),
-                           total[j]);
+      total[j] = __fmaf_rn(nd.y, ex2(__fmul_rn(a, nd.z)), total[j]);
     }
   }
-}
-
-// Whether div_exact is exact for every node of a low-branch corner: the
-// numerator sn hk - hs lies within [0.07, 1.93] hs (|sn| <= 0.925 on
-// either node rule, |hk| <= hs), so hs in [2^-92, 2^63] keeps it within
-// div_exact's range; h = k = 0 gives signed zeros.
-__device__ __forceinline__ bool low_exact(float h, float k, float hs) {
-  return (hs >= 0x1p-92f && hs <= 0x1p63f) || (h == 0.0f && k == 0.0f);
 }
 
 // P(X > h, Y > k) for |rho| < 0.925 at R corners (h[j], k[j]): G-node
 // Gauss-Legendre quadrature of the correlation integral (nodes from
 // `nodes`, the rule's rows of the node table), plus the independence term
 // phi = Phi(-h) Phi(-k) = ph[j] pk[j].  The operations are those of the
-// plain twin (ops/bvn.py _upper_lowcorr), each rounding written out as
-// this kernel has always compiled it, FMAs included; kFusedPhi adds phi
-// by one FMA, as block_bwd has always done, where block_build rounds the
-// product first.  kIeee takes the IEEE division at every node (the
-// probe's reference); otherwise a run whose corners all pass low_exact
-// divides by div_exact, bit for bit the same.
-template <int G, int R, bool kFusedPhi, bool kIeee>
+// plain twin (ops/bvn.py _upper_lowcorr) but for each node's exp, taken
+// as 2^(a L), and the closing division, a multiply by asr4pi = asr /
+// (4 pi); kFusedPhi adds phi by one FMA, as block_bwd has always done,
+// where block_build rounds the product first.
+template <int G, int R, bool kFusedPhi>
 __device__ __forceinline__ void upper_low_run(
     float (&u)[R], const float (&h)[R], const float (&k)[R],
     const float (&ph)[R], const float (&pk)[R], const float4* nodes,
-    float asr) {
+    float asr4pi) {
   float hk[R], hs[R], total[R];
-  bool exact = !kIeee;
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     hk[j] = __fmul_rn(h[j], k[j]);
     hs[j] = __fmul_rn(__fmaf_rn(h[j], h[j], __fmul_rn(k[j], k[j])), 0.5f);
     total[j] = 0.0f;
-    exact = exact && low_exact(h[j], k[j], hs[j]);
   }
-  if (exact) low_nodes<G, R, true>(total, hk, hs, nodes);
-  else low_nodes<G, R, false>(total, hk, hs, nodes);
+  low_nodes<G, R>(total, hk, hs, nodes);
 #pragma unroll
   for (int j = 0; j < R; ++j) {
-    const float t = __fdiv_rn(__fmul_rn(total[j], asr), kFourPi);
+    const float t = __fmul_rn(total[j], asr4pi);
     u[j] = kFusedPhi ? __fmaf_rn(ph[j], pk[j], t)
                      : __fadd_rn(__fmul_rn(ph[j], pk[j]), t);
   }
@@ -363,7 +368,7 @@ __device__ __forceinline__ int rho_branch(const float* q) {
 __device__ __forceinline__ void load_nodes(float4* nodes, const float* q) {
   for (int i = threadIdx.x; i < kLoNodes; i += blockDim.x)
     nodes[kNodeLo + i] = make_float4(q[kLoSn + i], q[kLoW + i],
-                                     q[kLoDen + i], q[kLoInvDen + i]);
+                                     q[kLoL2Den + i], 0.0f);
   for (int i = threadIdx.x; i < kHiNodes; i += blockDim.x) {
     const float rs = q[kHiRs + i];
     nodes[kNodeHiA + i] = make_float4(q[kHiXs + i], q[kHiInvXs + i], rs,
@@ -399,6 +404,8 @@ struct Walk {
 // The values of corners c0 ... c0 + R - 1 of lattice row r (columns past
 // m - 1 repeat column m - 1) by Genz branch BR (see rho_branch):
 // U[r][c] = P(X > xe[c], Y > ye[r]), with px = Phi(-xe), py = Phi(-ye).
+// kIeee takes the IEEE division at every division of the high branch (the
+// probe's reference); the low branches divide nowhere.
 template <int BR, int R, bool kFusedPhi, bool kIeee>
 __device__ __forceinline__ void corner_run(float (&u)[R], int r, int c0,
                                            int m, const float* xe,
@@ -421,8 +428,8 @@ __device__ __forceinline__ void corner_run(float (&u)[R], int r, int c0,
   } else {
     constexpr int G = BR == 0 ? 6 : BR == 1 ? 12 : 20;
     constexpr int o = BR == 0 ? 0 : BR == 1 ? 6 : 18;
-    upper_low_run<G, R, kFusedPhi, kIeee>(u, h, k, ph, pk,
-                                          nodes + kNodeLo + o, q[kAsr]);
+    upper_low_run<G, R, kFusedPhi>(u, h, k, ph, pk, nodes + kNodeLo + o,
+                                   q[kAsr4Pi]);
   }
 }
 
@@ -1013,24 +1020,26 @@ bwd_reduce_kernel(const float* __restrict__ consts,
   }
 }
 
-// A test-only check that div_exact changes no bit (the C export
-// parasitoids_lattice_probe):
-// one minute's corner lattice a CTA, case blockIdx.x with its constants row
-// and mean offset, every corner as block_build and as block_bwd compute it,
-// each against the same corner with the IEEE division at every node.  Adds
-// to counts: [0] the words that differ from their IEEE twins (both modes),
-// [1] the corners compared, [2] the corners that took the IEEE division
-// (a run of the low branch, or a corner of the high one, out of
-// div_exact's range), [3] the corners where block_bwd's value differs from
-// block_build's (the fused independence term).  Not on any path of the
-// port; the wrapper is ops/day_kernel.lattice_probe.
+// A test-only look at the corner lattice (the C export
+// parasitoids_lattice_probe): one minute's corner lattice a CTA, case
+// blockIdx.x with its constants row and mean offset, every corner as
+// block_build and as block_bwd compute it.  On the high branch each is
+// held against the same corner with the IEEE division at every division.
+// Adds to counts: [0] the words that differ from their IEEE twins (both
+// modes, high branch), [1] the corners probed, [2] the high-branch corners
+// that took the IEEE division (out of div_exact's range), [3] the corners
+// where block_bwd's value differs from block_build's (the fused
+// independence term).  Writes block_build's corners to lat (P, m, m) and
+// the minute's edges xe, ye, Phi(-xe), Phi(-ye) to edges (P, 4, m), for
+// the low branches' comparison with a float64 twin on the host.  Not on any
+// path of the port; the wrapper is ops/day_kernel.lattice_probe.
 constexpr int kProbeMaxM = 238;           // 2K + 2 at the forward's K <= 118
 
 template <int BR>
 __device__ __forceinline__ void probe_runs(int m, const float* xe,
                                            const float* ye, const float* px,
                                            const float* py, const float* q,
-                                           const float4* nodes,
+                                           const float4* nodes, float* lat,
                                            unsigned long long (&cnt)[4]) {
   const int nr = (m + kRun - 1) / kRun;
   for (int p = threadIdx.x; p < m * nr; p += blockDim.x) {
@@ -1040,25 +1049,21 @@ __device__ __forceinline__ void probe_runs(int m, const float* xe,
                                        nodes);
     corner_run<BR, kRun, true, false>(bwd, r, c0, m, xe, ye, px, py, q,
                                       nodes);
-    corner_run<BR, kRun, false, true>(ref_f, r, c0, m, xe, ye, px, py, q,
-                                      nodes);
-    corner_run<BR, kRun, true, true>(ref_b, r, c0, m, xe, ye, px, py, q,
-                                     nodes);
-    bool run_exact = true;
-    for (int j = 0; j < kRun; ++j) {
-      const float h = xe[min(c0 + j, m - 1)], k = ye[r];
-      run_exact = run_exact &&
-                  low_exact(h, k, __fmul_rn(__fmaf_rn(h, h, __fmul_rn(k, k)),
-                                            0.5f));
+    if constexpr (BR == 3) {
+      corner_run<BR, kRun, false, true>(ref_f, r, c0, m, xe, ye, px, py, q,
+                                        nodes);
+      corner_run<BR, kRun, true, true>(ref_b, r, c0, m, xe, ye, px, py, q,
+                                       nodes);
     }
     for (int j = 0; j < kRun && c0 + j < m; ++j) {
-      const bool ieee = BR == 3 ? !high_exact(xe[c0 + j], ye[r], q)
-                                : !run_exact;
-      cnt[0] += (__float_as_uint(fwd[j]) != __float_as_uint(ref_f[j])) +
-                (__float_as_uint(bwd[j]) != __float_as_uint(ref_b[j]));
+      if constexpr (BR == 3) {
+        cnt[0] += (__float_as_uint(fwd[j]) != __float_as_uint(ref_f[j])) +
+                  (__float_as_uint(bwd[j]) != __float_as_uint(ref_b[j]));
+        cnt[2] += !high_exact(xe[c0 + j], ye[r], q);
+      }
       cnt[1] += 1;
-      cnt[2] += ieee;
       cnt[3] += __float_as_uint(fwd[j]) != __float_as_uint(bwd[j]);
+      lat[r * m + c0 + j] = fwd[j];
     }
   }
 }
@@ -1066,28 +1071,33 @@ __device__ __forceinline__ void probe_runs(int m, const float* xe,
 __global__ void __launch_bounds__(kBuildThreads)
 lattice_probe_kernel(const float* __restrict__ consts,  // (P, kConsts)
                      const float* __restrict__ mu,      // (P, 2)
-                     int K, unsigned long long* __restrict__ counts) {
+                     int K, unsigned long long* __restrict__ counts,
+                     float* __restrict__ lat,           // (P, m, m)
+                     float* __restrict__ edges) {       // (P, 4, m)
   __shared__ float q[kScalars];
   __shared__ float4 nodes[kNodeRows];
-  __shared__ float edges[4 * kProbeMaxM];
+  __shared__ float edge[4 * kProbeMaxM];
   const int m = 2 * K + 2;
   consts += (size_t)blockIdx.x * kConsts;
   mu += 2 * (size_t)blockIdx.x;
+  lat += (size_t)blockIdx.x * m * m;
+  edges += (size_t)blockIdx.x * 4 * m;
   for (int i = threadIdx.x; i < kScalars; i += blockDim.x) q[i] = consts[i];
   load_nodes(nodes, consts);
   __syncthreads();
-  float* xe = edges;
+  float* xe = edge;
   float* ye = xe + m;
   float* px = ye + m;
   float* py = px + m;
   corner_edges(xe, ye, px, py, q, mu[0], mu[1], K);
   __syncthreads();
+  for (int i = threadIdx.x; i < 4 * m; i += blockDim.x) edges[i] = edge[i];
   unsigned long long cnt[4] = {0, 0, 0, 0};
   switch (rho_branch(q)) {
-    case 0: probe_runs<0>(m, xe, ye, px, py, q, nodes, cnt); break;
-    case 1: probe_runs<1>(m, xe, ye, px, py, q, nodes, cnt); break;
-    case 2: probe_runs<2>(m, xe, ye, px, py, q, nodes, cnt); break;
-    default: probe_runs<3>(m, xe, ye, px, py, q, nodes, cnt); break;
+    case 0: probe_runs<0>(m, xe, ye, px, py, q, nodes, lat, cnt); break;
+    case 1: probe_runs<1>(m, xe, ye, px, py, q, nodes, lat, cnt); break;
+    case 2: probe_runs<2>(m, xe, ye, px, py, q, nodes, lat, cnt); break;
+    default: probe_runs<3>(m, xe, ye, px, py, q, nodes, lat, cnt); break;
   }
   for (int i = 0; i < 4; ++i)
     if (cnt[i]) atomicAdd(counts + i, cnt[i]);
@@ -1280,14 +1290,16 @@ int parasitoids_day_accumulate_bwd_timed(const float* consts, const float* h,
 
 // Test-only: the lattice probe (lattice_probe_kernel) over P cases,
 // consts (P, kConsts) and mu (P, 2) device arrays, adding to the four
-// device counters `counts` on `stream`.  K must be at most 118.
+// device counters `counts` and writing the corners to lat (P, 2K+2,
+// 2K+2) and the edges to edges (P, 4, 2K+2) on `stream`.  K must be at
+// most 118.
 int parasitoids_lattice_probe(const float* consts, const float* mu, int P,
-                              int K, unsigned long long* counts,
-                              void* stream) {
+                              int K, unsigned long long* counts, float* lat,
+                              float* edges, void* stream) {
   if (P < 1 || K < 0 || 2 * K + 2 > kProbeMaxM)
     return (int)cudaErrorInvalidValue;
   lattice_probe_kernel<<<P, kBuildThreads, 0, (cudaStream_t)stream>>>(
-      consts, mu, K, counts);
+      consts, mu, K, counts, lat, edges);
   return (int)cudaGetLastError();
 }
 

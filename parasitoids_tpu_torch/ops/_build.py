@@ -38,7 +38,7 @@ _SIGNATURES = {
                                           [_VP] * 6 + [_VP],
         'parasitoids_day_accumulate_bwd_timed': [_VP] * 6 + [_INT] * 4 +
                                                 [_VP] * 6 + [_INT, _VP, _VP],
-        'parasitoids_lattice_probe': [_VP, _VP, _INT, _INT, _VP, _VP],
+        'parasitoids_lattice_probe': [_VP, _VP, _INT, _INT] + [_VP] * 4,
     },
 }
 

@@ -47,6 +47,7 @@ by construction in ``day_scatter_inputs``), so no block is ever clamped.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from itertools import accumulate
 
@@ -90,11 +91,11 @@ _MAX_CHUNKS = 1024                   # kMaxChunks: a tile's chunks
 _N_SCALARS = 18                      # kScalars
 _LO_NODES, _HI_NODES = 6 + 12 + 20, 20
 _ROWS = (('kLoSn', _LO_NODES), ('kLoW', _LO_NODES), ('kLoDen', _LO_NODES),
-         ('kLoInvDen', _LO_NODES), ('kHiXs', _HI_NODES),
+         ('kLoL2Den', _LO_NODES), ('kHiXs', _HI_NODES),
          ('kHiRs', _HI_NODES), ('kHiW', _HI_NODES), ('kHiInvXs', _HI_NODES),
          ('kHiInvEp', _HI_NODES), ('kHiInvRs', _HI_NODES))
-LAYOUT = dict(kA=5, kASq=6, kCtLoss=14, kInvA=16, kInvASq=17,
-              kScalars=_N_SCALARS,
+LAYOUT = dict(kA=5, kASq=6, kAsr=8, kCtLoss=14, kAsr4Pi=15, kInvA=16,
+              kInvASq=17, kScalars=_N_SCALARS,
               **dict(zip([name for name, _ in _ROWS] + ['kConsts'],
                          accumulate([_N_SCALARS] + [n for _, n in _ROWS]))))
 _SMEM_LIMIT = 232448                 # dynamic shared memory per CTA, H100
@@ -264,15 +265,18 @@ def _pack_constants(Dparams, cell, device, ct_loss=None):
     """Kernel constants (csrc/day_kernel.cu kConst layout, :data:`LAYOUT`),
     computed on the device from the diffusion parameters with the plain
     twin's expressions (ops/bvn.py): the scalars, the ρ-only rows of the 6-,
-    12- and 20-node low-|ρ| rules, and those of the high-|ρ| series, each
-    divisor of the lattice beside its reciprocal (1/(1 − sn²), 1/a, 1/a²,
-    1/xs, 1/(2(1 + rs)), 1/rs, each the f32 IEEE quotient of 1 by the
-    divisor's f32 value: the kernel's division needs exactly that).  Every
+    12- and 20-node low-|ρ| rules, and those of the high-|ρ| series.  The
+    high branch's divisors sit beside their reciprocals (1/a, 1/a², 1/xs,
+    1/(2(1 + rs)), 1/rs, each the f32 IEEE quotient of 1 by the divisor's
+    f32 value: the kernel's division needs exactly that).  The low
+    branches' node terms read the exponent scales log2(e)/(1 − sn²) and
+    the closing factor asr/(4π), each the f32 rounding of the f64 quotient
+    of the f32 operand packed beside it (``kLoDen``, ``kAsr``).  Every
     branch is packed, so no host read of ρ is needed.  The backward also
     reads the raw parameters (for the clamps' VJPs), 1/s and 1/s² with
-    s² = max(1 − ρ², 1e-12), and the loss cotangent ``ct_loss``; the
-    spare slot (``kSpare``) is 0.  A ``(N, 3)`` tensor of diffusion
-    parameters gives ``(N, kConsts)``, one row per particle."""
+    s² = max(1 − ρ², 1e-12), and the loss cotangent ``ct_loss``.  A
+    ``(N, 3)`` tensor of diffusion parameters gives ``(N, kConsts)``, one
+    row per particle."""
     f32 = torch.float32
     raw, sig_x, sig_y, rho = _sanitize(Dparams, f32, device)
     asr = torch.asin(rho)[..., None]             # nodes on the last axis
@@ -293,12 +297,16 @@ def _pack_constants(Dparams, cell, device, ct_loss=None):
     ctl = torch.zeros_like(rho) if ct_loss is None else \
         scalar(ct_loss, f32, device).expand(rho.shape)
     inv = torch.reciprocal
+    asr = asr[..., 0]
     scal = torch.stack([sig_x, sig_y, scalar(cell, f32, device).expand(
-        rho.shape), rho, torch.sign(rho), a, a_sq, a_half, asr[..., 0],
-        raw[0], raw[1], raw[2], 1.0 / torch.sqrt(s2), 1.0 / s2, ctl,
-        torch.zeros_like(ctl), inv(a), inv(a_sq)], dim=-1)
+        rho.shape), rho, torch.sign(rho), a, a_sq, a_half, asr, raw[0],
+        raw[1], raw[2], 1.0 / torch.sqrt(s2), 1.0 / s2, ctl,
+        (asr.double() / (4.0 * math.pi)).to(f32), inv(a), inv(a_sq)],
+        dim=-1)
     assert scal.shape[-1] == _N_SCALARS
-    out = torch.cat([scal, *sn, *w, *den, *map(inv, den), xs, rs,
+    out = torch.cat([scal, *sn, *w, *den,
+                     *((math.log2(math.e) / d.double()).to(f32)
+                       for d in den), xs, rs,
                      wg.expand(xs.shape), inv(xs), inv(2.0 * (1.0 + rs)),
                      inv(rs)], dim=-1).contiguous()
     assert out.shape[-1] == LAYOUT['kConsts']
@@ -465,18 +473,21 @@ def pass_ms(h_scat, cdf_mu, idx, clipped, Dparams, cell, K, buf_len,
 
 
 def lattice_probe(Dparams, mu, cell, K):
-    """The kernel's check that its lattice division changes no bit (a test
-    of the card, on no path of the port): for each of P cases, one
-    minute's corner lattice at half-width ``K`` (at most 118) for the
-    diffusion ``Dparams[i]`` and mean offset ``mu[i]`` (m), every corner
-    as ``block_build`` and as ``block_bwd`` compute it against the same
-    corner with IEEE division at every node.  ``Dparams`` is ``(P, 3)``,
-    ``mu`` ``(P, 2)``, f32 on the card (every launch takes the node rule the
-    probe takes, Genz's tier by |ρ|).  Returns ``dict(differ=, corners=, ieee=,
-    bwd_vs_fwd=)``: the words that differ from their IEEE twins (both modes),
-    the corners compared, the corners whose run took the IEEE division (out of
-    the exact division's range), and the corners where the backward's value
-    differs from the forward's."""
+    """The kernel's corner lattice laid open (a test of the card, on no
+    path of the port): for each of P cases, one minute's corner lattice at
+    half-width ``K`` (at most 118) for the diffusion ``Dparams[i]`` and
+    mean offset ``mu[i]`` (m), every corner as ``block_build`` and as
+    ``block_bwd`` compute it, those of the high-|ρ| branch against the same
+    corner with IEEE division at every division.  ``Dparams`` is ``(P,
+    3)``, ``mu`` ``(P, 2)``, f32 on the card (every launch takes the node
+    rule the probe takes, Genz's tier by |ρ|).  Returns ``dict(differ=,
+    corners=, ieee=, bwd_vs_fwd=, lattice=, edges=)``: the words that differ
+    from their IEEE twins (both modes, high branch), the corners probed,
+    the high-branch corners that took the IEEE division (out of the exact
+    division's range), the corners where the backward's value differs from
+    the forward's, ``block_build``'s corners ``(P, 2K+2, 2K+2)`` (row r,
+    column c: P(X > xe[c], Y > ye[r])) and the edges ``(P, 4, 2K+2)`` (xe,
+    ye, Φ(−xe), Φ(−ye)) they were computed from, on the card."""
     from ._build import load
     dev = mu.device
     if dev.type != 'cuda':
@@ -488,12 +499,16 @@ def lattice_probe(Dparams, mu, cell, K):
     lib = load('day_kernel')
     consts = _pack_constants(Dparams, cell, dev)
     mu = mu.to(torch.float32).contiguous()
+    P, m = mu.shape[0], 2 * K + 2
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    lattice = torch.empty((P, m, m), dtype=torch.float32, device=dev)
+    edges = torch.empty((P, 4, m), dtype=torch.float32, device=dev)
     _cuda_call(lib, 'parasitoids_lattice_probe', 0, K, dev,
-               consts.data_ptr(), mu.data_ptr(), mu.shape[0], K,
-               counts.data_ptr())
-    return dict(zip(('differ', 'corners', 'ieee', 'bwd_vs_fwd'),
-                    (int(v) for v in counts.cpu())))
+               consts.data_ptr(), mu.data_ptr(), P, K, counts.data_ptr(),
+               lattice.data_ptr(), edges.data_ptr())
+    out = dict(zip(('differ', 'corners', 'ieee', 'bwd_vs_fwd'),
+                   (int(v) for v in counts.cpu())))
+    return dict(out, lattice=lattice, edges=edges)
 
 
 def _backward_args(ct_buf, ct_loss, h_scat, cdf_mu, idx, clipped, Dparams,

@@ -126,7 +126,7 @@ def test_kernel_constants_match_jax(rho):
         rtol=1e-6)
     L = day_kernel.LAYOUT
     want = np.concatenate(sn + w + den)
-    np.testing.assert_allclose(packed[L['kLoSn']:L['kLoInvDen']], want,
+    np.testing.assert_allclose(packed[L['kLoSn']:L['kLoL2Den']], want,
                                rtol=1e-5, atol=1e-7)
     want = np.concatenate([np.asarray(hi_quad[0]),
                            1.0 / np.asarray(hi_quad[3]), w_np])

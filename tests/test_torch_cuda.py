@@ -10,7 +10,7 @@ from tests._torch_parity import (HPARAMS, MAP_SMALL,  # noqa: F401
                                  wind)
 
 from chip_smoke import (BWD_ATOL, BWD_RTOL, PROBE_CELL, PROBE_KS,
-                        probe_cases)
+                        low_corner_gap, probe_cases)
 from parasitoids_tpu_torch.ops import daily_kernel as tdk
 from parasitoids_tpu_torch.ops import day_kernel
 
@@ -706,14 +706,49 @@ def test_batched_smc_moves_launch_once_a_day(cuda_device):
 
 @pytest.mark.parametrize('K', PROBE_KS)
 def test_lattice_division_changes_no_bit(cuda_device, K):
-    # the lattice probe: every corner of chip_smoke's probe cases (every
-    # Genz tier and the series, far tails included) through the kernel's
+    # the lattice probe: every corner of chip_smoke's probe cases on the
+    # series (|rho| >= 0.925, far tails included) through the kernel's
     # exact division is bitwise the same corner through the IEEE division,
-    # as block_build and as block_bwd compute it
+    # as block_build and as block_bwd compute it; every case's corners
+    # (every Genz tier) are probed
     Dp, mu = probe_cases(K, cuda_device)
     counts = day_kernel.lattice_probe(Dp, mu, PROBE_CELL, K)
     assert counts['corners'] == Dp.shape[0] * (2 * K + 2) ** 2
     assert counts['differ'] == 0, counts
+
+
+@pytest.mark.parametrize('G', [6, 12, 20])
+@pytest.mark.parametrize('K', PROBE_KS)
+def test_low_branch_corners_hold_the_f64_twin(cuda_device, K, G):
+    # every low-branch corner of chip_smoke's probe cases in the G-node
+    # tier (far tails included), as block_build computes it, against the
+    # float64 twin of the plain op from the kernel's own f32 inputs.  The
+    # bound (chip_smoke.low_corner_gap): each node term within (|x2| + 6)
+    # 2^-23 of itself, x2 the base-2 exponent, which is the CPU bound of
+    # test_torch_lattice_division (|x2| 2^-23 + 4 ulp, the exponent's three
+    # roundings and a correctly rounded exp2) plus the 2 ulp of
+    # ex2.approx; the whole term where it flushes (x2 < -125); then one f32
+    # rounding for each add, the closing multiply and the phi product
+    from parasitoids_tpu_torch.ops.bvn import genz_branch
+    Dp, mu = probe_cases(K, cuda_device)
+    tier = torch.tensor([genz_branch(abs(r)) == (6, 12, 20).index(G)
+                         for r in Dp[:, 2].tolist()], device=cuda_device)
+    Dp, mu = Dp[tier], mu[tier]
+    assert Dp.shape[0] > 0
+    out = day_kernel.lattice_probe(Dp, mu, PROBE_CELL, K)
+    q = day_kernel._pack_constants(Dp, PROBE_CELL, cuda_device).cpu().numpy()
+    lat, edges = out['lattice'].cpu().numpy(), out['edges'].cpu().numpy()
+    worst = [0.0, 0.0]
+    for i in range(Dp.shape[0]):
+        gap, bound = low_corner_gap(lat[i], edges[i], q[i], G)
+        assert (gap <= bound).all(), (i, Dp[i].tolist(), mu[i].tolist(),
+                                      float((gap / bound).max()))
+        seen = np.abs(lat[i]) >= 1e-8          # the sparsity floor
+        worst = [max(worst[0], float((gap / bound).max())),
+                 max(worst[1], float((gap / bound)[seen].max()))]
+    print('K = {}, {} nodes: {} cases, largest gap / bound {:.4g} ({:.4g} '
+          'where the corner reaches 1e-8)'.format(K, G, Dp.shape[0],
+                                                  *worst))
 
 
 # ----------------------------------------------------------------------
