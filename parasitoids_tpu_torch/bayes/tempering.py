@@ -30,6 +30,11 @@ replica's generator are *not* swapped: each temperature keeps adapting to
 its own tempered target, which preserves diminishing adaptation across
 exchanges.  The ladder and evidence functions are host numpy, copies of
 the JAX package's.
+
+Spans (``utils/trace.py``, off by default): ``pt.round`` around one round
+of the loop (its uniforms, the replicas' steps, each an ``am.step``
+request, the swap sweep and the trace bookkeeping) and ``pt.swap`` around
+the sweep.  Neither span reads the device.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from .model import BayesSetup
 from .sampler import MCMCConfig, mcmc_step, stack_states, unstack_states
 
@@ -321,7 +327,8 @@ def _round_prog(setups, cfg: PTConfig, swap, lead):
             tr.append(rows.to(lead))
             ll.append(lls.to(lead))
         if T > 1:
-            out, acc, att = swap(out, betas_t, parity, u)
+            with trace.span('pt.swap'):
+                out, acc, att = swap(out, betas_t, parity, u)
         else:
             acc = att = torch.zeros(0, dtype=torch.float32, device=lead)
         return out, torch.stack(tr), torch.stack(ll), acc, att
@@ -335,7 +342,8 @@ def _run_rounds(round_fn, states, devices, betas, swap_seed, cfg: PTConfig,
     stacked ``states``' replica ``t`` on ``devices[t]``, then
     ``cfg.n_rounds`` calls of the one-round program ``round_fn``
     (:func:`_round_prog`), each with its global round's swap uniforms and
-    parity.  Returns :func:`run_pt`'s results on ``devices[0]``."""
+    parity, inside a ``pt.round`` span.  Returns :func:`run_pt`'s results
+    on ``devices[0]``."""
     from ..parallel.chains import to_device
     betas_np = np.asarray(betas, np.float32)
     T = betas_np.shape[0]
@@ -347,16 +355,17 @@ def _run_rounds(round_fn, states, devices, betas, swap_seed, cfg: PTConfig,
     traces, lls = [], []
     for r in range(cfg.n_rounds):
         rr = int(round_offset) + r
-        u = None
-        if T > 1:
-            u = (swap_u(rr) if swap_u is not None
-                 else swap_uniforms(swap_seed, rr, T - 1, lead)).to(lead)
-        reps, tr, ll, pa, pt_att = round_fn(
-            reps, betas_np, betas_t, rr % 2, u,
-            lambda t: None if draws is None else draws(rr, t))
-        att, acc = att + pt_att, acc + pa
-        traces.append(tr)
-        lls.append(ll)
+        with trace.span('pt.round'):
+            u = None
+            if T > 1:
+                u = (swap_u(rr) if swap_u is not None
+                     else swap_uniforms(swap_seed, rr, T - 1, lead)).to(lead)
+            reps, tr, ll, pa, pt_att = round_fn(
+                reps, betas_np, betas_t, rr % 2, u,
+                lambda t: None if draws is None else draws(rr, t))
+            att, acc = att + pt_att, acc + pa
+            traces.append(tr)
+            lls.append(ll)
     # rounds of (T, swap_every, ...) -> (T, rounds*swap_every, ...)
     dim = states.m.shape[-1] + states.o.shape[-1] + 1
     traces = (torch.cat(traces, dim=1) if traces

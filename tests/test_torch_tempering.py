@@ -15,9 +15,11 @@ tolerances).  Observations with a positive count over an expected count
 that is 0 in f64 at any start or proposal are held out of both
 likelihoods (``support_mask_at``).  The rest runs on the port alone:
 T = 1 is plain AM, chunked runs are bitwise a monolithic one, the command
-line's ``--new``/``--resume``, and one replica per device
+line's ``--new``/``--resume``, one replica per device
 (``run_pt_sharded``, on a mesh that names the CPU once per rung) is
-bitwise ``run_pt`` and, draws replayed, JAX's ``run_pt_sharded``."""
+bitwise ``run_pt`` and, draws replayed, JAX's ``run_pt_sharded``, and
+the round loop's spans (``pt.round``, ``pt.swap``) record each round and
+move no bit."""
 
 import numpy as np
 import pytest
@@ -645,6 +647,74 @@ def test_sharded_run_is_run_pt_at_short_ladders(T, plain):
                for a, b in zip(st_a.key, st_b.key))
     np.testing.assert_array_equal(s_a['swap_attempts'].numpy(),
                                   [2.0] * (T - 1))
+
+
+# ----------------------------------------------------------------------
+# the round loop's spans
+# ----------------------------------------------------------------------
+
+def _pt_once(plain, T, traced, entry='run_pt'):
+    """Two rounds of two steps on ``T`` rungs, tracing on or off: the
+    results and the spans recorded."""
+    from parasitoids_tpu_torch.parallel.chains import chain_mesh
+    from parasitoids_tpu_torch.utils import trace
+    betas = tt.power_ladder(T, 5.0) if T > 1 else np.ones(1, np.float32)
+    cfg = tt.PTConfig(n_rounds=2, swap_every=2)
+    states = tt.init_pt_states(plain, 4, T)
+    trace.disable()
+    trace.clear()
+    if traced:
+        trace.enable()
+    try:
+        if entry == 'run_pt':
+            out = tt.run_pt(plain, states, betas, 6, cfg)
+        else:
+            out = tt.run_pt_sharded(plain, states, betas, 6, cfg,
+                                    chain_mesh(devices=['cpu'] * T))
+    finally:
+        trace.disable()
+    recs = trace.records()
+    trace.clear()
+    return out, recs
+
+
+@pytest.mark.parametrize('T', [1, 3])
+def test_a_round_records_its_steps_and_its_swap(plain, T):
+    _, recs = _pt_once(plain, T, traced=True)
+    ids = {r.id: r for r in recs}
+    rounds = [r for r in recs if r.name == 'pt.round']
+    swaps = [r for r in recs if r.name == 'pt.swap']
+    steps = [r for r in recs if r.name == 'am.step']
+    assert len(rounds) == 2
+    # a plain span: no request of its own, each replica step is one
+    assert all(r.parent is None and r.request is None for r in rounds)
+    for rnd in rounds:
+        mine = [s for s in steps if s.parent == rnd.id]
+        assert len(mine) == T * 2
+        assert len({s.request for s in mine}) == T * 2
+    assert len(steps) == 2 * T * 2
+    assert len(swaps) == (2 if T > 1 else 0)
+    assert all(ids[s.parent].name == 'pt.round' and s.request is None
+               for s in swaps)
+
+
+@pytest.mark.parametrize('entry', ['run_pt', 'run_pt_sharded'])
+def test_tracing_moves_no_bit(plain, entry):
+    (st_a, tr_a, s_a), _ = _pt_once(plain, 3, False, entry)
+    (st_b, tr_b, s_b), recs = _pt_once(plain, 3, True, entry)
+    assert recs
+    assert torch.equal(tr_a, tr_b)
+    for k in s_a:
+        assert torch.equal(s_a[k], s_b[k]), k
+    for f in ('m', 'o', 'loglik', 'prior_m', 'prior_o', 'count', 'm2',
+              'accepts_m', 'accepts_o', 'log_scale'):
+        assert torch.equal(getattr(st_a, f), getattr(st_b, f)), f
+    for a, b in zip(st_a.proj, st_b.proj):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+    assert all(torch.equal(a.get_state(), b.get_state())
+               for a, b in zip(st_a.key, st_b.key))
 
 
 OV = list(MAP_SMALL)
