@@ -5,10 +5,14 @@ Fields stay dense on the device, transforms are real FFTs
 (``torch.fft.rfft2``/``irfft2``, cuFFT on CUDA) on a static pad
 P ≥ D + rad_res, which is alias-free for every single-kernel convolution
 of a domain-limited signal, and the absorbing boundary truncates the field
-to the domain every day.  The population model carries each release
-cohort as its own field and advances all cohorts with one batched FFT per
-day; a leading particle axis on its kernels advances a whole population
-in the same transforms.  :func:`propagate_prob_logdepth` is the JAX
+to the domain every day.  The population model carries one field, the
+released cohorts summed with their shares of the wasps: pad, product with
+the day's spectrum, inverse and crop are all linear, so the sum advances
+as its cohorts would, one forward and one inverse transform a day however
+many days the release lasts.  The sum is still a domain-limited field
+convolved with one kernel a day, so its pad stays alias-free.  A leading
+particle axis on the kernels advances a whole population in the same
+batched transforms.  :func:`propagate_prob_logdepth` is the JAX
 module's log-depth variant (prefix products of the day spectra), pure or
 with the absorbing boundary every ``segment`` days.  See the JAX module
 for the derivations.
@@ -16,6 +20,7 @@ for the derivations.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -26,7 +31,13 @@ from ..utils import trace
 
 __all__ = ['SolverConfig', 'signal_fft', 'filter_fft', 'fft_conv_once',
            'propagate_prob', 'propagate_prob_logdepth', 'propagate_pop',
-           'next_fast_len']
+           'next_fast_len', 'TRANSFORMS']
+
+# 2-D transforms run by ``propagate_pop`` so far, one for each
+# population's filter, forward and inverse transform of a day: 3·(ndays − 1)
+# a population and call.  Counted where the Python body runs (eager calls
+# and graph captures), not in a replay
+TRANSFORMS = 0
 
 
 def next_fast_len(n: int) -> int:
@@ -188,6 +199,15 @@ def propagate_pop(kernels, r_dur: int, r_number, dist_weights,
     ``r_number · Σ_d dist(d+1) · cohort_d(n)``, with not-yet-released mass
     held at the origin.
 
+    That sum is carried as one field: each release day adds its share of
+    the wasps, ``r_number · dist(d+1) · kernels[d]``, and the field then
+    advances with one kernel a day, cropped to the domain.  Each step is
+    linear, so this is the cohorts' sum in exact arithmetic, and the field
+    stays domain-limited before each single-kernel convolution: the regime
+    for which ``SolverConfig.for_domain``'s pad is alias-free.  With one
+    release day the cohort is carried unweighted and weighed at the
+    output.
+
     Args:
         kernels: (ndays, D, D) daily pmfs; 0..r_dur-1 are release days.  A
             leading particle axis, (N, ndays, D, D), propagates N
@@ -204,19 +224,14 @@ def propagate_pop(kernels, r_dur: int, r_number, dist_weights,
 
 def _propagate_pop(kernels, r_dur, r_number, dist_weights, config):
     """The body of :func:`propagate_pop`."""
+    global TRANSFORMS
     D, P = config.dom_len, config.fft_len
     ndays = kernels.shape[-3]
-    lead = kernels.shape[:-3]
     c = D // 2
-    dtype, dev = kernels.dtype, kernels.device
+    dev = kernels.device
 
     def thresh(x):
         return r_small_vals_dense(x, prob_model=False)
-
-    def weigh(w, cohorts):
-        if lead:
-            return torch.einsum('r,...rij->...ij', w, cohorts)
-        return torch.tensordot(w, cohorts, dims=1)
 
     out = torch.empty_like(kernels)
     day0 = thresh(kernels[..., 0, :, :]) * (r_number * dist_weights[0])
@@ -225,22 +240,28 @@ def _propagate_pop(kernels, r_dur, r_number, dist_weights, config):
     if ndays == 1:
         return out
 
-    # cohort state (..., r_dur, D, D); cohort d activates on day d
-    cohorts = torch.zeros(lead + (r_dur, D, D), dtype=dtype, device=dev)
-    cohorts[..., 0, :, :] = kernels[..., 0, :, :]
-    d_idx = torch.arange(r_dur, device=dev)
+    # unreleased mass waits at the origin (ref :236-237,273-274,305-306)
+    released = torch.arange(r_dur, device=dev) <= torch.arange(
+        ndays, device=dev)[:, None]
+    held = r_number * (1.0 - (dist_weights *
+                              released.to(kernels.dtype)).sum(-1))
+    # the field keeps a release axis of one, as the cohort state had: on
+    # the card cuFFT's inverse rounds a batch of one otherwise than an
+    # unbatched transform, and one release day keeps the cohort loop's bits
+    if r_dur == 1:
+        field = kernels[..., :1, :, :]
+    else:
+        share = r_number * dist_weights           # wasps of each release
+        field = share[0] * kernels[..., :1, :, :]
     k_hat = filter_fft(kernels[..., 1:, :, :], P)
     for day in range(1, ndays):
-        # all cohorts advance with today's kernel (one batched FFT); those
-        # not yet released stay zero
-        moved = _irfft(signal_fft(cohorts, P) *
-                       k_hat[..., day - 1, None, :, :], P)[..., :D, :D]
-        # a release day seeds its own cohort with today's spread
-        cohorts = torch.where((d_idx == day)[:, None, None],
-                              kernels[..., day, None, :, :], moved)
-        w = dist_weights * (d_idx <= day).to(dtype)
-        pop = thresh(weigh(w, cohorts) * r_number)
-        # unreleased mass waits at the origin (ref :236-237,273-274,305-306)
-        pop[..., c, c] += r_number * (1.0 - w.sum())
+        field = _irfft(signal_fft(field, P) * k_hat[..., day - 1:day, :, :],
+                       P)[..., :D, :D]
+        if day < r_dur:
+            field = field + share[day] * kernels[..., day:day + 1, :, :]
+        pop = thresh(field[..., 0, :, :] if r_dur > 1 else
+                     dist_weights[0] * field[..., 0, :, :] * r_number)
+        pop[..., c, c] += held[day]
         out[..., day, :, :] = pop
+    TRANSFORMS += 3 * (ndays - 1) * math.prod(kernels.shape[:-3])
     return out

@@ -130,3 +130,47 @@ def port_chain_state(arrays, setup, gen=None):
     with torch.no_grad():
         proj = setup.forward_projections(_as_model(kw['m']))
     return ChainState(proj=proj, key=gen, **kw)
+
+
+def cohort_loop(kernels, r_dur, r_number, dist_weights, config):
+    """The cohort-state propagation that ``models/solver.propagate_pop``
+    replaced, kept as the tests' oracle: an ``(..., r_dur, D, D)`` state,
+    every cohort transformed forward and back every day, weighed and
+    thresholded at the output."""
+    from parasitoids_tpu_torch.models.solver import (_irfft, filter_fft,
+                                                     signal_fft)
+    from parasitoids_tpu_torch.ops.daily_kernel import r_small_vals_dense
+    D, P = config.dom_len, config.fft_len
+    ndays = kernels.shape[-3]
+    lead = kernels.shape[:-3]
+    c = D // 2
+    dtype, dev = kernels.dtype, kernels.device
+
+    def thresh(x):
+        return r_small_vals_dense(x, prob_model=False)
+
+    def weigh(w, cohorts):
+        if lead:
+            return torch.einsum('r,...rij->...ij', w, cohorts)
+        return torch.tensordot(w, cohorts, dims=1)
+
+    out = torch.empty_like(kernels)
+    day0 = thresh(kernels[..., 0, :, :]) * (r_number * dist_weights[0])
+    day0[..., c, c] += r_number * (1.0 - dist_weights[0])
+    out[..., 0, :, :] = day0
+    if ndays == 1:
+        return out
+    cohorts = torch.zeros(lead + (r_dur, D, D), dtype=dtype, device=dev)
+    cohorts[..., 0, :, :] = kernels[..., 0, :, :]
+    d_idx = torch.arange(r_dur, device=dev)
+    k_hat = filter_fft(kernels[..., 1:, :, :], P)
+    for day in range(1, ndays):
+        moved = _irfft(signal_fft(cohorts, P) *
+                       k_hat[..., day - 1, None, :, :], P)[..., :D, :D]
+        cohorts = torch.where((d_idx == day)[:, None, None],
+                              kernels[..., day, None, :, :], moved)
+        w = dist_weights * (d_idx <= day).to(dtype)
+        pop = thresh(weigh(w, cohorts) * r_number)
+        pop[..., c, c] += r_number * (1.0 - w.sum())
+        out[..., day, :, :] = pop
+    return out

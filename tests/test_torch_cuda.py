@@ -1019,6 +1019,30 @@ def test_members_of_one_key_capture_once(cuda_device):
     assert capture_s > 0 and pool_bytes > 0
 
 
+@pytest.mark.parametrize('lead', [(), (4,)])
+def test_propagate_pop_one_release_day_is_the_cohort_loop_on_the_card(
+        cuda_device, lead):
+    # at 801² with the solver's pad, one release day gives the cohort
+    # loop's bits on the card (cuFFT's plans included), and five release
+    # days its populations within the CPU parity tolerance
+    from parasitoids_tpu_torch.models import solver
+    from tests._torch_parity import cohort_loop
+    rng = np.random.default_rng(21)
+    k = np.zeros(lead + (18, 801, 801), np.float32)
+    k[..., 380:421, 370:431] = rng.uniform(0, 1, lead + (18, 41, 61))
+    k = torch.from_numpy(k / k.sum(axis=(-2, -1), keepdims=True)).to(
+        cuda_device)
+    cfg = solver.SolverConfig.for_domain(400)
+    one = torch.ones(1, device=cuda_device)
+    w5 = torch.full((5,), 0.2, device=cuda_device)
+    with torch.no_grad():
+        assert torch.equal(solver.propagate_pop(k, 1, 130000.0, one, cfg),
+                           cohort_loop(k, 1, 130000.0, one, cfg))
+        got = solver.propagate_pop(k, 5, 40000.0, w5, cfg)
+        want = cohort_loop(k, 5, 40000.0, w5, cfg)
+    assert (got - want).abs().max().item() <= 40000.0 * 2e-6
+
+
 # ----------------------------------------------------------------------
 # the AM observation sweep replayed as a CUDA graph
 # (bayes/sampler._obs_sweep_graphed), at the small configuration: each

@@ -4,8 +4,9 @@ the same daily kernels."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
+import torch
 
-from tests._torch_parity import t32
+from tests._torch_parity import cohort_loop, t32
 
 from parasitoids_tpu.models import solver as js
 from parasitoids_tpu_torch.models import solver as ts
@@ -65,3 +66,82 @@ def test_propagate_pop_matches_jax(r_dur):
     # release ramps up
     np.testing.assert_allclose(got[:r_dur].sum(axis=(1, 2)), r_number,
                                rtol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# propagate_pop's one weighted field against the cohort loop it replaced:
+# every release cohort its own field, all advanced every day
+# ----------------------------------------------------------------------
+
+def _pop_case(r_dur, lead=(), dtype=torch.float32, seed=0):
+    """Kernels (lead + (9, 41, 41)) drifting off the centre, weights
+    normalised over ``r_dur`` release days, the solver's pad."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(lead, dtype=np.int64))
+    k = np.stack([_kernels(9, 41, 11, seed + 10 * i) for i in range(n)])
+    k = np.roll(k, (3, -2), axis=(-2, -1)).reshape(lead + k.shape[1:])
+    w = rng.uniform(0.5, 1.5, r_dur)
+    w /= w.sum()
+    return (torch.tensor(k, dtype=dtype), torch.tensor(w, dtype=dtype),
+            ts.SolverConfig.for_domain(20))
+
+
+@pytest.mark.parametrize('lead', [(), (3,)])
+def test_propagate_pop_one_release_day_is_thecohort_loop(lead):
+    # one release day: the cohort is carried unweighted and weighed at the
+    # output, so every bit is the cohort loop's, per particle too
+    k, w, cfg = _pop_case(1, lead, seed=11)
+    got = ts.propagate_pop(k, 1, 130000.0, w, cfg)
+    assert torch.equal(got, cohort_loop(k, 1, 130000.0, w, cfg))
+
+
+@pytest.mark.parametrize('r_dur', [2, 5])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_propagate_pop_weighted_field_matches_thecohort_loop(r_dur, dtype):
+    # several release days: the weighted field is the cohorts' sum in exact
+    # arithmetic; f32 held at the JAX parity tolerance (atol r_number·2e-6),
+    # f64 to 1e-10 of the peak
+    r_number = 40000.0
+    k, w, cfg = _pop_case(r_dur, dtype=dtype, seed=20 + r_dur)
+    got = ts.propagate_pop(k, r_dur, r_number, w, cfg)
+    want = cohort_loop(k, r_dur, r_number, w, cfg)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   atol=r_number * 2e-6)
+    else:
+        gap = (got - want).abs().max().item()
+        assert gap <= 1e-10 * want.abs().max().item(), gap
+    assert float(want[..., 1:, :, :].sum()) > 0
+
+
+def test_propagate_pop_gradient_matches_thecohort_loop():
+    # f64, five release days: the gradient with respect to the kernels and
+    # the emergence weights is the cohort loop's to 1e-9 of its largest
+    # entry
+    k, w, cfg = _pop_case(5, dtype=torch.float64, seed=31)
+    probe = torch.tensor(np.random.default_rng(32).uniform(
+        -1, 1, k.shape))
+
+    def grads(propagate):
+        kk, ww = k.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = (propagate(kk, 5, 40000.0, ww, cfg) * probe).sum()
+        return torch.autograd.grad(loss, (kk, ww))
+
+    for got, want in zip(grads(ts.propagate_pop), grads(cohort_loop)):
+        gap = (got - want).abs().max().item()
+        assert gap <= 1e-9 * want.abs().max().item(), gap
+
+
+@pytest.mark.parametrize('r_dur', [1, 5])
+@pytest.mark.parametrize('lead', [(), (2,)])
+def test_transforms_counts_three_a_day_a_population(r_dur, lead):
+    # one filter, one forward and one inverse transform a day and
+    # population, whatever r_dur (the cohort loop ran 1 + 2·r_dur)
+    k, w, cfg = _pop_case(r_dur, lead, seed=41)
+    before = ts.TRANSFORMS
+    ts.propagate_pop(k, r_dur, 40000.0, w, cfg)
+    assert ts.TRANSFORMS - before == 3 * (k.shape[-3] - 1) * (
+        lead[0] if lead else 1)
+    before = ts.TRANSFORMS
+    ts.propagate_pop(k[..., :1, :, :], r_dur, 40000.0, w, cfg)
+    assert ts.TRANSFORMS == before
