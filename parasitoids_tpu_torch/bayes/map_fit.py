@@ -15,6 +15,15 @@ and with ``--norm`` the Laplace (normal) approximation around the mode
 (ref ``pm.NormApprox``, Bayes_MAP.py:521-569): the covariance is the
 inverse Hessian of the negative log posterior in the unconstrained space.
 
+The optimizers advance one iteration a call, so that a caller can time
+one: :func:`adam_step` (from :func:`adam_start`) and
+:meth:`LBFGSPolish.step`, which :func:`map_fit`, :func:`map_fit_multistart`
+and :func:`lbfgs_polish` loop over.  Spans (``utils/trace.py``, off by
+default): ``map.step`` (a request) around each Adam step or L-BFGS
+iteration, line search included, and ``map.eval`` around each value and
+backward of the objective inside it.  Counters: :data:`EVALS`,
+:data:`ADAM_STEPS`, :data:`LBFGS_ITERS`.
+
 The Hessian never goes through the CUDA day kernels, whose backward is
 first order (in JAX too the Pallas ``custom_vjp`` admits no forward mode).
 It is taken on the plain twin of the setup (:func:`plain_twin`), reverse
@@ -34,17 +43,26 @@ import numpy as np
 import torch
 
 from ..device import scalar
+from ..utils import trace
 from .model import _N_MODEL, BayesSetup, _as_model, _as_obs
 from .priors import (MODEL_PARAM_NAMES, OBS_PARAM_NAMES,
                      initial_model_params, initial_obs_params,
                      obs_extra_names)
 from .transforms import MODEL_TRANSFORMS, Unit, obs_transforms
 
-__all__ = ['blend_prior_metric', 'default_use_sprd', 'hessian_columns',
-           'initial_z', 'laplace_approximation', 'laplace_warm_mass',
-           'lbfgs_polish', 'main', 'map_cli_params', 'map_fit',
-           'map_fit_multistart', 'map_report', 'plain_twin', 'prior_var_z',
-           'regularize_cov_z']
+__all__ = ['ADAM_STEPS', 'EVALS', 'LBFGSPolish', 'LBFGS_ITERS', 'adam_start',
+           'adam_step', 'blend_prior_metric', 'default_use_sprd',
+           'hessian_columns', 'initial_z', 'laplace_approximation',
+           'laplace_warm_mass', 'lbfgs_polish', 'main', 'map_cli_params',
+           'map_fit', 'map_fit_multistart', 'map_report', 'plain_twin',
+           'prior_var_z', 'regularize_cov_z', 'start_points']
+
+# value+gradient evaluations of the objective by the optimizers (an L-BFGS
+# line search's trials included), Adam steps and L-BFGS iterations run; a
+# run reads them beside ``ops.day_kernel.LAUNCHES``
+EVALS = 0
+ADAM_STEPS = 0
+LBFGS_ITERS = 0
 
 _N_PERIODS_FIXED = 30.0
 _N_PERIODS_SLOT = MODEL_PARAM_NAMES.index('n_periods')
@@ -141,25 +159,112 @@ def initial_z(setup: BayesSetup, use_sprd, m0=None, o0=None, sprd0=0.3):
     return unconstrain(f32(m0), f32(o0), f32(sprd0))
 
 
-def _adam(neg_logpost, z0, n_steps, learning_rate):
-    """``n_steps`` of ``torch.optim.Adam`` (the update of optax's ``adam``
-    up to rounding) from ``z0``; non-finite gradient components are zeroed
-    before each update, as in the JAX fit.  Returns ``(z, losses)``, the
-    losses a tensor of each step's value before its update."""
-    z = z0.detach().clone().requires_grad_()
-    opt = torch.optim.Adam([z], lr=learning_rate)
-    losses = []
-    for _ in range(n_steps):
-        opt.zero_grad(set_to_none=True)
+def _value_and_backward(neg_logpost, z):
+    """The objective at the leaf ``z``, its gradient left in ``z.grad``
+    (the span ``map.eval``, counted in :data:`EVALS`)."""
+    global EVALS
+    with trace.span('map.eval'):
         loss = neg_logpost(z)
         loss.backward()
-        with torch.no_grad():
-            z.grad = torch.where(torch.isfinite(z.grad), z.grad,
-                                 torch.zeros_like(z.grad))
+    EVALS += 1
+    return loss
+
+
+def _zero_non_finite(z):
+    """Non-finite gradient components zeroed, as in the JAX fit."""
+    with torch.no_grad():
+        z.grad = torch.where(torch.isfinite(z.grad), z.grad,
+                             torch.zeros_like(z.grad))
+
+
+def adam_start(z0, learning_rate):
+    """The leaf ``z`` (a copy of ``z0``) and the ``torch.optim.Adam`` of a
+    fit that :func:`adam_step` advances."""
+    z = z0.detach().clone().requires_grad_()
+    return z, torch.optim.Adam([z], lr=learning_rate)
+
+
+def adam_step(neg_logpost, z, opt):
+    """One step of an Adam fit (:func:`adam_start`; the update of optax's
+    ``adam`` up to rounding): the value and gradient at ``z``, non-finite
+    gradient components zeroed, the update.  Returns the value before the
+    update.  The span ``map.step`` (a request) holds it."""
+    global ADAM_STEPS
+    with trace.span('map.step', request=True):
+        opt.zero_grad(set_to_none=True)
+        loss = _value_and_backward(neg_logpost, z)
+        _zero_non_finite(z)
         opt.step()
-        losses.append(loss.detach())
+    ADAM_STEPS += 1
+    return loss.detach()
+
+
+def _adam(neg_logpost, z0, n_steps, learning_rate):
+    """``n_steps`` of :func:`adam_step` from ``z0``.  Returns ``(z,
+    losses)``, the losses a tensor of each step's value before its
+    update."""
+    z, opt = adam_start(z0, learning_rate)
+    losses = [adam_step(neg_logpost, z, opt) for _ in range(n_steps)]
     return z.detach(), (torch.stack(losses) if losses
                         else torch.zeros(0, dtype=z.dtype, device=z.device))
+
+
+class LBFGSPolish:
+    """An L-BFGS polish from ``z0`` (a tensor on the setup's device), one
+    iteration a :meth:`step`: ``torch.optim.LBFGS`` with its strong-Wolfe
+    line search (the JAX fit takes optax's L-BFGS with a zoom line search;
+    the trajectories differ, the optima agree), each evaluation's
+    non-finite gradient components zeroed.  An iteration whose line search
+    leaves the finite values is undone and ends the polish (``done``); one
+    that finds no step empties the memory and restarts from steepest
+    descent, and the polish ends when that finds none either."""
+
+    def __init__(self, neg_logpost, z0):
+        self.z = z = z0.detach().clone().requires_grad_()
+        # one iteration a call, memory 10 and up to 15 line-search
+        # evaluations as optax's defaults (max_eval bounds the line search:
+        # its own default for one iteration would leave it a single trial);
+        # no tolerance stops an iteration early
+        self.opt = opt = torch.optim.LBFGS(
+            [z], lr=1.0, max_iter=1, max_eval=16, history_size=10,
+            tolerance_grad=0.0, tolerance_change=0.0,
+            line_search_fn='strong_wolfe')
+        self.fresh = True
+        self.done = False
+
+        def closure():
+            opt.zero_grad(set_to_none=True)
+            loss = _value_and_backward(neg_logpost, z)
+            _zero_non_finite(z)
+            return loss
+        self.closure = closure
+
+    def step(self):
+        """One iteration, its line search and the undo and restart rules
+        included, in the span ``map.step`` (a request).  Returns its
+        starting value as a host number."""
+        global LBFGS_ITERS
+        z = self.z
+        with trace.span('map.step', request=True):
+            before = z.detach().clone()
+            loss = float(self.opt.step(self.closure).detach())
+            if not bool(torch.isfinite(z).all()):
+                with torch.no_grad():
+                    z.copy_(before)
+                self.done = True
+            elif torch.equal(z.detach(), before):
+                # the line search found no step: restart from steepest
+                # descent with an empty memory, and stop if that finds none
+                # either
+                if self.fresh:
+                    self.done = True
+                else:
+                    self.opt.state.clear()
+                    self.fresh = True
+            else:
+                self.fresh = False
+        LBFGS_ITERS += 1
+        return loss
 
 
 def _fit_dict(setup, use_sprd, z, losses, **extra):
@@ -198,60 +303,41 @@ def map_fit(setup: BayesSetup, n_steps=300, learning_rate=0.02,
 
 
 def lbfgs_polish(setup: BayesSetup, z, n_steps=30, use_sprd=None):
-    """Quasi-Newton refinement of a MAP point: ``n_steps`` iterations of
-    ``torch.optim.LBFGS`` with its strong-Wolfe line search (the JAX fit
-    takes optax's L-BFGS with a zoom line search; the trajectories differ,
-    the optima agree) from an Adam solution ``z``, with the JAX fit's guard
-    zeroing non-finite gradient components.  An iteration whose line search
-    leaves the finite values is undone and ends the polish; one that finds
-    no step empties the memory and restarts from steepest descent, and the
-    polish ends when that finds none either.  Returns a
-    ``map_fit``-shaped dict whose losses are each iteration's starting
-    value."""
+    """Quasi-Newton refinement of a MAP point: at most ``n_steps``
+    iterations of :class:`LBFGSPolish` from an Adam solution ``z``.
+    Returns a ``map_fit``-shaped dict whose losses are each iteration's
+    starting value."""
     if use_sprd is None:
         use_sprd = default_use_sprd(setup.params)
     neg_logpost, _, _ = _make_objective(setup, use_sprd)
     dev = setup.setup.wind_flat.device
-    z = torch.tensor(np.asarray(z, np.float32), device=dev,
-                     requires_grad=True)
-    # one iteration a call, memory 10 and up to 15 line-search evaluations
-    # as optax's defaults (max_eval bounds the line search: its own default
-    # for one iteration would leave it a single trial); no tolerance stops
-    # an iteration early
-    opt = torch.optim.LBFGS([z], lr=1.0, max_iter=1, max_eval=16,
-                            history_size=10, tolerance_grad=0.0,
-                            tolerance_change=0.0,
-                            line_search_fn='strong_wolfe')
-
-    def closure():
-        opt.zero_grad(set_to_none=True)
-        loss = neg_logpost(z)
-        loss.backward()
-        with torch.no_grad():
-            z.grad = torch.where(torch.isfinite(z.grad), z.grad,
-                                 torch.zeros_like(z.grad))
-        return loss
-
+    polish = LBFGSPolish(neg_logpost, torch.tensor(
+        np.asarray(z, np.float32), device=dev))
     losses = []
-    fresh = True
     for _ in range(n_steps):
-        before = z.detach().clone()
-        loss = opt.step(closure)
-        losses.append(float(loss.detach()))
-        if not bool(torch.isfinite(z).all()):
-            with torch.no_grad():
-                z.copy_(before)
+        losses.append(polish.step())
+        if polish.done:
             break
-        if torch.equal(z.detach(), before):
-            # the line search found no step: restart from steepest descent
-            # with an empty memory, and stop if that finds none either
-            if fresh:
-                break
-            opt.state.clear()
-            fresh = True
-        else:
-            fresh = False
-    return _fit_dict(setup, use_sprd, z.detach(), losses)
+    return _fit_dict(setup, use_sprd, polish.z.detach(), losses)
+
+
+def start_points(setup: BayesSetup, use_sprd, gen, n):
+    """``n`` unconstrained starting points by :func:`map_fit_multistart`'s
+    rule, on the setup's device: the reference's initial values, then
+    ``n - 1`` drawn from the CPU generator ``gen`` (the model and
+    observation blocks from the joint prior, ``sprd_factor`` from U(0.02,
+    0.98))."""
+    from .priors import sample_prior_model, sample_prior_obs
+    _, _, unconstrain = _make_objective(setup, use_sprd)
+    dev = setup.setup.wind_flat.device
+    k = n - 1
+    ms = sample_prior_model(gen, k)
+    os_ = sample_prior_obs(gen, setup.field_areas.cpu().numpy(),
+                           setup.min_field_area, setup.obs_model, k)
+    sprds = 0.02 + 0.96 * torch.rand(k, generator=gen)
+    return [initial_z(setup, use_sprd)] + [
+        unconstrain(ms[i].to(dev), os_[i].to(dev), sprds[i].to(dev))
+        for i in range(k)]
 
 
 def map_fit_multistart(setup: BayesSetup, n_starts=8, seed=0, n_steps=300,
@@ -269,20 +355,12 @@ def map_fit_multistart(setup: BayesSetup, n_starts=8, seed=0, n_steps=300,
     ``'start_logps'`` (each start's log posterior at its last step) and
     ``'best_start'``."""
     from ..parallel.chains import member_devices
-    from .priors import sample_prior_model, sample_prior_obs
     if use_sprd is None:
         use_sprd = default_use_sprd(setup.params)
-    neg_logpost, _, unconstrain = _make_objective(setup, use_sprd)
+    neg_logpost, _, _ = _make_objective(setup, use_sprd)
     dev = setup.setup.wind_flat.device
-    gen = torch.Generator().manual_seed(int(seed))
-    k = n_starts - 1
-    ms = sample_prior_model(gen, k)
-    os_ = sample_prior_obs(gen, setup.field_areas.cpu().numpy(),
-                           setup.min_field_area, setup.obs_model, k)
-    sprds = 0.02 + 0.96 * torch.rand(k, generator=gen)
-    z0s = [initial_z(setup, use_sprd)] + [
-        unconstrain(ms[i].to(dev), os_[i].to(dev), sprds[i].to(dev))
-        for i in range(k)]
+    z0s = start_points(setup, use_sprd,
+                       torch.Generator().manual_seed(int(seed)), n_starts)
     if mesh is not None:
         z0s = [z.to(d) for z, d in zip(z0s, member_devices(n_starts, mesh))]
     zs, lasts = [], []
@@ -673,6 +751,7 @@ def main(argv=None, device=None):
         dev, 'CUDA day kernel' if setup.setup.kcfg.pallas
         else 'plain torch'))
     devices = _device.visible_devices(device)
+    evals = EVALS
     tic = time.time()
     if args.starts > 1:
         mesh = None
@@ -689,8 +768,10 @@ def main(argv=None, device=None):
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
     dt = time.time() - tic
-    print('optimization: {:.1f} s for {} steps ({:.2f} sec./model eval incl. '
-          'gradient)'.format(dt, args.steps, dt / max(args.steps, 1)))
+    evals = EVALS - evals
+    print('optimization: {:.1f} s for {} steps of {} start(s) ({:.2f} '
+          'sec./model eval incl. gradient)'.format(
+              dt, args.steps, args.starts, dt / max(evals, 1)))
     if args.polish:
         pre = fit['logp']
         tic = time.time()

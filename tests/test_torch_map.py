@@ -545,3 +545,189 @@ def test_nuts_transition_reads_the_device_once_per_leapfrog(setups,
         assert n_leaf <= reads <= n_leaf + 1 <= 2 * n_leaf, runs
     assert any(n < 15 for n, _ in runs), runs    # a tree stopped on a gate
     assert 2 <= eps_reads <= 31
+
+
+# ---------------------------------------------------------------------------
+# the steppable fit: one Adam step and one L-BFGS iteration a call
+# ---------------------------------------------------------------------------
+
+def _adam_as_it_was(neg_logpost, z0, n_steps, learning_rate):
+    """The Adam loop of map_fit before it advanced one step a call."""
+    z = z0.detach().clone().requires_grad_()
+    opt = torch.optim.Adam([z], lr=learning_rate)
+    losses = []
+    for _ in range(n_steps):
+        opt.zero_grad(set_to_none=True)
+        loss = neg_logpost(z)
+        loss.backward()
+        with torch.no_grad():
+            z.grad = torch.where(torch.isfinite(z.grad), z.grad,
+                                 torch.zeros_like(z.grad))
+        opt.step()
+        losses.append(loss.detach())
+    return z.detach(), torch.stack(losses)
+
+
+def _polish_as_it_was(neg_logpost, z0, n_steps):
+    """The L-BFGS loop of lbfgs_polish before it advanced one iteration a
+    call: its undo and restart rules."""
+    z = z0.detach().clone().requires_grad_()
+    opt = torch.optim.LBFGS([z], lr=1.0, max_iter=1, max_eval=16,
+                            history_size=10, tolerance_grad=0.0,
+                            tolerance_change=0.0,
+                            line_search_fn='strong_wolfe')
+
+    def closure():
+        opt.zero_grad(set_to_none=True)
+        loss = neg_logpost(z)
+        loss.backward()
+        with torch.no_grad():
+            z.grad = torch.where(torch.isfinite(z.grad), z.grad,
+                                 torch.zeros_like(z.grad))
+        return loss
+
+    losses = []
+    fresh = True
+    for _ in range(n_steps):
+        before = z.detach().clone()
+        loss = opt.step(closure)
+        losses.append(float(loss.detach()))
+        if not bool(torch.isfinite(z).all()):
+            with torch.no_grad():
+                z.copy_(before)
+            break
+        if torch.equal(z.detach(), before):
+            if fresh:
+                break
+            opt.state.clear()
+            fresh = True
+        else:
+            fresh = False
+    return z.detach(), losses
+
+
+def _stepped_polish(neg_logpost, z0, n_steps):
+    polish = tm.LBFGSPolish(neg_logpost, z0)
+    losses = []
+    for _ in range(n_steps):
+        losses.append(polish.step())
+        if polish.done:
+            break
+    return polish.z.detach(), losses, polish
+
+
+def test_the_fit_steps_are_the_loops_as_they_were(setups):
+    # map_fit, map_fit_multistart and lbfgs_polish loop over adam_step and
+    # LBFGSPolish.step; a caller stepping them by hand runs the same bits
+    _, _, held = setups
+    _, _, _, ts = held[True]
+    neg, _, _ = tm._make_objective(ts, True)
+    z0 = tm.initial_z(ts, True)
+    want_z, want_losses = _adam_as_it_was(neg, z0, 4, 0.02)
+    fit = tm.map_fit(ts, n_steps=4, use_sprd=True)
+    assert np.array_equal(fit['z'], want_z.numpy())
+    assert np.array_equal(fit['losses'], want_losses.numpy())
+    z, opt = tm.adam_start(z0, 0.02)
+    losses = torch.stack([tm.adam_step(neg, z, opt) for _ in range(4)])
+    assert torch.equal(z.detach(), want_z)
+    assert torch.equal(losses, want_losses)
+    # the starts: the reference's first, then the seeded prior draws
+    multi = tm.map_fit_multistart(ts, n_starts=3, seed=5, n_steps=2,
+                                  use_sprd=True)
+    starts = tm.start_points(ts, True, torch.Generator().manual_seed(5), 3)
+    ends = [_adam_as_it_was(neg, s, 2, 0.02) for s in starts]
+    assert torch.equal(starts[0], z0)
+    np.testing.assert_array_equal(
+        multi['start_logps'], -np.asarray([float(l[-1]) for _, l in ends]))
+    assert np.array_equal(multi['z'], ends[multi['best_start']][0].numpy())
+    # the polish from Adam's end, through lbfgs_polish and by hand
+    want_z, want_losses = _polish_as_it_was(neg, want_z, 8)
+    got = tm.lbfgs_polish(ts, fit['z'], n_steps=8, use_sprd=True)
+    assert np.array_equal(got['z'], want_z.numpy())
+    assert got['losses'].tolist() == np.asarray(want_losses,
+                                                np.float32).tolist()
+    z, losses, _ = _stepped_polish(neg, torch.as_tensor(fit['z']), 8)
+    assert torch.equal(z, want_z) and losses == want_losses
+
+
+@pytest.mark.parametrize('case', ['restart', 'undo', 'restart_late'])
+def test_the_polish_keeps_its_undo_and_restart_rules(case):
+    # toy objectives that take each branch: a quadratic met exactly (no
+    # step, a restart from steepest descent that finds none either: the
+    # end), a slope so steep that the line search leaves the floats (the
+    # iteration undone: the end), a quartic that restarts after its
+    # memory has moved it
+    f, z0, ends_by = {
+        'restart': (lambda z: (z ** 2).sum(), [1.0, -2.0], 'stuck'),
+        'undo': (lambda z: -(3e38 * z).sum(), [1.0], 'undone'),
+        'restart_late': (lambda z: (z ** 4).sum() - z.sum(), [3.0, 1.0],
+                         'stuck')}[case]
+    z0 = torch.tensor(z0)
+    want_z, want_losses = _polish_as_it_was(f, z0, 30)
+    z, losses, polish = _stepped_polish(f, z0, 30)
+    assert torch.equal(z, want_z) and losses == want_losses
+    assert polish.done and len(losses) < 30
+    if ends_by == 'stuck':
+        # the last two iterations found no step: the restart, then the end
+        assert polish.fresh and losses[-1] == losses[-2]
+    else:
+        assert not polish.fresh and bool(torch.isfinite(z).all())
+        assert not math.isfinite(losses[-1])
+
+
+def test_the_fit_opens_its_spans_and_counts(setups):
+    from parasitoids_tpu_torch.utils import trace
+    _, _, held = setups
+    _, _, _, ts = held[True]
+    neg, _, _ = tm._make_objective(ts, True)
+    calls = []
+
+    def counted(z):
+        calls.append(1)
+        return neg(z)
+    z, opt = tm.adam_start(tm.initial_z(ts, True), 0.02)
+    trace.clear()
+    tm.adam_step(counted, z, opt)
+    assert trace.records() == []                # off by default
+    before = (tm.EVALS, tm.ADAM_STEPS, tm.LBFGS_ITERS)
+    trace.enable()
+    try:
+        for _ in range(2):
+            tm.adam_step(counted, z, opt)
+        _, losses, _ = _stepped_polish(counted, z, 3)
+    finally:
+        trace.disable()
+    evals, adam, lbfgs = (a - b for a, b in zip(
+        (tm.EVALS, tm.ADAM_STEPS, tm.LBFGS_ITERS), before))
+    assert (adam, lbfgs) == (2, len(losses))
+    assert evals == len(calls) - 1 > adam + lbfgs    # line-search trials
+    recs = trace.records()
+    trace.clear()
+    by_id = {r.id: r for r in recs}
+    steps = [r for r in recs if r.name == 'map.step']
+    evs = [r for r in recs if r.name == 'map.eval']
+    assert len(steps) == adam + lbfgs and len(evs) == evals
+    # each step a request of its own; each evaluation inside a step, of
+    # its request; the likelihood's host read inside an evaluation
+    assert len({r.request for r in steps}) == len(steps)
+    for r in evs:
+        parent = by_id[r.parent]
+        assert parent.name == 'map.step' and r.request == parent.request
+        assert parent.start <= r.start <= r.end <= parent.end
+    reads = [r for r in recs if r.name == 'model.host_read']
+    assert len(reads) == evals
+    assert all(by_id[r.parent].name == 'map.eval' for r in reads)
+
+
+def test_cli_time_per_evaluation_counts_every_start(tmp_path, monkeypatch,
+                                                    capsys):
+    # 8 s of optimization over 2 starts of 2 steps: 2 s a value+gradient
+    import types
+    clock = iter([100.0, 108.0])
+    monkeypatch.setattr(tm, 'time', types.SimpleNamespace(
+        time=lambda: next(clock, 108.0)))
+    tm.main(['--MAP', '--steps', '2', '--starts', '2', '-o',
+             str(tmp_path / 'map_fit.txt'), *MAP_SMALL], device='cpu')
+    printed = capsys.readouterr().out
+    assert ('optimization: 8.0 s for 2 steps of 2 start(s) (2.00 sec./model '
+            'eval incl. gradient)') in printed
